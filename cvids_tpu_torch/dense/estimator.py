@@ -1,0 +1,256 @@
+"""Multi-view dense depth estimation pipeline (port of
+``cvids_tpu/dense/estimator.py``).
+
+A reference keyframe accumulates a plane-sweep cost volume over subsequent
+measurement frames (running mean), optionally biased toward sparse VIO
+depths; SGM + WTA give a depth measurement that a Gaussian×Beta filter
+fuses; `finalize` masks unconverged pixels. On the card, one
+`fuse_measurement` runs the alignment warp, the sweep, both SGM orientations
+and the WTA as the four CUDA kernels of ``ops/cuda_kernels.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import costvolume, depth_filter, sgm
+from ..ops.image import bilinear_sample, image_gradients
+
+__all__ = ["DenseConfig", "DenseState", "init_reference", "fuse_measurement",
+           "finalize", "splat_sparse"]
+
+
+@dataclass(frozen=True)
+class DenseConfig:
+    """Defaults mirror `dense_mapping_parameters.h:19-53`: 128 hypotheses,
+    DEP_SAMPLE = 1/(0.11·461), SGM pi1=16 pi2=64 tau_so=8, sparse bias 15."""
+
+    height: int = 480
+    width: int = 640
+    num_depths: int = 128
+    dep_sample: float = 1.0 / (0.11 * 461.0)  # inverse-depth step
+    pi1: float = 16.0
+    pi2: float = 64.0
+    tau_so: float = 8.0
+    sparse_ratio: float = 15.0
+    tau2_scale: float = 0.05   # measurement variance per (inv-depth step)²
+    min_frames: int = 2
+    # per-pixel SGM penalty modulation from the reference image's texture
+    use_penalty_map: bool = True
+    # cost-volume storage dtype ("bfloat16" or "float32"); the filter is fp32
+    dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The volume dtype as a torch.dtype (the reference's `jdtype`)."""
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def inv_depths(self) -> np.ndarray:
+        return (np.arange(self.num_depths, dtype=np.float32) + 1.0) * self.dep_sample
+
+
+class DenseState(NamedTuple):
+    """Per-reference-keyframe accumulation state (all tensors on one device)."""
+
+    ref_img: torch.Tensor      # (H, W)
+    grad: torch.Tensor         # (H, W) gradient magnitude of ref
+    mean_cost: torch.Tensor    # (H, W, D) running-mean AD cost
+    count: torch.Tensor        # (H, W, D) measurement counts
+    sparse_bias: torch.Tensor | None  # (H, W, D) cost bias (None = no landmarks)
+    penalty: torch.Tensor      # (H, W) per-pixel SGM penalty modulation
+    filt: depth_filter.FilterState
+    num_frames: torch.Tensor   # () int32
+
+
+def init_reference(cfg: DenseConfig, ref_img: torch.Tensor,
+                   sparse_uv: torch.Tensor | None = None,
+                   sparse_inv_depth: torch.Tensor | None = None,
+                   sparse_valid: torch.Tensor | None = None) -> DenseState:
+    """Start a new reference keyframe on `ref_img`'s device."""
+    h, w, d = cfg.height, cfg.width, cfg.num_depths
+    dt = cfg.torch_dtype
+    dev = ref_img.device
+    ref_img = ref_img.to(torch.float32)
+    # no sparse landmarks -> no bias volume to read and add every frame
+    bias = None
+    if sparse_uv is not None:
+        bias = splat_sparse(cfg, sparse_uv, sparse_inv_depth,
+                            sparse_valid).to(dt)
+    grad = image_gradients(ref_img)
+    penalty = (penalty_map(grad) if cfg.use_penalty_map
+               else torch.ones((h, w), dtype=torch.float32, device=dev))
+    return DenseState(
+        ref_img=ref_img,
+        grad=grad,
+        mean_cost=torch.zeros((h, w, d), dtype=dt, device=dev),
+        count=torch.zeros((h, w, d), dtype=dt, device=dev),
+        sparse_bias=bias,
+        penalty=penalty,
+        filt=depth_filter.init_state(h, w, device=dev),
+        num_frames=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def penalty_map(grad: torch.Tensor) -> torch.Tensor:
+    """Per-pixel SGM penalty modulation from reference-image texture, in the
+    reference's bounded scale-free form `0.8 + 1.5 / (1 + (|grad|/mean)^3)`
+    (in (0.8, 2.3])."""
+    g = torch.abs(grad.to(torch.float32))
+    rel = g / torch.clamp(torch.mean(g), min=1e-6)
+    return (0.8 + 1.5 / (1.0 + rel ** 3)).to(torch.float32)
+
+
+def splat_sparse(cfg: DenseConfig, uv: torch.Tensor, inv_depth: torch.Tensor,
+                 valid: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """Cost bias from sparse VIO landmarks: near each projected landmark, add
+    `sparse_ratio * |d_hyp - d_sparse| / dep_sample * w(dist)` to the volume.
+
+    uv: (P, 2) pixel coords in the reference image; inv_depth: (P,).
+    """
+    h, w = cfg.height, cfg.width
+    dev = uv.device
+    hyp = torch.as_tensor(cfg.inv_depths, device=dev)           # (D,)
+    n = h * w
+    px = torch.round(uv[:, 0]).to(torch.int64)
+    py = torch.round(uv[:, 1]).to(torch.int64)
+    ok = valid & (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    flat = torch.where(ok, py * w + px, n)
+    zero = torch.zeros((), device=dev)
+    depth_map = torch.zeros(n + 1, device=dev)
+    depth_map[flat] = torch.where(ok, inv_depth.to(torch.float32), zero)
+    hit = torch.zeros(n + 1, device=dev)
+    hit[flat] = torch.where(ok, torch.ones((), device=dev), zero)
+    depth_map = depth_map[:n].reshape(h, w)
+    hit = hit[:n].reshape(h, w)
+    # dilate the splat over a (2r+1)² window with inverse-distance weights
+    acc_d = torch.zeros((h, w), device=dev)
+    acc_w = torch.zeros((h, w), device=dev)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            wgt = 1.0 / (1.0 + np.hypot(dy, dx))
+            shifted_d = torch.roll(depth_map, (dy, dx), (0, 1))
+            shifted_h = torch.roll(hit, (dy, dx), (0, 1))
+            acc_d = acc_d + shifted_d * shifted_h * wgt
+            acc_w = acc_w + shifted_h * wgt
+    mean_d = torch.where(acc_w > 0, acc_d / torch.clamp(acc_w, min=1e-9), zero)
+    bias = torch.abs(hyp[None, None, :] - mean_d[..., None]) / cfg.dep_sample
+    return bias * cfg.sparse_ratio * torch.clamp(acc_w, max=1.0)[..., None]
+
+
+def fuse_measurement(cfg: DenseConfig, state: DenseState, meas_img: torch.Tensor,
+                     a_mat: torch.Tensor, b_vec: torch.Tensor,
+                     banded_warp: bool | None = None) -> DenseState:
+    """Fuse one measurement frame: cost slice -> running mean -> (bias + SGM
+    + WTA) -> filter.
+
+    a_mat = K_m R_mr K_r^-1, b_vec = K_m t_mr (reference-to-measurement), as
+    tensors on the state's device. `banded_warp` picks the banded alignment
+    warp; hosts with the numpy a_mat in hand gate it on
+    `costvolume.warp_shift_bounds_np`.
+
+    Updates `state.mean_cost` and `state.count` IN PLACE (the two (H, W, D)
+    volumes are not copied per frame); the returned state shares them.
+    """
+    dev = state.ref_img.device
+    inv_depths = torch.as_tensor(cfg.inv_depths, device=dev)
+    c, v = costvolume.plane_sweep_cost(state.ref_img, meas_img.to(torch.float32),
+                                       a_mat, b_vec, inv_depths,
+                                       out_dtype=cfg.torch_dtype,
+                                       banded_warp=banded_warp)
+    mean_cost, count = costvolume.accumulate_cost(state.mean_cost, state.count, c, v)
+
+    # SGM input: unobserved hypotheses get a high constant so they can't win
+    observed = count > 0
+    total = torch.where(observed, mean_cost,
+                        torch.full((), 50.0, dtype=mean_cost.dtype, device=dev))
+    if state.sparse_bias is not None:
+        total = total + state.sparse_bias
+    inv_depth, conf = sgm.sgm_depth(total, state.grad.to(total.dtype),
+                                    inv_depths,
+                                    valid_count=observed.sum(-1),
+                                    min_count=cfg.num_depths * 0.25,
+                                    pi1=cfg.pi1, pi2=cfg.pi2, tau_so=cfg.tau_so,
+                                    penalty_scale=state.penalty)
+    tau2 = torch.full_like(inv_depth, (cfg.dep_sample ** 2) / cfg.tau2_scale)
+    filt = depth_filter.update(state.filt, inv_depth, tau2, conf)
+    return state._replace(mean_cost=mean_cost, count=count, filt=filt,
+                          num_frames=state.num_frames + 1)
+
+
+def finalize(cfg: DenseConfig, state: DenseState,
+             ratio: float = 0.5) -> tuple[torch.Tensor, torch.Tensor]:
+    """(inv_depth (H, W), valid (H, W)): the converged-pixel mask (inlier
+    ratio >= `ratio`) after at least `cfg.min_frames` frames."""
+    ok = depth_filter.converged_mask(state.filt, ratio)
+    ok = ok & (state.num_frames >= cfg.min_frames)
+    return state.filt.mu, ok
+
+
+def propagate_reference(cfg: DenseConfig, prev: DenseState,
+                        new_ref_img: torch.Tensor,
+                        r_no: torch.Tensor, t_no: torch.Tensor,
+                        k_mat: torch.Tensor,
+                        sparse_bias: torch.Tensor | None = None) -> DenseState:
+    """Start a new reference keyframe seeded from the previous one's filter
+    state, forward-warped through the relative transform old-cam -> new-cam,
+    so depth knowledge survives reference switches."""
+    st = init_reference(cfg, new_ref_img)
+    filt = depth_filter.propagate(prev.filt, r_no, t_no, k_mat,
+                                  torch.linalg.inv(k_mat))
+    if sparse_bias is not None:
+        st = st._replace(sparse_bias=sparse_bias.to(cfg.torch_dtype))
+    return st._replace(filt=filt)
+
+
+def regularize_depth(state: DenseState, strength: float = 1.0) -> DenseState:
+    """Covariance-weighted 3×3 smoothing of the inverse-depth map: each
+    pixel averages its neighborhood with weights 1/(sigma² + eps), pulled
+    toward the center by `strength`; only converged-ish pixels vote."""
+    mu, s2 = state.filt.mu, state.filt.sigma2
+    w = 1.0 / (s2 + 1e-4)
+    w = w * (state.filt.a / torch.clamp(state.filt.a + state.filt.b, min=1e-9))
+    num = torch.zeros_like(mu)
+    den = torch.zeros_like(mu)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if (dy, dx) == (0, 0):
+                wgt = 1.0
+            else:
+                wgt = strength / torch.sqrt(
+                    torch.tensor(float(dy * dy + dx * dx), device=mu.device))
+            mu_s = torch.roll(mu, (dy, dx), (0, 1))
+            w_s = torch.roll(w, (dy, dx), (0, 1)) * wgt
+            num = num + mu_s * w_s
+            den = den + w_s
+    mu_new = torch.where(den > 1e-9, num / torch.clamp(den, min=1e-9), mu)
+    return state._replace(filt=state.filt._replace(mu=mu_new))
+
+
+def validate_photometric(cfg: DenseConfig, state: DenseState,
+                         meas_img: torch.Tensor, a_mat: torch.Tensor,
+                         b_vec: torch.Tensor,
+                         max_err: float = 20.0) -> torch.Tensor:
+    """Photometric validation mask: warp each reference pixel into the
+    measurement frame at its estimated inverse depth and keep pixels whose
+    absolute intensity error is below `max_err`. Pixels whose warp lands
+    outside the measurement are unvalidatable and kept."""
+    h, w = cfg.height, cfg.width
+    dev = state.ref_img.device
+    u = torch.arange(w, dtype=torch.float32, device=dev)
+    v = torch.arange(h, dtype=torch.float32, device=dev)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    base = torch.einsum("ij,jhw->ihw", a_mat,
+                        torch.stack([uu, vv, torch.ones_like(uu)]))
+    p = base + b_vec[:, None, None] * state.filt.mu[None]
+    z = torch.where(torch.abs(p[2]) > 1e-6, p[2], torch.full_like(p[2], 1e-6))
+    coords = torch.stack([p[0] / z, p[1] / z], dim=-1)
+    warped = bilinear_sample(meas_img.to(torch.float32), coords, fill=math.nan)
+    err = torch.abs(warped - state.ref_img)
+    in_view = ((coords[..., 0] >= 0) & (coords[..., 0] <= w - 1)
+               & (coords[..., 1] >= 0) & (coords[..., 1] <= h - 1))
+    return ~in_view | (torch.isfinite(err) & (err < max_err))

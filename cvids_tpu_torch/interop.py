@@ -1,0 +1,109 @@
+"""Carry states between the JAX package and this port.
+
+The ``*_to_torch`` functions take a state of the JAX package whose leaves
+are numpy arrays (``np.asarray`` of each JAX array) — any object with the
+state's field names — and return the port's state as tensors on `device`.
+The ``*_to_numpy`` functions go back: the port's state type with numpy
+leaves, in field order, ready for the JAX package's constructors after
+``jnp.asarray``. numpy has no bfloat16 of its own, so bf16 leaves come back
+as float32 (exact). Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .dense.estimator import DenseState
+from .ops.depth_filter import FilterState
+from .server.optimizer import PoseGraphEdges, PoseGraphNodes
+
+__all__ = ["array_to_torch", "tensor_to_numpy",
+           "dense_state_to_torch", "dense_state_to_numpy",
+           "filter_state_to_torch", "filter_state_to_numpy",
+           "nodes_to_torch", "nodes_to_numpy", "edges_to_torch", "edges_to_numpy"]
+
+
+def array_to_torch(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """numpy array (bf16 arrays included, as ml_dtypes stores them) ->
+    tensor on `device`, optionally cast to `dtype`."""
+    a = np.array(a, copy=True, order="C")   # the port may update in place
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy on the host; bf16 becomes float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def filter_state_to_torch(s, device) -> FilterState:
+    return FilterState(*(array_to_torch(getattr(s, f), device, torch.float32)
+                         for f in FilterState._fields))
+
+
+def filter_state_to_numpy(s: FilterState) -> FilterState:
+    return FilterState(*(tensor_to_numpy(x) for x in s))
+
+
+def dense_state_to_torch(s, device) -> DenseState:
+    """A JAX `DenseState` with numpy leaves (sparse_bias may be None)."""
+    bias = s.sparse_bias
+    return DenseState(
+        ref_img=array_to_torch(s.ref_img, device),
+        grad=array_to_torch(s.grad, device),
+        mean_cost=array_to_torch(s.mean_cost, device),
+        count=array_to_torch(s.count, device),
+        sparse_bias=None if bias is None else array_to_torch(bias, device),
+        penalty=array_to_torch(s.penalty, device),
+        filt=filter_state_to_torch(s.filt, device),
+        num_frames=array_to_torch(s.num_frames, device, torch.int32))
+
+
+def dense_state_to_numpy(s: DenseState) -> DenseState:
+    return DenseState(
+        ref_img=tensor_to_numpy(s.ref_img),
+        grad=tensor_to_numpy(s.grad),
+        mean_cost=tensor_to_numpy(s.mean_cost),
+        count=tensor_to_numpy(s.count),
+        sparse_bias=None if s.sparse_bias is None else tensor_to_numpy(s.sparse_bias),
+        penalty=tensor_to_numpy(s.penalty),
+        filt=filter_state_to_numpy(s.filt),
+        num_frames=tensor_to_numpy(s.num_frames))
+
+
+def nodes_to_torch(s, device) -> PoseGraphNodes:
+    return PoseGraphNodes(
+        yaw=array_to_torch(s.yaw, device), pr=array_to_torch(s.pr, device),
+        t=array_to_torch(s.t, device),
+        valid=array_to_torch(s.valid, device, torch.bool),
+        fixed=array_to_torch(s.fixed, device, torch.bool))
+
+
+def nodes_to_numpy(s: PoseGraphNodes) -> PoseGraphNodes:
+    return PoseGraphNodes(*(tensor_to_numpy(x) for x in s))
+
+
+def edges_to_torch(s, device) -> PoseGraphEdges:
+    """Edge indices become int64 (torch's index type)."""
+    return PoseGraphEdges(
+        i=array_to_torch(s.i, device, torch.int64),
+        j=array_to_torch(s.j, device, torch.int64),
+        t_ij=array_to_torch(s.t_ij, device), yaw_ij=array_to_torch(s.yaw_ij, device),
+        t_weight=array_to_torch(s.t_weight, device),
+        yaw_weight=array_to_torch(s.yaw_weight, device),
+        valid=array_to_torch(s.valid, device, torch.bool),
+        huber=array_to_torch(s.huber, device))
+
+
+def edges_to_numpy(s: PoseGraphEdges) -> PoseGraphEdges:
+    """Edge indices go back as int32, the JAX package's index type."""
+    arrs = [tensor_to_numpy(x) for x in s]
+    return PoseGraphEdges(arrs[0].astype(np.int32), arrs[1].astype(np.int32), *arrs[2:])

@@ -1,0 +1,378 @@
+"""CUDA kernels of the dense step and their plain PyTorch twins (the
+counterpart of ``cvids_tpu/ops/pallas_kernels.py``).
+
+Each kernel has a wrapper and a twin with the same contract:
+
+- `projective_warp_banded` — banded two-pass alignment warp
+  (``csrc/warp_banded.cu``);
+- `plane_sweep` — per-depth AD cost with the 3x3 box, written as an
+  (H, W, D) volume with the -1 sentinel (``csrc/plane_sweep.cu``);
+- `sgm_scan_bidir` — forward + backward SGM scan along axis 0 or 1 of a
+  volume, pair-summed in the cost dtype (``csrc/sgm_scan.cu``);
+- `wta` — fused winner-take-all over summed part volumes (``csrc/wta.cu``).
+
+Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
+tensors it launches its kernel, or raises on anything the kernel does not
+take. There is no fallback from a CUDA tensor to a twin. Each launch adds
+one to ``launches[name]``, so a run can show which kernels its path went
+through. Callers reach the wrappers as attributes of this module
+(``cuda_kernels.plane_sweep(...)``).
+
+Kernels need D a multiple of 32 with D <= 256; the twins take any D.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .image import warp_pass_positions
+
+__all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
+           "projective_warp_banded_twin", "plane_sweep_twin",
+           "sgm_scan_bidir_twin", "wta_twin", "launches", "reset_launches"]
+
+launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0}
+
+_BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
+_VOLUME_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (the twin runs), True for CUDA tensors (the
+    kernel runs); anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"kernel inputs must all be on the CPU or all on one "
+                     f"CUDA device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def _require(t: torch.Tensor, name: str, shape: tuple, dtypes) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _require_depths(d: int) -> None:
+    if d % 32 != 0 or not 32 <= d <= 256:
+        raise ValueError(f"the CUDA kernels take D a multiple of 32 with "
+                         f"D <= 256, got D = {d}")
+
+
+def _launch(name: str, fn_name: str, device: torch.device, *args) -> None:
+    from .. import _build
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        msg = lib.cvids_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
+    launches[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# Banded two-pass projective warp
+# ---------------------------------------------------------------------------
+
+
+def _banded_pass(vals: torch.Tensor, pos: torch.Tensor, band: int,
+                 with_coverage: bool):
+    """out[c, r, u] = sum over the two taps k in {floor(pos - u), +1} with
+    |k| <= band of hat(pos - u - k) * vals[c, r, u + k]; taps outside the
+    row add 0. Also returns the row-pass coverage (the in-image weights)
+    when `with_coverage`."""
+    length = vals.shape[-1]
+    u = torch.arange(pos.shape[-1], dtype=torch.float32, device=pos.device)
+    delta = pos - u
+    k0 = torch.floor(delta)
+    zero = torch.zeros((), device=pos.device)
+    acc = torch.zeros_like(vals)
+    cov = torch.zeros_like(pos)
+    for t in (0.0, 1.0):
+        k = k0 + t
+        wk = torch.clamp(1.0 - torch.abs(delta - k), min=0.0)
+        x = u + k
+        use = (torch.abs(k) <= band) & (x >= 0) & (x <= length - 1)
+        xi = x.clamp(0, length - 1).to(torch.int64)
+        tap = torch.gather(vals, 2, xi.expand(vals.shape[0], -1, -1))
+        acc = acc + torch.where(use, wk * tap, zero)
+        if with_coverage:
+            cov = cov + torch.where(use, wk, zero)
+    return acc, cov
+
+
+def projective_warp_banded_twin(img: torch.Tensor, m: torch.Tensor,
+                                band_x: int = 96, band_y: int = 48):
+    """Plain PyTorch twin of `projective_warp_banded`."""
+    h, w = img.shape
+    g, y_in = warp_pass_positions(m, h, w)
+    tmp, cov1 = _banded_pass(img.to(torch.float32)[None], g, band_x, True)
+    # column pass on the transposed planes: rows are image columns u
+    cols = torch.stack([tmp[0].T, cov1.T])                     # (2, W, H)
+    out, _ = _banded_pass(cols, y_in.T, band_y, False)
+    return out[0].T.contiguous(), out[1].T.contiguous()
+
+
+def projective_warp_banded(img: torch.Tensor, m: torch.Tensor,
+                           band_x: int = 96, band_y: int = 48):
+    """Banded-shift projective warp: the contract of
+    `ops.image.projective_warp_mxu` — returns (warped·coverage, coverage),
+    each (H, W) fp32 — wherever the per-pass shifts stay within
+    (band_x, band_y); larger shifts yield coverage 0.
+
+    img: (H, W) fp32; m: (3, 3) with [x_in, y_in, 1] ~ m @ [u, v, 1]."""
+    if not _on_cuda(img, m):
+        return projective_warp_banded_twin(img, m, band_x, band_y)
+    if img.ndim != 2 or m.shape != (3, 3):
+        raise ValueError(f"img must be (H, W) and m (3, 3), got "
+                         f"{tuple(img.shape)} and {tuple(m.shape)}")
+    h, w = img.shape
+    _require(img, "img", (h, w), (torch.float32,))
+    g, y_in = warp_pass_positions(m, h, w)     # (H, W) fp32, contiguous
+    tmp = torch.empty_like(img)
+    cov1 = torch.empty_like(img)
+    out = torch.empty_like(img)
+    cov = torch.empty_like(img)
+    _launch("warp_banded", "cvids_warp_banded", img.device,
+            img.data_ptr(), g.data_ptr(), y_in.data_ptr(), tmp.data_ptr(),
+            cov1.data_ptr(), out.data_ptr(), cov.data_ptr(),
+            h, w, int(band_x), int(band_y))
+    return out, cov
+
+
+# ---------------------------------------------------------------------------
+# Plane-sweep AD cost
+# ---------------------------------------------------------------------------
+
+
+def plane_sweep_twin(ref: torch.Tensor, meas_al: torch.Tensor,
+                     pos_x: torch.Tensor, pos_y: torch.Tensor,
+                     mx: torch.Tensor, my: torch.Tensor,
+                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch twin of `plane_sweep`, 32 depths at a time (bounds the
+    (depths, H, W) fp32 temporaries)."""
+    chunk = 32
+    h, w = ref.shape
+    d = pos_x.shape[0]
+    dev = ref.device
+    ref = ref.to(torch.float32)
+    meas = meas_al.to(torch.float32)
+    nine = torch.full((), 9.0, device=dev)
+    zero = torch.zeros((), device=dev)
+    rows = torch.arange(h, device=dev)
+    cols = torch.arange(w, device=dev)
+    out = torch.empty((h, w, d), dtype=out_dtype, device=dev)
+    for d0 in range(0, d, chunk):
+        sl = slice(d0, min(d0 + chunk, d))
+        px = pos_x[sl, None, :]                                  # (Dc, 1, W)
+        py = pos_y[sl, :, None]                                  # (Dc, H, 1)
+        m0 = mx[sl, 0, None, :] + my[sl, 0, :, None]            # (Dc, H, W)
+        m1 = mx[sl, 1, None, :] + my[sl, 1, :, None]
+        m2 = mx[sl, 2, None, :] + my[sl, 2, :, None]
+        valid = ((px >= 0.0) & (px <= w - 1.0) & (py >= 0.0) & (py <= h - 1.0)
+                 & (m2 > 1e-6) & (m0 >= 0.0) & (m0 <= (w - 1.0) * m2)
+                 & (m1 >= 0.0) & (m1 <= (h - 1.0) * m2))
+        x0, y0 = torch.floor(px), torch.floor(py)
+        wx0 = torch.clamp(1.0 - torch.abs(px - x0), min=0.0)
+        wx1 = torch.clamp(1.0 - torch.abs(px - (x0 + 1.0)), min=0.0)
+        wy0 = torch.clamp(1.0 - torch.abs(py - y0), min=0.0)
+        wy1 = torch.clamp(1.0 - torch.abs(py - (y0 + 1.0)), min=0.0)
+        xi0 = x0.clamp(0, w - 1).to(torch.int64)
+        yi0 = y0.clamp(0, h - 1).to(torch.int64)
+        xi1 = (xi0 + 1).clamp(max=w - 1)
+        yi1 = (yi0 + 1).clamp(max=h - 1)
+        r0 = wx0 * meas[yi0, xi0] + wx1 * meas[yi0, xi1]
+        r1 = wx0 * meas[yi1, xi0] + wx1 * meas[yi1, xi1]
+        warped = wy0 * r0 + wy1 * r1
+        ad = torch.where(valid, torch.abs(warped - ref), zero)
+        # 3x3 box, edge-replicated, summed in the reference's tap order
+        acc = torch.zeros_like(ad)
+        for dy in range(3):
+            ady = ad[:, (rows + dy - 1).clamp(0, h - 1)]
+            for dx in range(3):
+                acc = acc + ady[:, :, (cols + dx - 1).clamp(0, w - 1)]
+        c = torch.where(valid, torch.clamp(acc / nine, min=0.0),
+                        torch.full((), -1.0, device=dev))
+        out[:, :, sl] = c.permute(1, 2, 0).to(out_dtype)
+    return out
+
+
+def plane_sweep(ref: torch.Tensor, meas_al: torch.Tensor,
+                pos_x: torch.Tensor, pos_y: torch.Tensor,
+                mx: torch.Tensor, my: torch.Tensor,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plane-sweep AD cost over all depths, as an (H, W, D) volume in
+    `out_dtype` with -1 marking samples whose centre is out of view.
+
+    ref, meas_al: (H, W) fp32 (meas_al = the measurement pre-warped by A and
+    coverage-renormalized); pos_x (D, W), pos_y (D, H), mx (D, 3, W),
+    my (D, 3, H) fp32 from `ops.costvolume._sweep_positions`. Each sample is
+    the bilinear value of meas_al at (pos_x[d, p], pos_y[d, q]); the cost is
+    the 3x3 edge-replicated box mean of |sample - ref| with invalid taps 0."""
+    if not _on_cuda(ref, meas_al, pos_x, pos_y, mx, my):
+        return plane_sweep_twin(ref, meas_al, pos_x, pos_y, mx, my, out_dtype)
+    h, w = ref.shape
+    d = pos_x.shape[0]
+    f32 = (torch.float32,)
+    _require(ref, "ref", (h, w), f32)
+    _require(meas_al, "meas_al", (h, w), f32)
+    _require(pos_x, "pos_x", (d, w), f32)
+    _require(pos_y, "pos_y", (d, h), f32)
+    _require(mx, "mx", (d, 3, w), f32)
+    _require(my, "my", (d, 3, h), f32)
+    _require_depths(d)
+    if out_dtype not in _VOLUME_DTYPES:
+        raise ValueError(f"out_dtype {out_dtype} not in {_VOLUME_DTYPES}")
+    # depth-innermost tables, so the kernel's depth-parallel reads coalesce
+    pos_x_t = pos_x.T.contiguous()                               # (W, D)
+    pos_y_t = pos_y.T.contiguous()                               # (H, D)
+    mx_t = mx.permute(1, 2, 0).contiguous()                      # (3, W, D)
+    my_t = my.permute(1, 2, 0).contiguous()                      # (3, H, D)
+    out = torch.empty((h, w, d), dtype=out_dtype, device=ref.device)
+    _launch("plane_sweep", "cvids_plane_sweep", ref.device,
+            ref.data_ptr(), meas_al.data_ptr(), pos_x_t.data_ptr(),
+            pos_y_t.data_ptr(), mx_t.data_ptr(), my_t.data_ptr(),
+            out.data_ptr(), h, w, d, int(out_dtype == torch.bfloat16))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional SGM scan
+# ---------------------------------------------------------------------------
+
+
+def _sgm_step(l_prev: torch.Tensor, c: torch.Tensor, p2: torch.Tensor,
+              p1: torch.Tensor) -> torch.Tensor:
+    """One fp32 recurrence step on an (X, D) slice."""
+    big = torch.full_like(l_prev[:, :1], _BIG)
+    sp = torch.cat([big, l_prev[:, :-1]], dim=1)
+    sm = torch.cat([l_prev[:, 1:], big], dim=1)
+    min_prev = torch.amin(l_prev, dim=-1, keepdim=True)
+    cand = torch.minimum(
+        l_prev, torch.minimum(torch.minimum(sp, sm) + p1, min_prev + p2[:, None]))
+    return c + cand - min_prev
+
+
+def sgm_scan_bidir_twin(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
+                        axis: int = 0) -> torch.Tensor:
+    """Plain PyTorch twin of `sgm_scan_bidir`: fp32 carries, each direction
+    rounded to the cost dtype, then added in the cost dtype."""
+    c = torch.movedim(cost, axis, 0)
+    p2 = torch.movedim(p2_eff, axis, 0)
+    p1 = torch.as_tensor(p1, device=cost.device).to(torch.float32)
+    s = c.shape[0]
+
+    def run(order):
+        out = torch.empty_like(c)
+        lv = c[order[0]].to(torch.float32)
+        out[order[0]] = c[order[0]]
+        for i in order[1:]:
+            lv = _sgm_step(lv, c[i].to(torch.float32), p2[i].to(torch.float32), p1)
+            out[i] = lv.to(cost.dtype)
+        return out
+
+    total = run(list(range(s))) + run(list(range(s - 1, -1, -1)))
+    return torch.movedim(total, 0, axis).contiguous()
+
+
+def sgm_scan_bidir(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
+                   axis: int = 0) -> torch.Tensor:
+    """Forward + backward SGM aggregation along `axis` (0 or 1) of a 3-D
+    cost volume whose last axis is D; returns dtype(fwd) + dtype(bwd) in the
+    cost dtype. axis=0 is the contract of the reference's `sgm_scan_bidir`
+    on (S, X, D), axis=1 that of `sgm_scan_bidir_axis1` on (H, W, D).
+
+    p2_eff: cost.shape[:2], in the cost dtype; p1: scalar (a tensor stays on
+    the device, so no host sync is needed). The first row of each direction
+    is the cost itself; carries are fp32."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    p1_t = torch.as_tensor(p1, device=cost.device)
+    if not _on_cuda(cost, p2_eff, p1_t):
+        return sgm_scan_bidir_twin(cost, p2_eff, p1_t, axis)
+    if cost.ndim != 3:
+        raise ValueError(f"cost must be 3-D, got shape {tuple(cost.shape)}")
+    a, b, d = cost.shape
+    _require(cost, "cost", (a, b, d), _VOLUME_DTYPES)
+    _require(p2_eff, "p2_eff", (a, b), (cost.dtype,))
+    if p1_t.numel() != 1:
+        raise ValueError("p1 must be a scalar")
+    _require_depths(d)
+    p1_f = p1_t.reshape(1).to(torch.float32).contiguous()
+    out = torch.empty_like(cost)
+    if axis == 0:   # scan over rows a, lines b
+        s, x, cs_s, cs_x, p2_s, p2_x = a, b, b * d, d, b, 1
+    else:           # scan over columns b, lines a
+        s, x, cs_s, cs_x, p2_s, p2_x = b, a, d, b * d, 1, b
+    _launch("sgm_scan", "cvids_sgm_scan_bidir", cost.device,
+            cost.data_ptr(), p2_eff.data_ptr(), p1_f.data_ptr(), out.data_ptr(),
+            s, x, d, cs_s, cs_x, p2_s, p2_x, int(cost.dtype == torch.bfloat16))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fused winner-take-all
+# ---------------------------------------------------------------------------
+
+
+def wta_twin(*vols: torch.Tensor, peak_ratio: float = 0.98):
+    """Plain PyTorch twin of `wta`."""
+    x = vols[0].to(torch.float32)
+    for v in vols[1:]:
+        x = x + v.to(torch.float32)
+    d = x.shape[-1]
+    lane = torch.arange(d, device=x.device)
+    c0 = torch.amin(x, dim=-1)
+    idx = torch.where(x == c0[..., None], lane, d).amin(dim=-1)  # first min
+    cm = torch.gather(x, -1, (idx - 1).clamp(min=0)[..., None])[..., 0]
+    cp = torch.gather(x, -1, (idx + 1).clamp(max=d - 1)[..., None])[..., 0]
+    denom = cm + cp - 2.0 * c0
+    delta = torch.where(denom > 1e-6,
+                        0.5 * (cm - cp) / torch.clamp(denom, min=1e-6),
+                        torch.zeros((), device=x.device))
+    idx_f = idx.to(torch.float32) + torch.clamp(delta, -1.0, 1.0)
+    masked = torch.where(torch.abs(lane - idx[..., None]) <= 1,
+                         torch.full((), _BIG, device=x.device), x)
+    c2 = torch.amin(masked, dim=-1)
+    conf = (c0 < peak_ratio * c2) & (idx > 0) & (idx < d - 1)
+    return idx_f, conf
+
+
+def wta(*vols: torch.Tensor, peak_ratio: float = 0.98):
+    """WTA over the summed volume `sum(vols)` (1 to 4 (H, W, D) volumes,
+    summed in fp32 in the kernel, never in memory). Returns (idx_f (H, W)
+    fp32, conf (H, W) bool) with the semantics of `ops.sgm.wta_depth`
+    minus the valid_count gate, which the caller applies on (H, W) maps."""
+    if not vols:
+        raise ValueError("wta needs at least one volume")
+    if not _on_cuda(*vols):
+        return wta_twin(*vols, peak_ratio=peak_ratio)
+    if len(vols) > 4:
+        raise ValueError(f"the WTA kernel takes 1 to 4 volumes, got {len(vols)}")
+    if vols[0].ndim != 3:
+        raise ValueError(f"volumes must be (H, W, D), got {tuple(vols[0].shape)}")
+    h, w, d = vols[0].shape
+    for i, v in enumerate(vols):
+        _require(v, f"vols[{i}]", (h, w, d), (vols[0].dtype,))
+    if vols[0].dtype not in _VOLUME_DTYPES:
+        raise ValueError(f"volume dtype {vols[0].dtype} not in {_VOLUME_DTYPES}")
+    _require_depths(d)
+    dev = vols[0].device
+    idx_f = torch.empty((h, w), dtype=torch.float32, device=dev)
+    conf = torch.empty((h, w), dtype=torch.bool, device=dev)
+    ptrs = [v.data_ptr() for v in vols] + [0] * (4 - len(vols))
+    _launch("wta", "cvids_wta", dev, *ptrs, len(vols), idx_f.data_ptr(),
+            conf.data_ptr(), h * w, d, int(vols[0].dtype == torch.bfloat16),
+            float(peak_ratio))
+    return idx_f, conf

@@ -1,0 +1,324 @@
+"""Port parity: the PyTorch ops of the dense step and the geometry helpers
+against `cvids_tpu` on the same numpy inputs (CPU, small shapes).
+
+JAX runs op by op here (no jit), so where the port rounds at the reference's
+points the results agree to the last bit or nearly; each tolerance says why
+it is what it is.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cvids_tpu.geometry import rotations as jrot
+from cvids_tpu.ops import costvolume as jcv
+from cvids_tpu.ops import depth_filter as jdf
+from cvids_tpu.ops import image as jim
+from cvids_tpu.ops import sgm as jsgm
+from cvids_tpu_torch.geometry import rotations as trot
+from cvids_tpu_torch.ops import costvolume as tcv
+from cvids_tpu_torch.ops import depth_filter as tdf
+from cvids_tpu_torch.ops import image as tim
+from cvids_tpu_torch.ops import sgm as tsgm
+
+H, W, D = 24, 40, 16
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _rot(ax_a, ax_b):
+    ca, sa, cb, sb = np.cos(ax_a), np.sin(ax_a), np.cos(ax_b), np.sin(ax_b)
+    rx = np.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]])
+    ry = np.array([[cb, 0, sb], [0, 1, 0], [-sb, 0, cb]])
+    return rx @ ry
+
+
+def _homography(kind):
+    k = np.array([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]])
+    r = np.eye(3) if kind == "identity" else _rot(0.03, -0.05)
+    return (k @ r @ np.linalg.inv(k)).astype(np.float32), k.astype(np.float32)
+
+
+def _image(rng, h=H, w=W):
+    return rng.uniform(0, 255, (h, w)).astype(np.float32)
+
+
+def test_sobel_and_gradients(rng):
+    img = _image(rng)
+    gx_j, gy_j = jim.sobel(jnp.asarray(img))
+    gx_t, gy_t = tim.sobel(_t(img))
+    # 3-tap fp32 sums of small integers times intensities: exact
+    np.testing.assert_array_equal(_np(gx_t), np.asarray(gx_j))
+    np.testing.assert_array_equal(_np(gy_t), np.asarray(gy_j))
+    # the square root may round differently by one ulp
+    np.testing.assert_allclose(_np(tim.image_gradients(_t(img))),
+                               np.asarray(jim.image_gradients(jnp.asarray(img))),
+                               rtol=1e-6)
+
+
+def test_bilinear_sample(rng):
+    img = _image(rng)
+    xy = np.stack([rng.uniform(-3, W + 2, (7, 11)),
+                   rng.uniform(-3, H + 2, (7, 11))], -1).astype(np.float32)
+    xy[0, 0] = (W - 1, H - 1)        # the far corner is inside
+    ref = np.asarray(jim.bilinear_sample(jnp.asarray(img), jnp.asarray(xy),
+                                         fill=jnp.nan))
+    out = _np(tim.bilinear_sample(_t(img), _t(xy), fill=float("nan")))
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    # same fp32 expression in the same order
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["identity", "rotation", "degenerate"])
+def test_warp_pass_positions(kind):
+    m, _ = _homography("rotation" if kind == "degenerate" else kind)
+    if kind == "degenerate":
+        m = m.copy()
+        m[1, 1] = 5.0 * m[2, 1]      # row r = 5 has den_v = 0
+    g_j, y_j = jim.warp_pass_positions(jnp.asarray(m), H, W)
+    g_t, y_t = tim.warp_pass_positions(_t(m), H, W)
+    # identical fp32 expressions evaluated op by op
+    np.testing.assert_array_equal(_np(g_t), np.asarray(g_j))
+    np.testing.assert_array_equal(_np(y_t), np.asarray(y_j))
+
+
+@pytest.mark.parametrize("kind", ["identity", "rotation"])
+def test_projective_warp_mxu(rng, kind):
+    img = _image(rng)
+    m, _ = _homography(kind)
+    a_j, c_j = jim.projective_warp_mxu(jnp.asarray(img), jnp.asarray(m))
+    a_t, c_t = tim.projective_warp_mxu(_t(img), _t(m))
+    # the port rounds image, weights and intermediate to bf16 at the
+    # reference's points, and bf16 x bf16 products are exact in fp32, so the
+    # two-tap gathers reproduce the hat-weight matmuls; 1e-3 leaves room for
+    # one fp32 ulp of a 255-scale sum
+    np.testing.assert_allclose(_np(a_t), np.asarray(a_j), atol=1e-3)
+    np.testing.assert_allclose(_np(c_t), np.asarray(c_j), atol=1e-6)
+
+
+def test_projective_warp_mxu_float32_weights(rng):
+    img = _image(rng)
+    m, _ = _homography("rotation")
+    a_j, c_j = jim.projective_warp_mxu(jnp.asarray(img), jnp.asarray(m),
+                                       weight_dtype=jnp.float32)
+    a_t, c_t = tim.projective_warp_mxu(_t(img), _t(m), weight_dtype=torch.float32)
+    # fp32 weights: two products per output, one rounding each
+    np.testing.assert_allclose(_np(a_t), np.asarray(a_j), atol=1e-3)
+    np.testing.assert_allclose(_np(c_t), np.asarray(c_j), atol=1e-6)
+
+
+def _sweep_geometry(kind):
+    m, k = _homography(kind)
+    b = (k @ np.array([-0.1, 0.02, 0.01])).astype(np.float32)
+    inv = ((np.arange(D) + 1) * 0.05).astype(np.float32)
+    return m, b, inv
+
+
+@pytest.mark.parametrize("kind", ["identity", "rotation"])
+def test_sweep_positions(kind):
+    m, b, inv = _sweep_geometry(kind)
+    ref = jcv._sweep_positions(jnp.asarray(m), jnp.asarray(b), jnp.asarray(inv), H, W)
+    out = tcv._sweep_positions(_t(m), _t(b), _t(inv), H, W)
+    for name, r, o in zip(("pos_x", "pos_y", "mx", "my"), ref, out):
+        # c = A^-1 b from two LU solves may differ in the last ulp; positions
+        # reach ~W, so 1e-4 px
+        np.testing.assert_allclose(_np(o), np.asarray(r), rtol=1e-5, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_sweep_positions_behind_camera():
+    m, b, _ = _sweep_geometry("identity")
+    inv = np.array([0.5, 50.0, 100.0], np.float32)   # 1 + c2*rho <= 0 for the last
+    b = b.copy()
+    b[2] = -0.02
+    pos_x, pos_y, _, _ = tcv._sweep_positions(_t(m), _t(b), _t(inv), H, W)
+    ref_x, ref_y, _, _ = jcv._sweep_positions(jnp.asarray(m), jnp.asarray(b),
+                                              jnp.asarray(inv), H, W)
+    np.testing.assert_array_equal(_np(pos_x) == -1e9, np.asarray(ref_x) == -1e9)
+    assert (_np(pos_x)[-1] == -1e9).all() and (_np(pos_y)[-1] == -1e9).all()
+
+
+def test_warp_shift_bounds_np():
+    for kind in ("identity", "rotation"):
+        m, _ = _homography(kind)
+        for step in (4, 16):
+            assert tcv.warp_shift_bounds_np(m, H, W, step) == \
+                jcv.warp_shift_bounds_np(m, H, W, step)
+
+
+@pytest.mark.parametrize("kind", ["identity", "rotation"])
+def test_plane_sweep_cost(rng, kind):
+    ref = _image(rng)
+    meas = _image(rng)
+    m, b, inv = _sweep_geometry(kind)
+    c_j, v_j = jcv.plane_sweep_cost(jnp.asarray(ref), jnp.asarray(meas),
+                                    jnp.asarray(m), jnp.asarray(b), jnp.asarray(inv))
+    c_t, v_t = tcv.plane_sweep_cost(_t(ref), _t(meas), _t(m), _t(b), _t(inv))
+    v_j, v_t = np.asarray(v_j), _np(v_t)
+    assert c_t.shape == (H, W, D) and v_t.shape == (H, W, D)
+    # validity tests compare fp32 positions against the image edges: the
+    # two LU solves may move a sample across an edge by an ulp
+    assert (v_t == v_j).mean() > 0.999
+    both = v_t & v_j
+    assert both.mean() > 0.3
+    # fp32 bilinear fetch vs fp32 hat-weight matmuls: same products, one
+    # rounding apart; the box mean of 255-scale ADs keeps that under 1e-3
+    np.testing.assert_allclose(_np(c_t)[both], np.asarray(c_j)[both], atol=1e-3)
+
+
+def test_plane_sweep_cost_gather(rng):
+    ref = _image(rng)
+    meas = _image(rng)
+    m, b, inv = _sweep_geometry("rotation")
+    c_j, v_j = jcv.plane_sweep_cost_gather(jnp.asarray(ref), jnp.asarray(meas),
+                                           jnp.asarray(m), jnp.asarray(b),
+                                           jnp.asarray(inv))
+    c_t, v_t = tcv.plane_sweep_cost_gather(_t(ref), _t(meas), _t(m), _t(b), _t(inv))
+    # same fp32 gather formulation; the 3x3 box sums 9 taps in one order
+    assert (_np(v_t) == np.asarray(v_j)).mean() > 0.999
+    np.testing.assert_allclose(_np(c_t), np.asarray(c_j), atol=1e-3)
+
+
+def test_accumulate_cost_in_place(rng):
+    shape = (4, 5, 8)
+    m_j, n_j = jnp.zeros(shape), jnp.zeros(shape)
+    m_t, n_t = torch.zeros(shape), torch.zeros(shape)
+    for _ in range(3):
+        c = rng.uniform(0, 50, shape).astype(np.float32)
+        v = rng.uniform(size=shape) > 0.3
+        m_j, n_j = jcv.accumulate_cost(m_j, n_j, jnp.asarray(c), jnp.asarray(v))
+        out_m, out_n = tcv.accumulate_cost(m_t, n_t, _t(c), _t(v))
+        assert out_m is m_t and out_n is n_t          # updated in place
+    # the same three fp32 operations per element
+    np.testing.assert_array_equal(_np(n_t), np.asarray(n_j))
+    np.testing.assert_allclose(_np(m_t), np.asarray(m_j), rtol=1e-6)
+
+
+@pytest.mark.parametrize("s", [9, 11])   # n = s-1: a multiple of the unroll, and not
+def test_scan_bidir(rng, s):
+    cost = rng.uniform(0, 50, (s, 6, D)).astype(np.float32)
+    p2 = rng.uniform(30, 70, (s, 6)).astype(np.float32)
+    ref = jsgm._scan_bidir(jnp.asarray(cost), jnp.asarray(16.0, jnp.float32),
+                           jnp.asarray(p2))
+    out = tsgm._scan_bidir(_t(cost), torch.tensor(16.0), _t(p2))
+    # min-plus algebra in fp32 with the same operation order: exact
+    np.testing.assert_array_equal(_np(out), np.asarray(ref))
+
+
+def test_sgm_aggregate(rng):
+    cost = rng.uniform(0, 50, (H, W, D)).astype(np.float32)
+    grad = rng.uniform(0, 16, (H, W)).astype(np.float32)
+    pen = rng.uniform(0.8, 2.3, (H, W)).astype(np.float32)
+    ref = jsgm.sgm_aggregate(jnp.asarray(cost), jnp.asarray(grad),
+                             penalty_scale=jnp.asarray(pen), use_pallas=False)
+    out = tsgm.sgm_aggregate(_t(cost), _t(grad), penalty_scale=_t(pen))
+    # fp32 carries on both sides; P1 is a mean over the map, whose sum order
+    # may differ by an ulp, which moves the aggregates by ~1e-5
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=1e-5, atol=1e-3)
+
+
+def test_wta_depth_ties_and_boundaries(rng):
+    h, w, d = 6, 8, 32
+    cost = rng.uniform(0, 50, (h, w, d)).astype(np.float32)
+    cost[0, 0, :] = 15.0                      # all tied: first index wins
+    cost[1, 1, 3] = cost[1, 1, 20] = -60.0    # two-way tie
+    cost[2, 2, 0] = -100.0                    # minimum at the boundaries
+    cost[3, 3, d - 1] = -100.0
+    vc = rng.integers(0, d, (h, w)).astype(np.float32)
+    i_j, c_j = jsgm.wta_depth(jnp.asarray(cost), jnp.asarray(vc), 8.0)
+    i_t, c_t = tsgm.wta_depth(_t(cost), _t(vc), 8.0)
+    # the same fp32 parabola; conf is a strict comparison of the same values
+    np.testing.assert_allclose(_np(i_t), np.asarray(i_j), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(_np(c_t), np.asarray(c_j))
+    assert _np(i_t)[0, 0] == 0.0 and not _np(c_t)[2, 2] and not _np(c_t)[3, 3]
+
+
+def _filter_state(rng, h=7, w=9):
+    return (rng.uniform(0.2, 1.0, (h, w)).astype(np.float32),
+            rng.uniform(0.01, 1.0, (h, w)).astype(np.float32),
+            rng.uniform(5, 30, (h, w)).astype(np.float32),
+            rng.uniform(5, 30, (h, w)).astype(np.float32))
+
+
+def test_depth_filter_update(rng):
+    st = _filter_state(rng)
+    x = rng.uniform(0.1, 1.5, st[0].shape).astype(np.float32)
+    x[0, 0] = 500.0                                    # out of range
+    tau2 = np.full(st[0].shape, 0.01, np.float32)
+    valid = np.ones(st[0].shape, bool)
+    valid[1, 1] = False
+    ref = jdf.update(jdf.FilterState(*map(jnp.asarray, st)), jnp.asarray(x),
+                     jnp.asarray(tau2), jnp.asarray(valid))
+    out = tdf.update(tdf.FilterState(*map(_t, st)), _t(x), _t(tau2), _t(valid))
+    for name, r, o in zip(tdf.FilterState._fields, ref, out):
+        # the same element-wise fp32 expressions; exp/sqrt may differ by an ulp
+        np.testing.assert_allclose(_np(o), np.asarray(r), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_depth_filter_converged_mask(rng):
+    st = _filter_state(rng)
+    for kw in ({}, {"max_sigma2": 0.5}, {"min_support": 0.0}):
+        np.testing.assert_array_equal(
+            _np(tdf.converged_mask(tdf.FilterState(*map(_t, st)), **kw)),
+            np.asarray(jdf.converged_mask(jdf.FilterState(*map(jnp.asarray, st)), **kw)))
+
+
+@pytest.mark.parametrize("kind", ["identity", "motion"])
+def test_depth_filter_propagate(rng, kind):
+    h, w = 12, 16
+    st = list(_filter_state(rng, h, w))
+    st[0] = rng.uniform(0.3, 0.6, (h, w)).astype(np.float32)
+    k = np.array([[10.0, 0, w / 2], [0, 10.0, h / 2], [0, 0, 1]], np.float32)
+    r = np.eye(3, dtype=np.float32) if kind == "identity" \
+        else _rot(0.02, 0.04).astype(np.float32)
+    t = np.zeros(3, np.float32) if kind == "identity" \
+        else np.array([0.05, -0.02, 0.1], np.float32)
+    k_inv = np.linalg.inv(k).astype(np.float32)
+    ref = jdf.propagate(jdf.FilterState(*map(jnp.asarray, st)), jnp.asarray(r),
+                        jnp.asarray(t), jnp.asarray(k), jnp.asarray(k_inv))
+    out = tdf.propagate(tdf.FilterState(*map(_t, st)), _t(r), _t(t), _t(k), _t(k_inv))
+    for name, rr, o in zip(tdf.FilterState._fields, ref, out):
+        rr, o = np.asarray(rr), _np(o)
+        # forward splat: a source pixel whose projection sits within an ulp
+        # of a rounding boundary may land one pixel over, so allow a few
+        # pixels (2 %) to differ; the rest agree to fp32 precision
+        close = np.isclose(o, rr, rtol=1e-4, atol=1e-5)
+        assert close.mean() > 0.98, (name, close.mean())
+
+
+def test_rotations(rng):
+    ypr = rng.uniform(-3, 3, (5, 3)).astype(np.float32)
+    np.testing.assert_allclose(_np(trot.ypr_to_r(_t(ypr))),
+                               np.asarray(jrot.ypr_to_r(jnp.asarray(ypr))),
+                               rtol=1e-6, atol=1e-6)
+    yaw = rng.uniform(-9, 9, 11).astype(np.float32)
+    np.testing.assert_allclose(_np(trot.rot_z(_t(yaw))),
+                               np.asarray(jrot.rot_z(jnp.asarray(yaw))),
+                               rtol=1e-6, atol=1e-6)
+    # the same three fp32 operations
+    np.testing.assert_array_equal(_np(trot.wrap_angle(_t(yaw))),
+                                  np.asarray(jrot.wrap_angle(jnp.asarray(yaw))))
+
+
+def test_port_imports_without_jax():
+    code = ("import sys, cvids_tpu_torch, cvids_tpu_torch.interop, "
+            "cvids_tpu_torch.dense.estimator, cvids_tpu_torch.server.optimizer, "
+            "cvids_tpu_torch.ops.cuda_kernels, cvids_tpu_torch._build; "
+            "print('jax' in sys.modules, 'cvids_tpu' in sys.modules)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["False", "False"], res.stdout
