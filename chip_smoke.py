@@ -1,13 +1,24 @@
-"""GPU smoke run of the PyTorch/CUDA port: builds the four CUDA kernels,
-holds each against its PyTorch twin on the card at the main path's shapes,
-then drives the server step of `__graft_entry__.entry()` through the port at
-full width (dense fusion at 640x480x128 in bf16, then the 4-DoF solve on a
-256-keyframe graph) and checks that every kernel of the path ran.
+"""GPU smoke run of the PyTorch/CUDA port: builds the six CUDA kernels
+(warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
+hamming_matrix), holds each against its PyTorch twin on the card at its
+path's shapes, then drives the port's two paths at full width and checks
+that every kernel of each path ran:
+
+- phase 4, the server step of `__graft_entry__.entry()`: dense fusion at
+  640x480x128 in bf16 (warp, sweep, SGM, WTA, filter kernels), then the
+  4-DoF solve on a 256-keyframe graph;
+- phase 5, the collaborative pose-graph server: 4 agents streaming ~500
+  keyframes (160 window / 512 extra features each) through
+  `CollaborativePoseGraph` with a 10^6-word tree vocabulary and the
+  background solver (the Hamming kernel in every loop verification), then
+  the same stream's loop edges through the kernel and through its twin.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc (PATH or /usr/local/cuda/bin). Exits non-zero on
-any failed phase. The line before the last is the kernel table as JSON; the
+Needs one CUDA card and nvcc (PATH or /usr/local/cuda/bin). Imports no JAX:
+of `cvids_tpu` it loads only the host-only keyframe packets and synthetic
+worlds (`cvids_tpu.io`) and the C++ max clique (`cvids_tpu.native`), and
+checks so at the end. Exits non-zero on any failed phase. The line before the last is the kernel table as JSON; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -17,7 +28,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -36,7 +49,23 @@ SOURCES = {
                  "cvids_tpu/ops/pallas_kernels.py:237"),
     "wta": ("cvids_tpu_torch/csrc/wta.cu",
             "cvids_tpu/ops/pallas_kernels.py:652"),
+    "depth_filter_update": ("cvids_tpu_torch/csrc/depth_filter.cu",
+                            "cvids_tpu/ops/pallas_kernels.py:145"),
+    "hamming_matrix": ("cvids_tpu_torch/csrc/hamming.cu",
+                       "cvids_tpu/ops/pallas_kernels.py:64"),
 }
+DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
+SERVER_KERNELS = ("hamming_matrix",)
+# the server slice: run_synthetic.py's circles for 4 agents, 1 Hz keyframes
+SERVER_AGENTS = 4
+SERVER_DURATION = 125.0     # s per agent: 126 keyframes each, 504 in all
+SERVER_LANDMARKS = 3000     # >= 711 visible per keyframe: windows fill to 160, extras to 512
+SERVER_TREE = (10, 6)       # k, levels: 10^6 words, the brief_k10L6.bin scale
+COMPARE_AGENTS = 2          # the kernel-vs-twin edge comparison's stream
+COMPARE_DURATION = 49.0     # s per agent: 100 keyframes in all
+# the per-field filter tolerance (relative; atol 1e-7): sigma2 and a, b
+# come out of cancelling sums, where an ulp of exp moves them most
+FILTER_RTOL = {"mu": 1e-6, "sigma2": 1e-3, "a": 1e-4, "b": 1e-4}
 
 
 def _sync(device) -> None:
@@ -70,7 +99,7 @@ def print_ptxas_summary(log: str) -> None:
     template instances, and the spill bytes."""
     import re
     names = ("warp_rows_kernel", "warp_cols_kernel", "plane_sweep_kernel",
-             "sgm_scan_kernel", "wta_kernel")
+             "sgm_scan_kernel", "wta_kernel", "depth_filter_kernel", "hamming_kernel")
     regs = {n: [] for n in names}
     spills = {n: 0 for n in names}
     current = None
@@ -255,9 +284,75 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ms = time_ms(lambda: ck.wta(pa, pb), runs) if timed else 0.0
     pms = time_ms(lambda: ck.wta_twin(pa, pb), twin_runs) if timed else 0.0
     out["wta"] = (e, ms, pms)
+
+    # --- depth filter at the dense path's (H, W), scalar tau2 as the estimator passes it
+    st, x, valid = filter_inputs(rng, dev, h, w)
+    err = 0.0
+    for tau2 in (0.013, torch.from_numpy(rng.uniform(1e-3, 0.05, (h, w)).astype(np.float32)).to(dev)):
+        err = max(err, filter_agree(ck.depth_filter_update(st, x, tau2, valid),
+                                    ck.depth_filter_update_twin(st, x, tau2, valid),
+                                    f"depth_filter {h}x{w} tau2 {'map' if torch.is_tensor(tau2) else 'scalar'}"))
+    ms = time_ms(lambda: ck.depth_filter_update(st, x, 0.013, valid), runs) if timed else 0.0
+    pms = time_ms(lambda: ck.depth_filter_update_twin(st, x, 0.013, valid), runs) if timed else 0.0
+    out["depth_filter_update"] = (err, ms, pms)
+
+    # --- Hamming at the loop verification's shape (160 window x 512 extra), masked
+    a, b, av, bv = hamming_inputs(rng, dev, 160, 512)
+    d1, d2 = ck.hamming_matrix(a, b, av, bv), ck.hamming_matrix_twin(a, b, av, bv)
+    check(torch.equal(d1, d2), "hamming_matrix 160x512: kernel != twin")
+    ms = time_ms(lambda: ck.hamming_matrix(a, b, av, bv), runs) if timed else 0.0
+    pms = time_ms(lambda: ck.hamming_matrix_twin(a, b, av, bv), runs) if timed else 0.0
+    out["hamming_matrix"] = (0.0, ms, pms)
+    a2, b2, _, _ = hamming_inputs(rng, dev, 2048, 2048)
+    check(torch.equal(ck.hamming_matrix(a2, b2), ck.hamming_matrix_twin(a2, b2)),
+          "hamming_matrix 2048x2048: kernel != twin")
+    ms2 = time_ms(lambda: ck.hamming_matrix(a2, b2), runs) if timed else 0.0
+    pms2 = time_ms(lambda: ck.hamming_matrix_twin(a2, b2), twin_runs) if timed else 0.0
+    print(f"  hamming_matrix 160x512 masked and 2048x2048: kernel == twin exactly; "
+          f"2048x2048 kernel {ms2:.4f} ms, twin {pms2:.4f} ms")
     for name, (_, ms, pms) in out.items():
         print(f"  time {name}: kernel {ms:.4f} ms, twin {pms:.4f} ms")
     return out
+
+
+def filter_inputs(rng, dev, h, w):
+    """A mid-run filter state and a measurement with out-of-range and
+    invalid pixels."""
+    from cvids_tpu_torch.ops.depth_filter import FilterState
+
+    def u(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, (h, w)).astype(np.float32)).to(dev)
+
+    st = FilterState(u(0.1, 1.5), u(1e-4, 0.5), u(5.0, 40.0), u(5.0, 40.0))
+    x = u(0.05, 2.0)
+    x[0, :2] = torch.tensor([0.001, 500.0], device=dev)
+    valid = torch.from_numpy(rng.random((h, w)) > 0.2).to(dev)
+    return st, x, valid
+
+
+def filter_agree(out, ref, what) -> float:
+    """Checks the kernel's FilterState against the twin's (FILTER_RTOL);
+    prints the largest ulp distance; returns the max |err| of mu."""
+    parts = []
+    for name, o, r in zip(("mu", "sigma2", "a", "b"), out, ref):
+        ok = torch.allclose(o, r, rtol=FILTER_RTOL[name], atol=1e-7)
+        ulp = (o.view(torch.int32).to(torch.int64) - r.view(torch.int32).to(torch.int64)).abs().max().item()
+        check(ok, f"{what} {name}: max |err| {(o - r).abs().max().item()} beyond rtol {FILTER_RTOL[name]}")
+        parts.append(f"{name} {ulp} ulp")
+    print(f"  {what}: kernel vs twin max distance " + ", ".join(parts))
+    return (out[0] - ref[0]).abs().max().item()
+
+
+def hamming_inputs(rng, dev, n, m):
+    """Random descriptors (int32 words), a third of b copies of a with a
+    few flipped bits, and validity masks."""
+    a = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint32)
+    k = min(n, m) // 3
+    b[:k] = a[:k] ^ (rng.random((k, 8)) < 0.03).astype(np.uint32)
+    to = lambda x: torch.from_numpy(x.view(np.int32)).to(dev)  # noqa: E731
+    return (to(a), to(b), torch.from_numpy(rng.random(n) > 0.1).to(dev),
+            torch.from_numpy(rng.random(m) > 0.1).to(dev))
 
 
 def edge_checks(device, rng) -> None:
@@ -295,8 +390,21 @@ def edge_checks(device, rng) -> None:
             parts = [cost, cost.flip(2).contiguous(), cost.roll(1, 2), cost.roll(3, 2)]
             for n in (1, 3, 4):
                 same(ck.wta(*parts[:n]), ck.wta_twin(*parts[:n]), f"wta {n} x {h}x{w}x{d} {dt}")
+    for n, m in ((1, 1), (37, 129), (160, 1), (33, 4097)):
+        a, b, av, bv = hamming_inputs(rng, dev, n, m)
+        for masks in ((None, None), (av, None), (None, bv), (av, bv)):
+            same(ck.hamming_matrix(a, b, *masks), ck.hamming_matrix_twin(a, b, *masks),
+                 f"hamming {n}x{m}")
+    empty = torch.zeros((0, 8), dtype=torch.int32, device=dev)
+    check(ck.hamming_matrix(empty, b).shape == (0, b.shape[0]), "hamming with N == 0")
+    for h, w in ((37, 53), (1, 33), (481, 641)):
+        st, x, valid = filter_inputs(rng, dev, h, w)
+        tau2 = torch.tensor([0.02], device=dev)
+        filter_agree(ck.depth_filter_update(st, x, tau2, valid),
+                     ck.depth_filter_update_twin(st, x, tau2, valid), f"depth_filter {h}x{w}")
     print("  edge shapes (37x53x32, 16x128x256, 1x33x64; fp32 and bf16; "
-          "1/3/4 WTA parts): every kernel equals its twin")
+          "1/3/4 WTA parts; Hamming 1x1, 37x129, 160x1, 33x4097 with and without "
+          "masks; filter 37x53, 1x33, 481x641): every kernel agrees with its twin")
 
 
 # ---------------------------------------------------------------------------
@@ -401,9 +509,9 @@ def profile_slice(device):
     total = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if any(k in r[0] for k in (
         "warp_rows_kernel", "warp_cols_kernel", "plane_sweep_kernel",
-        "sgm_scan_kernel", "wta_kernel")))
+        "sgm_scan_kernel", "wta_kernel", "depth_filter_kernel")))
     print(f"  profiled frame: wall {wall:.3f} ms (profiler on), device busy "
-          f"{total:.3f} ms ({total / wall:.1%} of wall), the four kernels "
+          f"{total:.3f} ms ({total / wall:.1%} of wall), the five kernels "
           f"{ours:.3f} ms, {len(rows)} distinct device activities")
     for name, ms, calls in rows[:14]:
         print(f"    {ms:8.4f} ms  x{calls:<3d} {name[:110]}")
@@ -416,7 +524,200 @@ def twin_patches():
     return [mock.patch.object(ck, "projective_warp_banded", ck.projective_warp_banded_twin),
             mock.patch.object(ck, "plane_sweep", ck.plane_sweep_twin),
             mock.patch.object(ck, "sgm_scan_bidir", ck.sgm_scan_bidir_twin),
-            mock.patch.object(ck, "wta", ck.wta_twin)]
+            mock.patch.object(ck, "wta", ck.wta_twin),
+            mock.patch.object(ck, "depth_filter_update", ck.depth_filter_update_twin),
+            mock.patch.object(ck, "hamming_matrix", ck.hamming_matrix_twin)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the collaborative pose-graph server
+# ---------------------------------------------------------------------------
+
+
+def server_stream(n_agents, duration, n_landmarks=SERVER_LANDMARKS, seed=1):
+    """The world and agents of examples/run_synthetic.py (circles with
+    yaw/translation offsets and odometric drift), dense enough that every
+    keyframe carries 512 features. Returns (packets, ground truth)."""
+    from cvids_tpu.io import multiagent
+    from cvids_tpu.io.synthetic import Trajectory
+
+    rng = np.random.default_rng(seed)
+    landmarks = np.stack([rng.uniform(-14, 14, n_landmarks), rng.uniform(-14, 14, n_landmarks),
+                          rng.uniform(0.2, 4.0, n_landmarks)], -1)
+    descs = multiagent.landmark_descriptors(n_landmarks)
+    agents = [multiagent.AgentSim(
+        Trajectory.circle(radius=5.0 - 0.3 * a, omega=0.45, phase=2.0 * a,
+                          center=(1.0 * a, 0.5 * a, 1.5)),
+        yaw_offset=0.4 * a, t_offset=np.array([2.0 * a, -1.0 * a, 0.1 * a]),
+        drift_yaw_rate=0.0005, drift_t_rate=0.002) for a in range(n_agents)]
+    return multiagent.generate_packets(agents, landmarks, descs, duration=duration,
+                                       kf_rate=1.0, max_feats=512)
+
+
+class SyncCounter:
+    """Counts the main thread's host syncs while active: torch's sync debug
+    mode warns at each synchronizing CUDA call (a worker thread's are not
+    counted)."""
+
+    def __enter__(self):
+        self.count = 0
+        self._saved = warnings.catch_warnings()
+        self._saved.__enter__()
+        warnings.simplefilter("always")
+        main, show = threading.main_thread(), warnings.showwarning
+
+        def count(message, category, *args, **kwargs):
+            if "synchroniz" not in str(message):
+                show(message, category, *args, **kwargs)
+            elif threading.current_thread() is main:
+                self.count += 1
+
+        warnings.showwarning = count
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._saved.__exit__(*exc)
+
+
+def ate(server, gt, cid) -> float:
+    st = server.store
+    sel = np.nonzero(st.client[:st.count] == cid)[0]
+    errs = [np.linalg.norm(st.world_p[k] - gt[(cid, int(st.local_index[k]))][0]) for k in sel]
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def server_run(device, packets, tree, sync_window=(200, 240)):
+    """Streams the packets through CollaborativePoseGraph (ServerConfig's
+    reference defaults, background solves) and flushes with a final solve.
+    Returns (server, stats): per-keyframe host ms of add_keyframe, solve ms,
+    the PCM edge counts per run, host syncs per keyframe over `sync_window`
+    (on a card)."""
+    from cvids_tpu_torch.server import pcm, posegraph
+
+    pcm_sizes, solve_ms = [], []
+    real_filter = pcm.pcm_filter
+
+    def counted_filter(edge_T, pose_i, pose_j, valid, *args, **kwargs):
+        pcm_sizes.append(int(np.sum(valid)))
+        return real_filter(edge_T, pose_i, pose_j, valid, *args, **kwargs)
+
+    server = posegraph.CollaborativePoseGraph(
+        tree, posegraph.ServerConfig(async_optimize=True), device=device)
+    real_optimize = server.optimize
+
+    def timed_optimize():
+        t0 = time.perf_counter()
+        out = real_optimize()
+        _sync(device)
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    server.optimize = timed_optimize
+    ingest_ms, syncs = [], float("nan")
+    lo, hi = sync_window
+    counter = None
+    try:
+        with mock.patch.object(pcm, "pcm_filter", counted_filter):
+            t_stream = time.perf_counter()
+            for k, (_, _, _, pkt) in enumerate(packets):
+                if k == lo and torch.device(device).type == "cuda":
+                    counter = SyncCounter().__enter__()
+                t0 = time.perf_counter()
+                server.add_keyframe(pkt)
+                ingest_ms.append((time.perf_counter() - t0) * 1e3)
+                if k == hi - 1 and counter is not None:
+                    counter.__exit__(None, None, None)
+                    syncs, counter = counter.count / (hi - lo), None
+            server.flush(final=True)
+            _sync(device)
+            stream_s = time.perf_counter() - t_stream
+    finally:
+        if counter is not None:
+            counter.__exit__(None, None, None)
+        server.close()
+    return server, {"ingest_ms": ingest_ms, "solve_ms": solve_ms, "pcm_sizes": pcm_sizes,
+                    "syncs_per_kf": syncs, "stream_s": stream_s}
+
+
+def server_edges(device, packets, tree):
+    """The accepted loop edges of a stream with inline solves (a background
+    solve lands when the scheduler lets it, which moves the gates), and the
+    host ms of each add_keyframe that ran no solve."""
+    from cvids_tpu_torch.server import posegraph
+
+    server = posegraph.CollaborativePoseGraph(tree, posegraph.ServerConfig(), device=device)
+    ingest_ms = []
+    for _, _, _, pkt in packets:
+        solves = server.solve_count
+        t0 = time.perf_counter()
+        server.add_keyframe(pkt)
+        if server.solve_count == solves:
+            ingest_ms.append((time.perf_counter() - t0) * 1e3)
+    server.flush(final=False)
+    server.close()
+    return {(int(i), int(j)) for i, j in zip(server.loop_i[:server.loop_count],
+                                             server.loop_j[:server.loop_count])}, ingest_ms
+
+
+def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
+                 tree_shape=SERVER_TREE, compare=(COMPARE_AGENTS, COMPARE_DURATION)):
+    """Phase 5: the server slice, its launches counted, its outputs checked;
+    then the kernel route's loop edges against the twin route's. Returns the
+    launch counts of the main run."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.server import pcm, vocab
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    tree = vocab.synthesize_tree_vocabulary(*tree_shape, seed=0)
+    packets, gt = server_stream(n_agents, duration)
+    print(f"phase 5 server: {len(packets)} keyframes from {n_agents} agents, "
+          f"{tree.num_words} words, world and vocabulary made in "
+          f"{time.perf_counter() - t0:.1f} s; native max clique: "
+          f"{pcm.native_max_clique_available()}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    server, stats = server_run(dev, packets, tree)
+    _sync(dev)
+    counts = dict(ck.launches)
+    ates = [ate(server, gt, c) for c in range(n_agents)]
+    ingest = np.asarray(stats["ingest_ms"])
+    solves = stats["solve_ms"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    print(f"  stream {stats['stream_s']:.2f} s; ingest ms per keyframe median "
+          f"{np.median(ingest):.3f} p90 {np.percentile(ingest, 90):.3f} max {ingest.max():.3f}; "
+          f"{len(solves)} solves, ms median {np.median(solves) if solves else float('nan'):.1f} "
+          f"max {max(solves) if solves else float('nan'):.1f} (the last with the final flush); "
+          f"host syncs per keyframe {stats['syncs_per_kf']:.2f}; peak device memory {peak:.2f} GiB")
+    print(f"  aligned {[c.aligned for c in server.clients[:n_agents]]}; loops {server.loop_count} "
+          f"(PCM kept {int(server.loop_pcm_ok[:server.loop_count].sum())}); PCM runs on "
+          f"{len(stats['pcm_sizes'])} client pairs, edges max {max(stats['pcm_sizes'], default=0)}; "
+          f"ATE m {[round(a, 4) for a in ates]}; launches {counts}")
+    check(all(c.aligned for c in server.clients[:n_agents]), "a client never aligned")
+    check(server.loop_count > 0, "no loop accepted")
+    check(max(stats["pcm_sizes"], default=0) >= server.cfg.pcm_min_edges,
+          f"PCM never ran on a pair with >= {server.cfg.pcm_min_edges} edges")
+    check(ates[0] < 0.05, f"world client ATE {ates[0]} >= 0.05 m")
+    check(all(a < 0.25 for a in ates[1:]), f"client ATE {ates} >= 0.25 m")
+    check(all(counts[k] > 0 for k in SERVER_KERNELS), f"a server kernel did not run: {counts}")
+
+    cmp_packets, _ = server_stream(*compare)
+    edges_kernel, inline_ms = server_edges(dev, cmp_packets, tree)
+    with mock.patch.object(ck, "hamming_matrix", ck.hamming_matrix_twin):
+        edges_twin, _ = server_edges(dev, cmp_packets, tree)
+    check(edges_kernel == edges_twin,
+          f"loop edges differ: kernel {len(edges_kernel)}, twin {len(edges_twin)}, "
+          f"common {len(edges_kernel & edges_twin)}")
+    check(len(edges_kernel) > 0, "the comparison stream accepted no loop")
+    print(f"  {len(cmp_packets)}-keyframe stream, inline solves: the kernel route and the "
+          f"twin route accept the same {len(edges_kernel)} loop edges; ingest ms per "
+          f"keyframe without a solve (kernel route) median {np.median(inline_ms):.3f} "
+          f"p90 {np.percentile(inline_ms, 90):.3f}")
+    print("phase 5 server: ok")
+    return counts
 
 
 def main() -> int:
@@ -453,13 +754,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print("phase 3 kernels vs twins: all within tolerance")
 
-    # phase 4: the slice, counted
+    # phase 4: the dense step + 4-DoF solve, counted
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
     med, share, mu, frame_ms, gates = dense_chain(dev, 0)
     before, after, pg_ms = pose_graph(dev)
     torch.cuda.synchronize()
-    counts = dict(ck.launches)
+    counts = {k: ck.launches[k] for k in DENSE_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"phase 4 slice: median depth {med:.3f} m (true {DEPTH}), converged "
           f"{share:.3f} on the [40:-40] crop; banded gate {gates[0]}, rotated frame "
@@ -467,11 +768,11 @@ def main() -> int:
           f"device memory {peak:.2f} GiB")
     print(f"  pose graph {N_NODES} KF (2 LM x 10 CG): residual norm {before:.4f} -> "
           f"{after:.4f}; solve ms {[round(x, 1) for x in pg_ms]} (first, second)")
-    print(f"  launches on the main path: {counts}")
+    print(f"  launches on the dense path: {counts}")
     check(abs(med - DEPTH) < 0.4, f"median depth {med} not within 0.4 m of {DEPTH}")
     check(gates == (True, False), f"gates {gates}: expected banded then exact")
     check(after <= before, f"pose graph residual grew: {before} -> {after}")
-    check(all(v > 0 for v in counts.values()), f"a kernel did not run: {counts}")
+    check(all(v > 0 for v in counts.values()), f"a dense kernel did not run: {counts}")
 
     # the same chain through the twins on the card
     patches = twin_patches()
@@ -493,10 +794,21 @@ def main() -> int:
     profile_slice(dev)
     print("phase 4 slice: ok")
 
+    # phase 5: the collaborative server, counted
+    counts.update({k: v for k, v in server_phase(dev).items() if k in SERVER_KERNELS})
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2]} for name in SOURCES]
+    # the port ran without JAX; of the JAX package only the host-only packet
+    # and world generators (cvids_tpu.io) and the C++ max clique
+    # (cvids_tpu.native) were loaded
+    ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "cvids_tpu")
+    check("jax" not in sys.modules, "jax was imported")
+    check(all(m in ("cvids_tpu", "cvids_tpu.native") or m.split(".")[1] == "io"
+              for m in ref_mods), f"JAX-package modules loaded: {ref_mods}")
+    print(f"imports: jax not loaded; host-only modules of cvids_tpu loaded: {ref_mods}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

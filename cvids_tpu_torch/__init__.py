@@ -7,16 +7,27 @@ PyTorch; every Pallas TPU kernel on the ported path is a CUDA C++ kernel for
 Hopper (``csrc/``), built at first use by ``_build.py`` and bound in
 ``ops/cuda_kernels.py`` beside a plain PyTorch twin of each.
 
-Ported so far (the step ``__graft_entry__.entry()`` runs):
+Ported so far:
 
-- ``ops``:     image gradients and warps, plane-sweep cost, SGM + WTA,
-               Gaussian×Beta depth filter, the four CUDA kernels
-- ``dense``:   multi-view depth estimation (``fuse_measurement``)
-- ``geometry``: the yaw-pitch-roll helpers the 4-DoF solver uses
-- ``server``:  the 4-DoF pose-graph optimizer
-- ``interop``: carry the JAX package's states (as numpy) to tensors and back
+- ``ops``:      image gradients and warps, plane-sweep cost, SGM + WTA,
+                Gaussian×Beta depth filter, Hamming matching, PnP and
+                fundamental-matrix RANSAC, and the six CUDA kernels of
+                ``ops/cuda_kernels.py``: ``projective_warp_banded``,
+                ``plane_sweep``, ``sgm_scan_bidir`` (both orientations),
+                ``wta``, ``depth_filter_update``, ``hamming_matrix``
+- ``dense``:    multi-view depth estimation (``fuse_measurement``)
+- ``geometry``: rotations and quaternions, SE(3) poses, float64 numpy
+                helpers for the server's host-side bookkeeping
+- ``server``:   the collaborative pose graph (``posegraph``: ingestion,
+                pipelined loop detection, submap alignment, background
+                solves), its keyframe store, BoW vocabularies and databases
+                (``vocab``), PCM outlier rejection (``pcm``) and the 4-DoF
+                pose-graph optimizer
+- ``interop``:  carry the JAX package's states, vocabularies and server
+                config (as numpy) to the port and back
 
-The package imports ``torch`` and never ``jax``.
+The package imports ``torch`` and never ``jax``; the server loads the
+host-only ``cvids_tpu.io`` packets and ``cvids_tpu.native`` (max clique).
 """
 
 __version__ = "0.1.0"

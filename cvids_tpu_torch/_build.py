@@ -1,8 +1,9 @@
 """Build and load the CUDA kernel library (``csrc/*.cu``) at first use.
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes`` — seconds to build, where an extension that
-includes PyTorch's headers takes minutes. The library lands in
+Each source compiles with its own ``nvcc`` (all started together), and the
+objects link into one shared library with a plain C interface, loaded with
+``ctypes`` — seconds to build, where an extension that includes PyTorch's
+headers takes minutes. The library lands in
 ``build/cuda/`` beside the package, named by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads as is.
 
@@ -28,20 +29,23 @@ BUILD_DIR = _PKG.parent / "build" / "cuda"
 # operation order matches (the kernels are memory- or latency-bound; the
 # lost FMAs cost nothing measurable)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v", "-lineinfo"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream as c_void_p, ints as c_int;
-# each returns a cudaError_t as int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p, ints as c_int,
+# floats as c_float; each returns a cudaError_t as int
 SIGNATURES = {
     "cvids_warp_banded": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cvids_plane_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cvids_sgm_scan_bidir": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P],
-    "cvids_wta": [_P, _P, _P, _P, _I, _P, _P, ctypes.c_long, _I, _I,
-                  ctypes.c_float, _P],
+    "cvids_wta": [_P, _P, _P, _P, _I, _P, _P, ctypes.c_long, _I, _I, _F, _P],
+    "cvids_hamming": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _I, _F, _P, _F, _F, _F,
+                           _P, _P, _P, _P, ctypes.c_long, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -60,7 +64,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -68,7 +72,8 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the library if its hash is not built yet.
+    """Compile the library if its hash is not built yet: one ``nvcc -c`` per
+    source, all running at once, then one link.
 
     Returns (path, compiler log). The log holds ``-Xptxas -v``'s registers,
     shared memory and spills per kernel, and is kept beside the library."""
@@ -77,13 +82,33 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    text = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{text}")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    texts, failed = [], []
+    for src, _, proc in jobs:
+        texts.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    text = "".join(texts)
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{text}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     log.write_text(text)
     os.replace(tmp, out)
     return out, text

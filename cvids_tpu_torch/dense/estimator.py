@@ -5,8 +5,9 @@ A reference keyframe accumulates a plane-sweep cost volume over subsequent
 measurement frames (running mean), optionally biased toward sparse VIO
 depths; SGM + WTA give a depth measurement that a Gaussian×Beta filter
 fuses; `finalize` masks unconverged pixels. On the card, one
-`fuse_measurement` runs the alignment warp, the sweep, both SGM orientations
-and the WTA as the four CUDA kernels of ``ops/cuda_kernels.py``.
+`fuse_measurement` runs the alignment warp, the sweep, both SGM orientations,
+the WTA and the filter update as the five CUDA kernels of
+``ops/cuda_kernels.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import costvolume, depth_filter, sgm
+from ..ops import costvolume, cuda_kernels, depth_filter, sgm
 from ..ops.image import bilinear_sample, image_gradients
 
 __all__ = ["DenseConfig", "DenseState", "init_reference", "fuse_measurement",
@@ -176,8 +177,8 @@ def fuse_measurement(cfg: DenseConfig, state: DenseState, meas_img: torch.Tensor
                                     min_count=cfg.num_depths * 0.25,
                                     pi1=cfg.pi1, pi2=cfg.pi2, tau_so=cfg.tau_so,
                                     penalty_scale=state.penalty)
-    tau2 = torch.full_like(inv_depth, (cfg.dep_sample ** 2) / cfg.tau2_scale)
-    filt = depth_filter.update(state.filt, inv_depth, tau2, conf)
+    tau2 = (cfg.dep_sample ** 2) / cfg.tau2_scale
+    filt = cuda_kernels.depth_filter_update(state.filt, inv_depth, tau2, conf)
     return state._replace(mean_cost=mean_cost, count=count, filt=filt,
                           num_frames=state.num_frames + 1)
 

@@ -1,5 +1,10 @@
-"""Yaw-pitch-roll helpers of the 4-DoF solver (port of the matching functions
-in ``cvids_tpu/geometry/rotations.py``)."""
+"""Rotation helpers (port of the matching functions in
+``cvids_tpu/geometry/rotations.py``).
+
+Quaternions are ``(..., 4)`` tensors in ``(w, x, y, z)`` order (Hamilton
+convention); rotation matrices are ``(..., 3, 3)``; ``ypr`` is
+yaw-pitch-roll in radians with ``R = Rz(yaw) @ Ry(pitch) @ Rx(roll)``.
+"""
 
 from __future__ import annotations
 
@@ -7,7 +12,9 @@ import math
 
 import torch
 
-__all__ = ["ypr_to_r", "rot_z", "wrap_angle"]
+__all__ = ["ypr_to_r", "rot_z", "wrap_angle", "quat_normalize",
+           "quat_multiply", "quat_conjugate", "quat_inverse", "quat_rotate",
+           "quat_to_matrix", "matrix_to_quat", "so3_hat", "so3_exp"]
 
 
 def ypr_to_r(ypr: torch.Tensor) -> torch.Tensor:
@@ -39,3 +46,99 @@ def rot_z(yaw: torch.Tensor) -> torch.Tensor:
 def wrap_angle(a: torch.Tensor) -> torch.Tensor:
     """Wrap angle(s) to (-pi, pi]."""
     return a - 2.0 * math.pi * torch.floor((a + math.pi) / (2.0 * math.pi))
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    """Normalize quaternion(s) to unit norm, keeping w >= 0."""
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 ⊗ q2 (applies q2's rotation first)."""
+    w1, x1, y1, z1 = torch.movedim(q1, -1, 0)
+    w2, x2, y2, z2 = torch.movedim(q2, -1, 0)
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Inverse for unit quaternions (== conjugate)."""
+    return quat_conjugate(q)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) ``v`` (..., 3) by quaternion(s) ``q`` (..., 4)."""
+    qvec = q[..., 1:]
+    qvec, v = torch.broadcast_tensors(qvec, v)
+    uv = torch.linalg.cross(qvec, v)
+    uuv = torch.linalg.cross(qvec, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = torch.movedim(q, -1, 0)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w,x,y,z): branchless Shepperd's
+    method, the best-conditioned of the four candidates (largest pivot)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    best = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)            # (..., 4 candidates, 4)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    return quat_normalize(q)
+
+
+def so3_hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of (..., 3) vectors."""
+    wx, wy, wz = torch.movedim(w, -1, 0)
+    zeros = torch.zeros_like(wx)
+    m = torch.stack([zeros, -wz, wy, wz, zeros, -wx, -wy, wx, zeros], dim=-1)
+    return m.reshape(w.shape[:-1] + (3, 3))
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Exponential map R^3 -> SO(3) as quaternion (w,x,y,z), Taylor-safe at 0."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    small = theta2 < 1e-10
+    half = 0.5 * theta
+    sin_half_over = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    cw = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
+    return torch.cat([cw, sin_half_over * w], dim=-1)

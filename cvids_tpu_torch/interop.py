@@ -6,22 +6,32 @@ state's field names — and return the port's state as tensors on `device`.
 The ``*_to_numpy`` functions go back: the port's state type with numpy
 leaves, in field order, ready for the JAX package's constructors after
 ``jnp.asarray``. numpy has no bfloat16 of its own, so bf16 leaves come back
-as float32 (exact). Nothing here imports JAX.
+as float32 (exact). The server's inputs cross the same way: a `Vocabulary`
+(its uint32 words become int32 tensors of the same bits), a `TreeVocabulary`
+(numpy in both packages) and a `ServerConfig` (field by field). Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .dense.estimator import DenseState
 from .ops.depth_filter import FilterState
+from .ops.hamming import descriptors_to_torch
 from .server.optimizer import PoseGraphEdges, PoseGraphNodes
+from .server.posegraph import ServerConfig
+from .server.vocab import TreeVocabulary, Vocabulary
 
 __all__ = ["array_to_torch", "tensor_to_numpy",
            "dense_state_to_torch", "dense_state_to_numpy",
            "filter_state_to_torch", "filter_state_to_numpy",
-           "nodes_to_torch", "nodes_to_numpy", "edges_to_torch", "edges_to_numpy"]
+           "nodes_to_torch", "nodes_to_numpy", "edges_to_torch", "edges_to_numpy",
+           "vocabulary_to_torch", "tree_vocabulary_to_torch",
+           "server_config_to_torch"]
 
 
 def array_to_torch(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -107,3 +117,22 @@ def edges_to_numpy(s: PoseGraphEdges) -> PoseGraphEdges:
     """Edge indices go back as int32, the JAX package's index type."""
     arrs = [tensor_to_numpy(x) for x in s]
     return PoseGraphEdges(arrs[0].astype(np.int32), arrs[1].astype(np.int32), *arrs[2:])
+
+
+def vocabulary_to_torch(v, device) -> Vocabulary:
+    """A JAX `Vocabulary` with numpy leaves (uint32 `level_desc`, `weights`)."""
+    return Vocabulary(tuple(descriptors_to_torch(np.asarray(d), device) for d in v.level_desc),
+                      array_to_torch(v.weights, device, torch.float32), int(v.k), int(v.levels))
+
+
+def tree_vocabulary_to_torch(t) -> TreeVocabulary:
+    """A JAX `TreeVocabulary` (its arrays copied; the port keeps the tree in
+    numpy and moves it to a device in `SparseBowDatabase`)."""
+    return TreeVocabulary(*(np.array(x, copy=True) if isinstance(x, np.ndarray) else x
+                            for x in (getattr(t, f) for f in TreeVocabulary._fields)))
+
+
+def server_config_to_torch(cfg) -> ServerConfig:
+    """A JAX `ServerConfig`, copied field by field."""
+    return ServerConfig(**{f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(ServerConfig)})

@@ -1,5 +1,5 @@
-"""CUDA kernels of the dense step and their plain PyTorch twins (the
-counterpart of ``cvids_tpu/ops/pallas_kernels.py``).
+"""The port's CUDA kernels and their plain PyTorch twins (the counterpart
+of ``cvids_tpu/ops/pallas_kernels.py``).
 
 Each kernel has a wrapper and a twin with the same contract:
 
@@ -9,7 +9,11 @@ Each kernel has a wrapper and a twin with the same contract:
   (H, W, D) volume with the -1 sentinel (``csrc/plane_sweep.cu``);
 - `sgm_scan_bidir` — forward + backward SGM scan along axis 0 or 1 of a
   volume, pair-summed in the cost dtype (``csrc/sgm_scan.cu``);
-- `wta` — fused winner-take-all over summed part volumes (``csrc/wta.cu``).
+- `wta` — fused winner-take-all over summed part volumes (``csrc/wta.cu``);
+- `hamming_matrix` — pairwise Hamming distances of 256-bit descriptors with
+  validity masks, the loop verification's matcher (``csrc/hamming.cu``);
+- `depth_filter_update` — the fused Gaussian×Beta filter step of the dense
+  path (``csrc/depth_filter.cu``).
 
 Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
 tensors it launches its kernel, or raises on anything the kernel does not
@@ -18,20 +22,27 @@ one to ``launches[name]``, so a run can show which kernels its path went
 through. Callers reach the wrappers as attributes of this module
 (``cuda_kernels.plane_sweep(...)``).
 
-Kernels need D a multiple of 32 with D <= 256; the twins take any D.
+The volume kernels need D a multiple of 32 with D <= 256; the twins take any
+D. Descriptors are (N, 8) int32 tensors: the uint32 words of the packets,
+viewed as int32 (XOR and popcount ignore the sign).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import depth_filter
 from .image import warp_pass_positions
 
 __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
+           "hamming_matrix", "depth_filter_update",
            "projective_warp_banded_twin", "plane_sweep_twin",
-           "sgm_scan_bidir_twin", "wta_twin", "launches", "reset_launches"]
+           "sgm_scan_bidir_twin", "wta_twin", "hamming_matrix_twin",
+           "depth_filter_update_twin", "popcount32", "launches",
+           "reset_launches"]
 
-launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0}
+launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
+            "hamming_matrix": 0, "depth_filter_update": 0}
 
 _BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
@@ -376,3 +387,117 @@ def wta(*vols: torch.Tensor, peak_ratio: float = 0.98):
             conf.data_ptr(), h * w, d, int(vols[0].dtype == torch.bfloat16),
             float(peak_ratio))
     return idx_f, conf
+
+
+# ---------------------------------------------------------------------------
+# Hamming distance matrix
+# ---------------------------------------------------------------------------
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word of an int32 tensor, as int64 (SWAR bit
+    count on the zero-extended word; torch has no popcount op)."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def hamming_matrix_twin(a: torch.Tensor, b: torch.Tensor,
+                        a_valid: torch.Tensor | None = None,
+                        b_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of `hamming_matrix`."""
+    d = popcount32(a[:, None, :] ^ b[None, :, :]).sum(-1).to(torch.int32)
+    big = torch.full((), 512, dtype=torch.int32, device=d.device)
+    if a_valid is not None:
+        d = torch.where(a_valid[:, None], d, big)
+    if b_valid is not None:
+        d = torch.where(b_valid[None, :], d, big)
+    return d
+
+
+def hamming_matrix(a: torch.Tensor, b: torch.Tensor,
+                   a_valid: torch.Tensor | None = None,
+                   b_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Pairwise Hamming distances: a (N, 8) and b (M, 8) int32 descriptor
+    words -> (N, M) int32, 512 where a row (`a_valid`, (N,) bool) or a
+    column (`b_valid`, (M,) bool) is invalid. The contract of
+    `ops.hamming.hamming_distance_matrix`."""
+    masks = [v for v in (a_valid, b_valid) if v is not None]
+    if not _on_cuda(a, b, *masks):
+        return hamming_matrix_twin(a, b, a_valid, b_valid)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"descriptors must be (N, 8) and (M, 8), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    n, m = a.shape[0], b.shape[0]
+    _require(a, "a", (n, 8), (torch.int32,))
+    _require(b, "b", (m, 8), (torch.int32,))
+    if a_valid is not None:
+        _require(a_valid, "a_valid", (n,), (torch.bool,))
+    if b_valid is not None:
+        _require(b_valid, "b_valid", (m,), (torch.bool,))
+    out = torch.empty((n, m), dtype=torch.int32, device=a.device)
+    if n == 0 or m == 0:
+        return out
+    _launch("hamming_matrix", "cvids_hamming", a.device, a.data_ptr(), b.data_ptr(),
+            0 if a_valid is None else a_valid.data_ptr(),
+            0 if b_valid is None else b_valid.data_ptr(), out.data_ptr(), n, m)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Gaussian × Beta depth-filter update
+# ---------------------------------------------------------------------------
+
+
+def depth_filter_update_twin(state: depth_filter.FilterState, x: torch.Tensor,
+                             tau2, meas_valid: torch.Tensor,
+                             mu_range: tuple[float, float] = (0.01, 100.0)
+                             ) -> depth_filter.FilterState:
+    """Plain PyTorch twin of `depth_filter_update`: `depth_filter.update`
+    with a scalar tau2 taken as a 0-d tensor."""
+    tau2 = torch.as_tensor(tau2, dtype=torch.float32, device=x.device)
+    return depth_filter.update(state, x, tau2, meas_valid, mu_range)
+
+
+def depth_filter_update(state: depth_filter.FilterState, x: torch.Tensor,
+                        tau2, meas_valid: torch.Tensor,
+                        mu_range: tuple[float, float] = (0.01, 100.0)
+                        ) -> depth_filter.FilterState:
+    """Fused filter step: the contract of `depth_filter.update`, returning a
+    new `FilterState` (the old one is not written).
+
+    state: four (H, W) fp32 maps; x (H, W) fp32 inverse depth; tau2 a float,
+    a one-element fp32 tensor or an (H, W) fp32 map (a scalar is read with
+    stride 0, never expanded); meas_valid (H, W) bool."""
+    tau2_t = tau2 if isinstance(tau2, torch.Tensor) else None
+    tensors = [*state, x, meas_valid] + ([tau2_t] if tau2_t is not None else [])
+    if not _on_cuda(*tensors):
+        return depth_filter_update_twin(state, x, tau2, meas_valid, mu_range)
+    if x.ndim != 2:
+        raise ValueError(f"x must be (H, W), got {tuple(x.shape)}")
+    h, w = x.shape
+    f32 = (torch.float32,)
+    for name, t in zip(depth_filter.FilterState._fields, state):
+        _require(t, name, (h, w), f32)
+    _require(x, "x", (h, w), f32)
+    _require(meas_valid, "meas_valid", (h, w), (torch.bool,))
+    tau2_ptr, tau2_stride, tau2_value = 0, 0, 0.0
+    if tau2_t is None:
+        tau2_value = float(tau2)
+    elif tau2_t.numel() == 1:
+        _require(tau2_t.reshape(()), "tau2", (), f32)
+        tau2_ptr = tau2_t.data_ptr()
+    else:
+        _require(tau2_t, "tau2", (h, w), f32)
+        tau2_ptr, tau2_stride = tau2_t.data_ptr(), 1
+    out = depth_filter.FilterState(*(torch.empty_like(x) for _ in range(4)))
+    if h * w == 0:
+        return out
+    lo, hi = float(mu_range[0]), float(mu_range[1])
+    _launch("depth_filter_update", "cvids_depth_filter", x.device,
+            *(t.data_ptr() for t in state), x.data_ptr(), tau2_ptr, tau2_stride,
+            tau2_value, meas_valid.data_ptr(), lo, hi, 1.0 / (hi - lo),
+            *(t.data_ptr() for t in out), h * w)
+    return out

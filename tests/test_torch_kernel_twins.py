@@ -1,6 +1,8 @@
-"""The plain PyTorch twins of the port's four CUDA kernels against the
-Pallas kernels they replace, run in interpret mode on the CPU, at the
-shapes of `tests/test_pallas.py`; and the CPU dispatch of the wrappers.
+"""The plain PyTorch twins of the port's six CUDA kernels against the
+Pallas kernels they replace, run in interpret mode on the CPU (and against
+the XLA functions whose contract they share), at the shapes of
+`tests/test_pallas.py` and of the port's paths; and the CPU dispatch of the
+wrappers.
 
 The CUDA kernels themselves run only on the card, where `chip_smoke.py`
 holds each against its twin.
@@ -12,9 +14,12 @@ import pytest
 import torch
 
 from cvids_tpu.ops import costvolume as jcv
+from cvids_tpu.ops import depth_filter as jdf
+from cvids_tpu.ops import hamming as jham
 from cvids_tpu.ops import pallas_kernels as pk
 from cvids_tpu.ops.image import projective_warp_mxu as jax_warp_mxu
 from cvids_tpu_torch.ops import cuda_kernels as ck
+from cvids_tpu_torch.ops import depth_filter as tdf
 
 
 def _t(a):
@@ -189,8 +194,18 @@ def test_cpu_dispatch_routes_to_twins(rng):
                                   _np(ck.sgm_scan_bidir_twin(cost, p2, 16.0, axis=1)))
     np.testing.assert_array_equal(_np(ck.wta(cost, cost)[0]),
                                   _np(ck.wta_twin(cost, cost)[0]))
+    a = _t(rng.integers(0, 2 ** 32, (5, 8), dtype=np.uint32).view(np.int32))
+    np.testing.assert_array_equal(_np(ck.hamming_matrix(a, a[:3])),
+                                  _np(ck.hamming_matrix_twin(a, a[:3])))
+    st = tdf.init_state(h, w)
+    x = torch.full((h, w), 0.4)
+    valid = torch.ones((h, w), dtype=torch.bool)
+    for o, r in zip(ck.depth_filter_update(st, x, 0.01, valid),
+                    ck.depth_filter_update_twin(st, x, 0.01, valid)):
+        np.testing.assert_array_equal(_np(o), _np(r))
     # nothing was launched: the CPU tensors went to the twins
-    assert ck.launches == {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0}
+    assert ck.launches == {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
+                           "hamming_matrix": 0, "depth_filter_update": 0}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -199,3 +214,80 @@ def test_dispatch_rejects_mixed_devices():
     with pytest.raises(ValueError):
         ck._require_depths(48)
     ck._require_depths(128)
+
+
+def _descriptors(rng, n):
+    return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (37, 129), (160, 512), (128, 256), (50, 1)])
+def test_hamming_twin_matches_pallas(rng, n, m):
+    """Ragged shapes, exact tile multiples and M == 1; exact (integers)."""
+    a, b = _descriptors(rng, n), _descriptors(rng, m)
+    b[: min(n, m) // 2] = a[: min(n, m) // 2]        # some zero distances
+    a_valid = rng.random(n) > 0.2
+    b_valid = rng.random(m) > 0.2
+    ta, tb = _t(a.view(np.int32)), _t(b.view(np.int32))
+    raw = pk.hamming_matrix(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    np.testing.assert_array_equal(_np(ck.hamming_matrix_twin(ta, tb)), np.asarray(raw))
+    for av, bv in ((a_valid, None), (None, b_valid), (a_valid, b_valid)):
+        ref = jham.hamming_distance_matrix(
+            jnp.asarray(a), jnp.asarray(b), None if av is None else jnp.asarray(av),
+            None if bv is None else jnp.asarray(bv))
+        out = ck.hamming_matrix_twin(ta, tb, None if av is None else _t(av),
+                                     None if bv is None else _t(bv))
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(_np(out), np.asarray(ref))
+
+
+def test_popcount32_all_bit_patterns(rng):
+    words = np.concatenate([rng.integers(0, 2 ** 32, 4096, dtype=np.uint32),
+                            np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 0x80000001], np.uint32)])
+    want = np.unpackbits(words.view(np.uint8)).reshape(-1, 32).sum(1)
+    np.testing.assert_array_equal(_np(ck.popcount32(_t(words.view(np.int32)))), want)
+
+
+def _filter_inputs(rng, h, w, tau2_kind):
+    st = [rng.uniform(0.1, 1.5, (h, w)).astype(np.float32),
+          rng.uniform(1e-4, 0.5, (h, w)).astype(np.float32),
+          rng.uniform(5.0, 40.0, (h, w)).astype(np.float32),
+          rng.uniform(5.0, 40.0, (h, w)).astype(np.float32)]
+    x = rng.uniform(0.05, 2.0, (h, w)).astype(np.float32)
+    x[0, :3] = [0.001, 500.0, 100.5]                     # outside mu_range
+    valid = rng.random((h, w)) > 0.2
+    valid[0, 1] = False                                  # invalid and out of range
+    tau2 = (np.float32(0.01) if tau2_kind == "scalar"
+            else rng.uniform(1e-3, 0.05, (h, w)).astype(np.float32))
+    return st, x, tau2, valid
+
+
+@pytest.mark.parametrize("tau2_kind", ["scalar", "map"])
+@pytest.mark.parametrize("h,w", [(8, 128), (13, 37)])
+def test_depth_filter_twin_matches_pallas(rng, h, w, tau2_kind):
+    st, x, tau2, valid = _filter_inputs(rng, h, w, tau2_kind)
+    jst = jdf.FilterState(*map(jnp.asarray, st))
+    tau2_j = jnp.broadcast_to(jnp.asarray(tau2), (h, w))
+    ref_p = pk.depth_filter_update(jst, jnp.asarray(x), tau2_j, jnp.asarray(valid),
+                                   interpret=True)
+    ref_x = jdf.update(jst, jnp.asarray(x), tau2_j, jnp.asarray(valid))
+    tau2_t = float(tau2) if tau2_kind == "scalar" else _t(tau2)
+    out = ck.depth_filter_update_twin(tdf.FilterState(*map(_t, st)), _t(x), tau2_t, _t(valid))
+    # The same element-wise fp32 expression, but exp, sqrt (the Pallas
+    # kernel: rsqrt) and XLA's fusion round differently by an ulp or two;
+    # mu agrees to 2 ulp. sigma2_new = c1 (s + m²) + c2 (s2 + mu²) - mu_new²
+    # cancels (error ~ eps·mu²/sigma2) and the Beta moment matching divides
+    # by f - e/f ~ f(1-f)/(a+b+1): on these inputs the reference's own Pallas
+    # kernel and XLA function differ by up to 4.0e-4 (sigma2) and 2.0e-5
+    # (a, b) relative, the twin by as much; each field is held to a bound
+    # above that measurement.
+    rtol = {"mu": 1e-6, "sigma2": 1e-3, "a": 1e-4, "b": 1e-4}
+    for name, o, rp, rx in zip(tdf.FilterState._fields, out, ref_p, ref_x):
+        np.testing.assert_allclose(_np(o), np.asarray(rp), rtol=rtol[name], atol=1e-7,
+                                   err_msg=name)
+        np.testing.assert_allclose(_np(o), np.asarray(rx), rtol=rtol[name], atol=1e-7,
+                                   err_msg=name)
+    # the range gate and the b + 1 bump on a valid out-of-range measurement
+    for k in range(3):
+        assert _np(out.mu)[0, k] == st[0][0, k]
+    assert _np(out.b)[0, 1] == st[3][0, 1]               # invalid: unchanged
+    assert _np(out.b)[0, 2] == np.float32(st[3][0, 2] + 1.0)
