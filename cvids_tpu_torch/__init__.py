@@ -23,11 +23,15 @@ Ported so far:
                 solves), its keyframe store, BoW vocabularies and databases
                 (``vocab``), PCM outlier rejection (``pcm``) and the 4-DoF
                 pose-graph optimizer
+- ``io``:       the keyframe packet and the synthetic multi-agent streams
+                (numpy, copied from ``cvids_tpu.io``)
+- ``native``:   the C++ max clique for PCM (``fmc.cpp``, built with the
+                host's compiler at first use)
 - ``interop``:  carry the JAX package's states, vocabularies and server
                 config (as numpy) to the port and back
 
-The package imports ``torch`` and never ``jax``; the server loads the
-host-only ``cvids_tpu.io`` packets and ``cvids_tpu.native`` (max clique).
+The package imports ``torch`` and never ``jax``, nor any module of
+``cvids_tpu``: it runs without the JAX package.
 """
 
 __version__ = "0.1.0"

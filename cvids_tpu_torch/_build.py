@@ -9,6 +9,10 @@ flags, so an edited source rebuilds and an unchanged one loads as is.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches; the
 wrappers in ``ops/cuda_kernels.py`` raise when it is not 0.
+
+`build_host` does the same for a host-only C++ source (the native max
+clique, ``native/fmc.cpp``) with the host's C++ compiler, into
+``build/host/``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cuda"
+HOST_BUILD_DIR = _PKG.parent / "build" / "host"
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
 # -fmad=false: no fused multiply-adds, so each kernel rounds at the same
 # points as its PyTorch twin and the two agree bit for bit where their
@@ -44,7 +50,7 @@ SIGNATURES = {
                              _I, _P],
     "cvids_wta": [_P, _P, _P, _P, _I, _P, _P, ctypes.c_long, _I, _I, _F, _P],
     "cvids_hamming": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _I, _F, _P, _F, _F, _F,
+    "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _F, _P, _F, _F, _F,
                            _P, _P, _P, _P, ctypes.c_long, _P],
 }
 
@@ -112,6 +118,31 @@ def build() -> tuple[Path, str]:
     log.write_text(text)
     os.replace(tmp, out)
     return out, text
+
+
+def build_host(src: Path) -> Path:
+    """Compile one host-only C++ source into a shared library under
+    ``build/host/``, named by a hash of the source and flags, unless it is
+    built already. Raises RuntimeError when no compiler is found or it
+    fails."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = HOST_BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler for {src.name}")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed on {src.name} ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def load() -> ctypes.CDLL:

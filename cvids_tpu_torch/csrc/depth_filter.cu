@@ -12,9 +12,8 @@
 // throughout. The expression is written in the plain PyTorch version's
 // operation order with its clamps (1e-12, 1e-10); the library is built with
 // -fmad=false, so no multiply-add is contracted and the two round at the same
-// points. tau2 is a scalar passed by value, a one-element device tensor read
-// with stride 0, or an (H, W) map (stride 1): a scalar is never expanded to
-// a map in memory.
+// points. tau2 is a scalar passed by value or an (H, W) map: a scalar is
+// never expanded to a map in memory.
 
 #include <cstdint>
 
@@ -30,14 +29,14 @@ __global__ void __launch_bounds__(THREADS)
 depth_filter_kernel(const float* __restrict__ mu_in, const float* __restrict__ s2_in,
                     const float* __restrict__ a_in, const float* __restrict__ b_in,
                     const float* __restrict__ x_in, const float* __restrict__ tau2_in,
-                    int tau2_stride, float tau2_value, const uint8_t* __restrict__ valid_in,
+                    float tau2_value, const uint8_t* __restrict__ valid_in,
                     float mu_lo, float mu_hi, float uniform, float* __restrict__ mu_out,
                     float* __restrict__ s2_out, float* __restrict__ a_out,
                     float* __restrict__ b_out, long npix) {
   const long i = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= npix) return;
   const float mu = mu_in[i], s2 = s2_in[i], a = a_in[i], b = b_in[i], x = x_in[i];
-  const float tau2 = tau2_in != nullptr ? tau2_in[i * tau2_stride] : tau2_value;
+  const float tau2 = tau2_in != nullptr ? tau2_in[i] : tau2_value;
   const bool valid = valid_in[i] != 0;
 
   const float norm_scale2 = s2 + tau2;
@@ -74,24 +73,22 @@ depth_filter_kernel(const float* __restrict__ mu_in, const float* __restrict__ s
 
 }  // namespace
 
-// mu, s2, a, b, x: (npix,) fp32; tau2: (npix,) fp32 with tau2_stride 1, one
-// fp32 with stride 0, or null (tau2_value used); valid: (npix,) bytes; the
-// four outputs (npix,) fp32. uniform = 1 / (mu_hi - mu_lo) as the caller
-// rounds it.
+// mu, s2, a, b, x: (npix,) fp32; tau2: (npix,) fp32, or null (tau2_value
+// used); valid: (npix,) bytes; the four outputs (npix,) fp32.
+// uniform = 1 / (mu_hi - mu_lo) as the caller rounds it.
 extern "C" int cvids_depth_filter(const void* mu, const void* s2, const void* a,
                                   const void* b, const void* x, const void* tau2,
-                                  int tau2_stride, float tau2_value, const void* valid,
+                                  float tau2_value, const void* valid,
                                   float mu_lo, float mu_hi, float uniform, void* mu_out,
                                   void* s2_out, void* a_out, void* b_out, long npix,
                                   void* stream) {
-  if (npix < 1 || (tau2_stride != 0 && tau2_stride != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (npix < 1) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid = static_cast<unsigned>((npix + THREADS - 1) / THREADS);
   depth_filter_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mu), static_cast<const float*>(s2),
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(x), static_cast<const float*>(tau2), tau2_stride,
-      tau2_value, static_cast<const uint8_t*>(valid), mu_lo, mu_hi, uniform,
+      static_cast<const float*>(x), static_cast<const float*>(tau2), tau2_value,
+      static_cast<const uint8_t*>(valid), mu_lo, mu_hi, uniform,
       static_cast<float*>(mu_out), static_cast<float*>(s2_out),
       static_cast<float*>(a_out), static_cast<float*>(b_out), npix);
   return static_cast<int>(cudaGetLastError());

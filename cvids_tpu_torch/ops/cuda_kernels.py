@@ -468,9 +468,9 @@ def depth_filter_update(state: depth_filter.FilterState, x: torch.Tensor,
     """Fused filter step: the contract of `depth_filter.update`, returning a
     new `FilterState` (the old one is not written).
 
-    state: four (H, W) fp32 maps; x (H, W) fp32 inverse depth; tau2 a float,
-    a one-element fp32 tensor or an (H, W) fp32 map (a scalar is read with
-    stride 0, never expanded); meas_valid (H, W) bool."""
+    state: four (H, W) fp32 maps; x (H, W) fp32 inverse depth; tau2 a float
+    (passed by value, never expanded to a map) or an (H, W) fp32 map;
+    meas_valid (H, W) bool."""
     tau2_t = tau2 if isinstance(tau2, torch.Tensor) else None
     tensors = [*state, x, meas_valid] + ([tau2_t] if tau2_t is not None else [])
     if not _on_cuda(*tensors):
@@ -483,21 +483,16 @@ def depth_filter_update(state: depth_filter.FilterState, x: torch.Tensor,
         _require(t, name, (h, w), f32)
     _require(x, "x", (h, w), f32)
     _require(meas_valid, "meas_valid", (h, w), (torch.bool,))
-    tau2_ptr, tau2_stride, tau2_value = 0, 0, 0.0
-    if tau2_t is None:
-        tau2_value = float(tau2)
-    elif tau2_t.numel() == 1:
-        _require(tau2_t.reshape(()), "tau2", (), f32)
-        tau2_ptr = tau2_t.data_ptr()
-    else:
+    if tau2_t is not None:
         _require(tau2_t, "tau2", (h, w), f32)
-        tau2_ptr, tau2_stride = tau2_t.data_ptr(), 1
     out = depth_filter.FilterState(*(torch.empty_like(x) for _ in range(4)))
     if h * w == 0:
         return out
     lo, hi = float(mu_range[0]), float(mu_range[1])
     _launch("depth_filter_update", "cvids_depth_filter", x.device,
-            *(t.data_ptr() for t in state), x.data_ptr(), tau2_ptr, tau2_stride,
-            tau2_value, meas_valid.data_ptr(), lo, hi, 1.0 / (hi - lo),
+            *(t.data_ptr() for t in state), x.data_ptr(),
+            0 if tau2_t is None else tau2_t.data_ptr(),
+            0.0 if tau2_t is not None else float(tau2),
+            meas_valid.data_ptr(), lo, hi, 1.0 / (hi - lo),
             *(t.data_ptr() for t in out), h * w)
     return out

@@ -8,9 +8,9 @@ matrix of residuals; the first hypothesis with the most inliers wins.
 Sampling takes its randomness as a tensor: `gumbel` is (num_hyp, n) standard
 Gumbel noise, and each hypothesis takes the `sample_size` largest entries of
 noise + log(valid) — the Gumbel-top-k draw of the JAX package with the noise
-supplied by the caller (`gumbel_noise` draws it from a CPU `torch.Generator`),
-so the same noise gives the same hypotheses on the CPU, on the card and in
-`cvids_tpu`. Nothing here reads a device value back to the host, except the
+supplied by the caller (`gumbel_noise` draws its uniforms from a CPU
+`torch.Generator`), so the same noise tensor gives the same hypotheses on the
+CPU, on the card and in `cvids_tpu`. Nothing here reads a device value back to the host, except the
 error checks inside torch.linalg's `eigh` and `svd`.
 
 All functions operate on normalized (undistorted) image coordinates. The
@@ -48,8 +48,11 @@ class FResult(NamedTuple):
 def gumbel_noise(num_hyp: int, n: int, generator: torch.Generator,
                  device=None) -> torch.Tensor:
     """(num_hyp, n) float32 standard Gumbel noise on `device`: the uniforms
-    come from the CPU `generator` (the same draws whatever the device) and
-    cross to the device through pinned memory; the two logs run there."""
+    come from the CPU `generator` (the same uniforms whatever the device)
+    and cross to the device through pinned memory; the two logs run there.
+    The CPU's and the card's `log` need not round alike, so the noise agrees
+    across devices only to an ulp or so; `chip_smoke.py` checks that the
+    hypotheses it picks are the same."""
     u = torch.rand((num_hyp, n), generator=generator, dtype=torch.float32)
     if torch.device(device or "cpu").type == "cuda":
         u = u.pin_memory().to(device, non_blocking=True)

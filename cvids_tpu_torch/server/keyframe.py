@@ -16,7 +16,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 if TYPE_CHECKING:
-    from cvids_tpu.io.msgs import KeyframePacket
+    from ..io.msgs import KeyframePacket
 
 __all__ = ["KeyframeStore"]
 

@@ -4,7 +4,7 @@ loop closures (port of ``cvids_tpu/server/pcm.py``).
 Inter-agent loop edges are bucketed per client pair; the O(E²) pairwise
 cycle-consistency errors are one batched 4-DoF composition over an (E, E)
 grid on the device; the consistency matrix feeds a max-clique search on the
-host (`cvids_tpu.native`'s C++ solver when it builds, the Python search
+host (the port's C++ solver, `native`, when it builds; the Python search
 otherwise).
 
 Cycle error (4-DoF semantics, `pcm_graph.cpp:195-268`): for edges
@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..geometry import rot_z, wrap_angle
 
 __all__ = ["pairwise_consistency", "max_clique", "pcm_filter", "FourDof",
@@ -134,9 +135,8 @@ def pairwise_consistency(edge_T: FourDof, pose_i: FourDof, pose_j: FourDof,
 
 
 def native_max_clique_available() -> bool:
-    """Whether `max_clique` runs `cvids_tpu.native`'s C++ solver (built with
-    make on first use) rather than the Python search."""
-    from cvids_tpu import native
+    """Whether `max_clique` runs the port's C++ solver (`native`, built on
+    first use) rather than the Python search."""
     return native.available()
 
 
@@ -147,7 +147,6 @@ def max_clique(adj: np.ndarray, exact_threshold: int = 18) -> np.ndarray:
     otherwise exact branch-and-bound for small graphs and the greedy
     degree-guided heuristic (Pattabiraman et al., the reference's
     `maxCliqueHeu`) for larger ones."""
-    from cvids_tpu import native
     if native.available():
         out = native.max_clique_native(adj)
         if out is not None:

@@ -57,7 +57,7 @@ from . import vocab as vocab_mod
 from .keyframe import KeyframeStore
 
 if TYPE_CHECKING:
-    from cvids_tpu.io.msgs import KeyframePacket
+    from ..io.msgs import KeyframePacket
 
 __all__ = ["ServerConfig", "CollaborativePoseGraph"]
 

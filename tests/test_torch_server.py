@@ -4,7 +4,9 @@ CPU, with the JAX key chain's Gumbel noise injected into the port's RANSAC,
 on the dense-vocabulary path and on the tree-vocabulary path
 (`TreeVocabulary` + `SparseBowDatabase`, the reference's DBoW2 scale); the
 port's pipelined and background-solve modes on their own; its store growth
-and trajectory export. (One file, so the JAX server compiles once.)
+and trajectory export; its copies of the packet and stream generators
+(`cvids_tpu_torch.io`) against `cvids_tpu.io`. (One file, so the JAX server
+compiles once.)
 """
 
 import jax
@@ -12,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from cvids_tpu.io import multiagent
-from cvids_tpu.io.msgs import KeyframePacket
-from cvids_tpu.io.synthetic import Trajectory
+from cvids_tpu.io import multiagent as jma
+from cvids_tpu.io.synthetic import Trajectory as JTrajectory
 from cvids_tpu.server import posegraph as jpg
 from cvids_tpu.server import vocab as jvoc
 from cvids_tpu_torch import interop
+from cvids_tpu_torch.io import multiagent
+from cvids_tpu_torch.io.msgs import KeyframePacket
+from cvids_tpu_torch.io.synthetic import Trajectory
 from cvids_tpu_torch.server import posegraph as tpg
 from cvids_tpu_torch.server.keyframe import KeyframeStore
 from cvids_tpu_torch.server.vocab import BowDatabase, SparseBowDatabase
@@ -63,16 +67,25 @@ def small_config(mod):
                             min_loop_matches=12, pcm_min_edges=10)
 
 
-def two_agents():
+def two_agents(ma=multiagent, traj=Trajectory):
     """`test_two_agent_alignment_and_ate`'s agents: client 1 with a frame
-    offset and drift."""
+    offset and drift (of the port's generator, or of `ma` and `traj`)."""
     return [
-        multiagent.AgentSim(Trajectory.circle(radius=5.0, omega=0.45, center=(0.0, 0.0, 1.5))),
-        multiagent.AgentSim(Trajectory.circle(radius=5.0, omega=0.45, phase=1.5,
-                                              center=(2.0, 1.0, 1.5)),
-                            yaw_offset=0.4, t_offset=np.array([2.0, -1.0, 0.3]),
-                            drift_yaw_rate=0.0005, drift_t_rate=0.002),
+        ma.AgentSim(traj.circle(radius=5.0, omega=0.45, center=(0.0, 0.0, 1.5))),
+        ma.AgentSim(traj.circle(radius=5.0, omega=0.45, phase=1.5, center=(2.0, 1.0, 1.5)),
+                    yaw_offset=0.4, t_offset=np.array([2.0, -1.0, 0.3]),
+                    drift_yaw_rate=0.0005, drift_t_rate=0.002),
     ]
+
+
+def both_streams(landmarks, descs, **kwargs):
+    """The two-agent stream from `cvids_tpu.io` (for the JAX server) and
+    from the port's copy (for the port's). Returns (jax packets, port
+    packets, ground truth)."""
+    packets_j, gt = jma.generate_packets(two_agents(jma, JTrajectory), landmarks, descs,
+                                         **kwargs)
+    packets_t, _ = multiagent.generate_packets(two_agents(), landmarks, descs, **kwargs)
+    return packets_j, packets_t, gt
 
 
 def ate(server, gt, cid):
@@ -87,12 +100,13 @@ def loop_edges(server):
                                              server.loop_j[:server.loop_count])}
 
 
-def run_both(packets, voc_j, voc_t):
-    """Stream the packets through both servers; returns (jax, port) after
-    flush(final=False), with the accepted edge sets taken there."""
+def run_both(packets_j, packets_t, voc_j, voc_t):
+    """Stream each package's packets through its server; returns (jax,
+    port) after flush(final=False), with the accepted edge sets taken
+    there."""
     servers = [jpg.CollaborativePoseGraph(voc_j, small_config(jpg)),
                tpg.CollaborativePoseGraph(voc_t, small_config(tpg), noise=JaxKeyChain())]
-    for s in servers:
+    for s, packets in zip(servers, (packets_j, packets_t)):
         for _, _, _, pkt in packets:
             s.add_keyframe(pkt)
         s.flush(final=False)
@@ -119,10 +133,10 @@ def assert_same_run(sj, st, gt):
 
 def test_two_agent_stream_matches_jax(world):
     landmarks, descs, voc = world
-    packets, gt = multiagent.generate_packets(two_agents(), landmarks, descs,
-                                              duration=28.0, kf_rate=1.0, max_feats=60)
+    packets_j, packets_t, gt = both_streams(landmarks, descs, duration=28.0, kf_rate=1.0,
+                                            max_feats=60)
     voc_t = interop.vocabulary_to_torch(jax.tree_util.tree_map(np.asarray, voc), "cpu")
-    sj, st = run_both(packets, voc, voc_t)
+    sj, st = run_both(packets_j, packets_t, voc, voc_t)
     assert isinstance(st.db, BowDatabase)
     assert_same_run(sj, st, gt)
 
@@ -132,9 +146,9 @@ def test_two_agent_stream_matches_jax_tree_vocabulary(world):
     # k=10, levels=4 -> 10^4 words, trained as `test_server.py` trains it
     tree_j = jvoc.tree_from_trained(jvoc.train_vocabulary(descs, k=10, levels=4, seed=1))
     tree_t = interop.tree_vocabulary_to_torch(tree_j)
-    packets, gt = multiagent.generate_packets(two_agents(), landmarks, descs,
-                                              duration=28.0, kf_rate=1.0, max_feats=60)
-    sj, st = run_both(packets, tree_j, tree_t)
+    packets_j, packets_t, gt = both_streams(landmarks, descs, duration=28.0, kf_rate=1.0,
+                                            max_feats=60)
+    sj, st = run_both(packets_j, packets_t, tree_j, tree_t)
     assert isinstance(st.db, SparseBowDatabase)
     assert_same_run(sj, st, gt)
     # the sparse stores hold the same words
@@ -232,3 +246,42 @@ def test_store_growth_and_trajectory(world):
     tr = server.trajectory(0)
     assert tr.shape == (len(packets), 8)
     np.testing.assert_allclose(np.linalg.norm(tr[:, 4:], axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("setup", ["two_agents", "noisy_modulated"])
+def test_io_copies_match_jax(world, setup):
+    """`cvids_tpu_torch.io` (the port's copy of the packet schema and the
+    multi-agent generator) gives the same packets, bit for bit, and the same
+    ground truth as `cvids_tpu.io`, with and without pixel noise."""
+    landmarks, _, _ = world
+    descs = multiagent.landmark_descriptors(len(landmarks), seed=7)
+    np.testing.assert_array_equal(descs, jma.landmark_descriptors(len(landmarks), seed=7))
+    if setup == "two_agents":
+        agents_j, agents_t, kwargs = two_agents(jma, JTrajectory), two_agents(), {}
+    else:
+        def agents(ma, traj):
+            return [ma.AgentSim(traj.circle(radius=6.0, omega=0.3, phase=0.3, speed_mod=0.5),
+                                yaw_offset=-0.2, t_offset=np.array([0.5, 1.0, 0.0]),
+                                drift_yaw_rate=0.001),
+                    ma.AgentSim(traj.circle(radius=4.0, speed_mod=0.3))]
+        agents_j, agents_t = agents(jma, JTrajectory), agents(multiagent, Trajectory)
+        kwargs = {"pix_noise": 0.002, "seed": 5}
+    pj, gt_j = jma.generate_packets(agents_j, landmarks, descs, duration=9.0, max_feats=50,
+                                    **kwargs)
+    pt, gt_t = multiagent.generate_packets(agents_t, landmarks, descs, duration=9.0,
+                                           max_feats=50, **kwargs)
+    assert len(pt) == len(pj) == 20
+    for (tj, cj, kj, a), (tt, ct, kt, b) in zip(pj, pt):
+        assert (tj, cj, kj) == (tt, ct, kt)
+        assert isinstance(b, KeyframePacket)
+        for name, va in vars(a).items():
+            vb = getattr(b, name)
+            if isinstance(va, np.ndarray):
+                assert va.dtype == vb.dtype, name
+                np.testing.assert_array_equal(vb, va, err_msg=name)
+            else:
+                assert vb == va, name
+    assert gt_t.keys() == gt_j.keys()
+    for key, (p, q) in gt_j.items():
+        np.testing.assert_array_equal(gt_t[key][0], p)
+        np.testing.assert_array_equal(gt_t[key][1], q)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cvids_tpu import native as jnative
 from cvids_tpu.geometry import hostmath as jhm
 from cvids_tpu.geometry import rotations as jrot
 from cvids_tpu.geometry import se3 as jse3
@@ -21,6 +22,7 @@ from cvids_tpu.server import pcm as jpcm
 from cvids_tpu.server import vocab as jvoc
 from cvids_tpu.server.posegraph import _match_and_pnp as jax_match_and_pnp
 from cvids_tpu_torch import interop
+from cvids_tpu_torch import native as tnative
 from cvids_tpu_torch.geometry import hostmath as thm
 from cvids_tpu_torch.geometry import rotations as trot
 from cvids_tpu_torch.geometry import se3 as tse3
@@ -493,9 +495,16 @@ def test_chain_cov(rng):
     np.testing.assert_allclose(_np(vy_t), np.asarray(vy_j), rtol=1e-6)
 
 
-def test_max_clique_matches_reference(rng):
+@pytest.mark.parametrize("route", ["native", "python"])
+def test_max_clique_matches_reference(rng, route, monkeypatch):
+    """The port's max clique (its own build of fmc.cpp, or the Python search
+    without a compiler) gives the JAX package's cliques, exactly."""
+    if route == "python":
+        monkeypatch.setattr(tnative, "available", lambda: False)
+        monkeypatch.setattr(jnative, "available", lambda: False)
+    else:
+        assert tpcm.native_max_clique_available() == jnative.available()
     for n in (0, 6, 25, 45):
         a = rng.random((n, n)) < 0.5
         a = a | a.T
         np.testing.assert_array_equal(tpcm.max_clique(a), jpcm.max_clique(a))
-    assert tpcm.native_max_clique_available() in (True, False)
