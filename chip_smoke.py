@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the six CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
 hamming_matrix), holds each against its PyTorch twin on the card at its
-path's shapes, then drives the port's two paths at full width and checks
+path's shapes, then drives the port's three paths at full width and checks
 that every kernel of each path ran:
 
 - phase 4, the server step of `__graft_entry__.entry()`: dense fusion at
@@ -11,18 +11,28 @@ that every kernel of each path ran:
   keyframes (160 window / 512 extra features each) through
   `CollaborativePoseGraph` with a 10^6-word tree vocabulary and the
   background solver (the Hamming kernel in every loop verification), then
-  the same stream's loop edges through the kernel and through its twin.
+  the same stream's loop edges through the kernel and through its twin;
+- phase 6, the whole collaborative server: 4 agents' keyframe packets
+  with 640x480 images rendered in `default_scene()`'s room through
+  `CollaborativeServer` (pose graph, per-client dense depth at 640x480x128
+  bf16, TSDF fusion at 0.1 m with carving, the mesh), scored against the
+  rendered depth and the analytic scene; then a short stream through the
+  kernels and through the twins.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
 
-Needs one CUDA card and nvcc (PATH or /usr/local/cuda/bin). Imports
-neither JAX nor any module of `cvids_tpu`, and checks so at the end. Exits
+`--kernels-only` is the run to put under compute-sanitizer (memcheck,
+initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
+/usr/local/cuda/bin). Imports neither JAX nor any module of `cvids_tpu`,
+and checks so at the end. Exits
 non-zero on any failed phase. The line before the last is the kernel table
 as JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -30,6 +40,7 @@ import sys
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -49,9 +60,9 @@ SOURCES = {
     "wta": ("cvids_tpu_torch/csrc/wta.cu",
             "cvids_tpu/ops/pallas_kernels.py:652"),
     "depth_filter_update": ("cvids_tpu_torch/csrc/depth_filter.cu",
-                            "cvids_tpu/ops/pallas_kernels.py:145"),
+                            "cvids_tpu/ops/pallas_kernels.py:146"),
     "hamming_matrix": ("cvids_tpu_torch/csrc/hamming.cu",
-                       "cvids_tpu/ops/pallas_kernels.py:64"),
+                       "cvids_tpu/ops/pallas_kernels.py:65"),
 }
 DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
 SERVER_KERNELS = ("hamming_matrix",)
@@ -62,6 +73,11 @@ SERVER_LANDMARKS = 3000     # >= 711 visible per keyframe: windows fill to 160, 
 SERVER_TREE = (10, 6)       # k, levels: 10^6 words, the brief_k10L6.bin scale
 COMPARE_AGENTS = 2          # the kernel-vs-twin edge comparison's stream
 COMPARE_DURATION = 49.0     # s per agent: 100 keyframes in all
+# the whole server with images: 4 agents in default_scene()'s room
+PIPE_AGENTS = 4
+PIPE_KF = 36                # keyframes per agent
+PIPE_LANDMARKS = 1500       # on the scene's surfaces
+SHORT_KF = 12               # the kernel-vs-twin stream: agent 0's first keyframes
 # the filter kernel against its twin, per field: the same fp32 operations in
 # the same order with no FMA contraction, so at most 2 ulp apart
 FILTER_MAX_ULP = 2
@@ -421,6 +437,121 @@ def edge_checks(device, rng) -> None:
           "masks; filter 37x53, 1x33, 481x641): every kernel agrees with its twin")
 
 
+RED_ZONE = 1 << 16     # bytes of 0xFF on each side of a guarded tensor
+
+
+class GuardedTorch:
+    """Stands in for the `torch` module inside `cuda_kernels`: its `empty`
+    and `empty_like` return tensors placed between two red zones of 0xFF
+    bytes (NaN in every float dtype) in a larger buffer, themselves filled
+    with 0xFF, so that a read before a write is NaN and a write past either
+    end shows in a red zone. Everything else is torch's."""
+
+    def __init__(self):
+        self.buffers = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def guarded(self, shape, dtype, device, fill=None) -> torch.Tensor:
+        nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.full((2 * RED_ZONE + nbytes,), 0xFF, dtype=torch.uint8, device=device)
+        self.buffers.append(buf)
+        t = buf[RED_ZONE:RED_ZONE + nbytes].view(dtype).view(tuple(shape))
+        return t if fill is None else t.copy_(fill)
+
+    def empty(self, *size, dtype=None, device=None, **_):
+        shape = size[0] if len(size) == 1 and not isinstance(size[0], int) else size
+        return self.guarded(shape, dtype or torch.get_default_dtype(), device)
+
+    def empty_like(self, t, **_):
+        return self.guarded(t.shape, t.dtype, t.device)
+
+    def red_zones_intact(self) -> bool:
+        return all(bool((b[:RED_ZONE] == 0xFF).all()) and bool((b[-RED_ZONE:] == 0xFF).all())
+                   for b in self.buffers)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit patterns, so NaNs compare as values."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def memory_checks(device, rng, repeats=3) -> int:
+    """An audit of the six kernels' memory accesses that needs no sanitizer:
+    each kernel runs at the path's shapes and at ragged ones with its inputs
+    and outputs guarded (`GuardedTorch`), and must give the bits of its
+    unguarded run every time, with every red zone intact. An out-of-bounds
+    read that reaches a result reads NaN; an out-of-bounds write lands in a
+    red zone; a read of unwritten output reads NaN; a race shows as runs
+    that differ. Returns the number of guarded launches."""
+    from cvids_tpu_torch.ops import costvolume, cuda_kernels as ck
+    from cvids_tpu_torch.ops.depth_filter import FilterState
+
+    dev = torch.device(device)
+    cases = []
+    for h, w, d in ((H, W, D), (37, 53, 32), (1, 33, 64)):
+        img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
+        k = np.array([[FOCAL, 0, w / 2], [0, FOCAL, h / 2], [0, 0, 1]], np.float32)
+        m = torch.from_numpy(rotation_homography(k, 0.03)).to(dev)
+        bands = (96, 48) if h == H else (8, 4)
+        cases.append(("warp_banded", ck.projective_warp_banded, (img, m, *bands)))
+        b = torch.from_numpy(k @ np.array([-0.1, 0.02, 0.01], np.float32)).to(dev)
+        inv = (torch.arange(d, dtype=torch.float32, device=dev) + 1.0) / (BASELINE * FOCAL)
+        pos = [p.contiguous() for p in costvolume._sweep_positions(m, b, inv, h, w)]
+        meas = img.flip(1).contiguous()
+        cost = torch.from_numpy(rng.uniform(0, 50, (h, w, d)).astype(np.float32)).to(dev)
+        p2 = torch.from_numpy(rng.uniform(30, 90, (h, w)).astype(np.float32)).to(dev)
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append(("plane_sweep", lambda *a, dt=dt: ck.plane_sweep(*a, out_dtype=dt),
+                          (img, meas, *pos)))
+            c, p = cost.to(dt), p2.to(dt)
+            for axis in (0, 1):
+                cases.append(("sgm_scan", lambda *a, axis=axis: ck.sgm_scan_bidir(*a, axis=axis),
+                              (c, p, 7.0)))
+            cases.append(("wta", ck.wta, (c, c.flip(2).contiguous())))
+            cases.append(("wta", ck.wta, (c, c.roll(1, 2), c.roll(3, 2), c.flip(2).contiguous())))
+        st, x, valid = filter_inputs(rng, dev, h, w)
+        tau2 = torch.from_numpy(rng.uniform(1e-3, 0.05, (h, w)).astype(np.float32)).to(dev)
+        cases.append(("depth_filter_update", ck.depth_filter_update, (st, x, 0.013, valid)))
+        cases.append(("depth_filter_update", ck.depth_filter_update, (st, x, tau2, valid)))
+    for n, m_ in ((160, 512), (37, 129), (1, 4097)):
+        a, b, av, bv = hamming_inputs(rng, dev, n, m_)
+        cases.append(("hamming_matrix", ck.hamming_matrix, (a, b, av, bv)))
+        cases.append(("hamming_matrix", ck.hamming_matrix, (a, b)))
+
+    def flat(out):
+        return [t for o in (out if isinstance(out, tuple) else (out,))
+                for t in (o if isinstance(o, tuple) else (o,))]
+
+    n_launches = 0
+    for name, fn, args in cases:
+        ref = flat(fn(*args))
+        for _ in range(repeats):
+            g = GuardedTorch()
+
+            def guard(a, g=g):
+                if isinstance(a, FilterState):
+                    return FilterState(*(guard(t) for t in a))
+                if isinstance(a, torch.Tensor):
+                    return g.guarded(a.shape, a.dtype, a.device, fill=a)
+                return a
+
+            with mock.patch.object(ck, "torch", g):
+                out = flat(fn(*(guard(a) for a in args)))
+            torch.cuda.synchronize()
+            n_launches += 1
+            shape = tuple(args[0].shape) if torch.is_tensor(args[0]) else tuple(args[1].shape)
+            check(all(torch.equal(_bits(o), _bits(r)) for o, r in zip(out, ref)),
+                  f"{name} {shape}: a guarded run differs from the unguarded one")
+            check(g.red_zones_intact(), f"{name} {shape}: a red zone was written")
+    print(f"  memory audit: {n_launches} guarded launches of the six kernels (path and ragged "
+          f"shapes, {RED_ZONE} B red zones, {repeats} runs each): every run bit-identical "
+          f"to the unguarded one, every red zone intact")
+    return n_launches
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -704,7 +835,7 @@ def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
                  tree_shape=SERVER_TREE, compare=(COMPARE_AGENTS, COMPARE_DURATION)):
     """Phase 5: the server slice, its launches counted, its outputs checked;
     then the kernel route's loop edges against the twin route's. Returns the
-    launch counts of the main run."""
+    tree vocabulary."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
     from cvids_tpu_torch.server import pcm, vocab
 
@@ -757,6 +888,272 @@ def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
           f"keyframe without a solve (kernel route) median {np.median(inline_ms):.3f} "
           f"p90 {np.percentile(inline_ms, 90):.3f}")
     print("phase 5 server: ok")
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the whole collaborative server, packets with images -> mesh
+# ---------------------------------------------------------------------------
+
+
+def look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """Camera axes in world (z toward the target, x level, y down)."""
+    z = (target - eye) / np.linalg.norm(target - eye)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z], 1)
+
+
+def scene_distance(pts: np.ndarray) -> np.ndarray:
+    """Unsigned distance of (N, 3) points to `default_scene()`'s surfaces
+    (floor, wall, box)."""
+    from cvids_tpu_torch.io.render import default_scene
+    sc = default_scene()
+    q = np.maximum(sc["box_lo"][None] - pts, pts - sc["box_hi"][None])
+    d_box = np.abs(np.linalg.norm(np.maximum(q, 0.0), axis=1) + np.minimum(q.max(1), 0.0))
+    return np.minimum(np.minimum(np.abs(pts[:, 2] - sc["floor_z"]),
+                                 np.abs(pts[:, 1] - sc["wall_y"])), d_box)
+
+
+def scene_stream(n_agents, n_kf, h=H, w=W, focal=FOCAL, n_landmarks=PIPE_LANDMARKS, seed=5):
+    """Agents on arcs in front of `default_scene()`'s room, each camera
+    looking at the box, keyframes at 1 Hz in time order. Each packet's image
+    is rendered from the keyframe's ground-truth camera pose; its window and
+    extra features are the landmarks (sampled on the scene's surfaces) that
+    the camera sees unoccluded, up to 512, in normalized coordinates. Agent
+    a's odometry frame is offset by yaw 0.4a and t (2a, -a, 0.1a); agent 0's
+    is the ground-truth frame. Returns (packets, {(agent, kf): true depth},
+    K)."""
+    from cvids_tpu_torch.io import multiagent, render
+    from cvids_tpu_torch.io.msgs import KeyframePacket
+    from cvids_tpu_torch.io.synthetic import quat_from_matrix_np
+
+    rng = np.random.default_rng(seed)
+    cam = render.Pinhole(focal, focal, w / 2, h / 2, w, h)
+    k = cam.k_matrix.astype(np.float64)
+    landmarks = render.sample_scene_landmarks(n_landmarks, rng)
+    descs = multiagent.landmark_descriptors(n_landmarks)
+    r_cb = multiagent.R_CB_DEFAULT.astype(np.float64)
+    views = []
+    for i in range(n_kf):
+        for a in range(n_agents):
+            s = i / n_kf if a % 2 == 0 else 1.0 - i / n_kf
+            ang = -0.6 + 1.2 * s
+            radius = 1.5 + 0.2 * a
+            eye = np.array([1.5 + radius * np.sin(ang), -2.2 - 0.25 * a, 1.2 + 0.12 * a])
+            target = np.array([1.5 + 0.1 * a, 1.0, 0.5])
+            views.append((a, i, look_at(eye, target), eye))
+    with ThreadPoolExecutor(8) as ex:
+        images = list(ex.map(lambda v: render.render_textured_scene(cam, v[2], v[3]), views))
+    packets, truth = [], {}
+    for (a, i, r_wc, eye), (img, depth) in zip(views, images):
+        truth[(a, i)] = depth
+        pts_c = (landmarks - eye) @ r_wc
+        z = pts_c[:, 2]
+        px = pts_c @ k.T
+        u = np.round(px[:, 0] / np.maximum(z, 1e-9)).astype(np.int64)
+        v = np.round(px[:, 1] / np.maximum(z, 1e-9)).astype(np.int64)
+        inside = (z > 0.5) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        seen = np.zeros_like(inside)
+        seen[inside] = np.abs(depth[v[inside], u[inside]] - z[inside]) < 0.05 * z[inside]
+        idx = np.nonzero(seen)[0][:512]
+        uv = (pts_c[idx, :2] / z[idx, None]).astype(np.float32)
+        yaw_off, t_off = 0.4 * a, np.array([2.0 * a, -1.0 * a, 0.1 * a])
+        c, s = np.cos(-yaw_off), np.sin(-yaw_off)
+        r_lw = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])   # world -> odometry
+        ones = np.ones(len(idx), bool)
+        packets.append(KeyframePacket(
+            client_id=a, timestamp=float(i), p_wb=(r_lw @ (eye - t_off)).astype(np.float32),
+            q_wb=quat_from_matrix_np(r_lw @ r_wc @ r_cb).astype(np.float32),
+            r_cb=multiagent.R_CB_DEFAULT, p_bc=np.zeros(3, np.float32),
+            win_pts3d=((landmarks[idx] - t_off) @ r_lw.T).astype(np.float32), win_uv=uv,
+            win_ids=idx.astype(np.int64), win_desc=descs[idx], win_valid=ones,
+            ext_uv=uv, ext_desc=descs[idx], ext_valid=ones.copy(), image=img))
+    return packets, truth, cam.k_matrix
+
+
+class IntegrateTimer:
+    """Times each `TsdfVolume.integrate` of a volume: the host's chunk walk
+    and allocation (host clock) and the device integrate (CUDA events on a
+    card), without adding a sync to the path."""
+
+    def __init__(self, volume):
+        from cvids_tpu_torch.mapping import tsdf
+        self.host_ms, self.events, self.chunks = [], [], []
+        real_touched, real_alloc = volume._touched_chunks, volume._alloc
+        real_chunks = tsdf.integrate_chunks
+        self._restore = lambda: setattr(tsdf, "integrate_chunks", real_chunks)
+        timed = volume.device.type == "cuda"
+
+        def touched(*args):
+            self._t0 = time.perf_counter()
+            return real_touched(*args)
+
+        def alloc(coords):
+            slots = real_alloc(coords)
+            self.host_ms.append((time.perf_counter() - self._t0) * 1e3)
+            self.chunks.append(len(slots))
+            return slots
+
+        def chunks(*args):
+            if not timed:
+                return real_chunks(*args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            real_chunks(*args)
+            end.record()
+            self.events.append((start, end))
+
+        volume._touched_chunks, volume._alloc = touched, alloc
+        tsdf.integrate_chunks = chunks
+
+    def device_ms(self) -> list[float]:
+        """Device ms of each integrate_chunks call (syncs once, at the end)."""
+        if self.events:
+            self.events[-1][1].synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def close(self):
+        self._restore()
+
+
+def pipeline_run(device, packets, vocabulary, k, cfg):
+    """Streams the packets through CollaborativeServer; returns the server
+    (its worker stopped), per-keyframe host ms, and the integrate timer."""
+    from cvids_tpu_torch.server.pipeline import CollaborativeServer
+
+    server = CollaborativeServer(vocabulary, cfg, device=device)
+    for cid in sorted({int(p.client_id) for p in packets}):
+        server.set_client_intrinsics(cid, k)
+    timer = IntegrateTimer(server.volume)
+    kf_ms = []
+    try:
+        for pkt in packets:
+            t0 = time.perf_counter()
+            server.submit(pkt)
+            server.process()
+            kf_ms.append((time.perf_counter() - t0) * 1e3)
+        _sync(device)
+    finally:
+        timer.close()
+        server.close()
+    return server, kf_ms, timer
+
+
+def depth_rms(server, truth) -> list[float]:
+    """Inverse-depth RMS of each published map against the rendered truth
+    over pixels with 0.2-6 m true depth (test_full_system.py's scoring);
+    maps that share < 2 % of such pixels are skipped."""
+    st, out = server.graph.store, []
+    for rec in server.depth_records:
+        gt = truth[(rec["client"], int(st.local_index[rec["ref_index"]]))]
+        est = rec["depth"]
+        both = (est > 0) & (gt > 0.2) & (gt < 6.0)
+        if both.mean() >= 0.02:
+            out.append(float(np.sqrt(np.mean((1.0 / est[both] - 1.0 / gt[both]) ** 2))))
+    return out
+
+
+def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, w=W,
+                   focal=FOCAL, dense=None, short_kf=SHORT_KF):
+    """Phase 6: the whole server at DenseConfig() and TsdfConfig() defaults
+    (640x480x128 bf16, 0.1 m voxels, carving), inline solves; then a short
+    stream through the kernels and through the twins. `dense` replaces
+    DenseConfig() for a smaller rehearsal on the CPU. Returns the main
+    run's launch counts."""
+    import tempfile
+
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+    from cvids_tpu_torch.mapping.mesh import extract_mesh, read_ply
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.server.pipeline import PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    packets, truth, k = scene_stream(n_agents, n_kf, h, w, focal)
+    cfg = PipelineConfig(server=ServerConfig(), dense=dense or DenseConfig(), tsdf=TsdfConfig())
+    print(f"phase 6 pipeline: {len(packets)} keyframes with {h}x{w} images from {n_agents} "
+          f"agents ({np.median([len(p.win_ids) for p in packets]):.0f} features median), "
+          f"rendered in {time.perf_counter() - t0:.1f} s; dense {cfg.dense.height}x"
+          f"{cfg.dense.width}x{cfg.dense.num_depths} {cfg.dense.dtype}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    server, kf_ms, timer = pipeline_run(dev, packets, vocabulary, k, cfg)
+    stream_s = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    vol = server.volume
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = f"{tmp}/scene.ply"
+        t1 = time.perf_counter()
+        n_tri = server.save_mesh(ply)
+        save_ms = (time.perf_counter() - t1) * 1e3
+        verts, faces, _ = read_ply(ply)
+    _sync(dev)
+    t1 = time.perf_counter()
+    extract_mesh(vol)
+    mesh_ms = (time.perf_counter() - t1) * 1e3
+    per_client = [sum(r["client"] == c for r in server.depth_records) for c in range(n_agents)]
+    rms = depth_rms(server, truth)
+    med_rms = float(np.median(rms)) if rms else float("inf")
+    dist = float(np.median(scene_distance(verts.astype(np.float64)))) if len(verts) else float("inf")
+    dev_ms = timer.device_ms()
+    spans = {name: np.asarray(v) * 1e3 for name, v in server.tracer.samples.items()}
+    print(f"  stream {stream_s:.2f} s; host ms per keyframe median {np.median(kf_ms):.3f} "
+          f"p90 {np.percentile(kf_ms, 90):.3f}; peak device memory {peak:.2f} GiB")
+    print("  tracer host ms per span: " + "; ".join(
+        f"{n} x{len(v)} median {np.median(v):.3f} p90 {np.percentile(v, 90):.3f}"
+        for n, v in spans.items()))
+    print(f"  TsdfVolume.integrate per depth map: chunk walk + alloc (host) ms median "
+          f"{np.median(timer.host_ms):.3f} p90 {np.percentile(timer.host_ms, 90):.3f}; device "
+          f"integrate ms median {np.median(dev_ms) if dev_ms else float('nan'):.4f} max "
+          f"{max(dev_ms, default=float('nan')):.4f}; chunks per map median "
+          f"{np.median(timer.chunks):.0f} max {max(timer.chunks)}")
+    print(f"  extract_mesh {mesh_ms:.3f} ms, save_mesh {save_ms:.3f} ms; chunks allocated "
+          f"{len(vol.slot_of)} (pool {vol.capacity}, dropped {vol.dropped_chunks}); "
+          f"triangles {n_tri}")
+    print(f"  aligned {[c.aligned for c in server.graph.clients[:n_agents]]}; loops "
+          f"{server.graph.loop_count}; depth maps {server.depth_maps_published}, per agent "
+          f"{per_client}; inverse-depth RMS median {med_rms:.4f} over {len(rms)} maps "
+          f"{[round(r, 4) for r in rms]}; mesh median scene distance {dist:.4f} m; "
+          f"launches {counts}")
+    check(all(c.aligned for c in server.graph.clients[:n_agents]), "a client never aligned")
+    check(min(per_client) >= 4, f"depth maps per agent {per_client}: fewer than 4")
+    check(med_rms < 0.12, f"median inverse-depth RMS {med_rms} >= 0.12")
+    check(n_tri > 1000 and faces == n_tri, f"mesh has {n_tri} triangles, not > 1000")
+    check(dist < 0.15, f"mesh median scene distance {dist} m >= 0.15")
+    check(vol.pool.sdf.device == dev and vol.pool.weight.device == dev,
+          f"TSDF pool on {vol.pool.sdf.device}, not {dev}")
+    check(all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS),
+          f"a kernel did not run in the pipeline: {counts}")
+
+    # the short stream, kernels against twins: the same maps and chunks
+    short = [p for p in packets if p.client_id == 0][:short_kf]
+    runs = []
+    for patched in (False, True):
+        with contextlib.ExitStack() as stack:
+            for p in twin_patches() if patched else ():
+                stack.enter_context(p)
+            s, _, _ = pipeline_run(dev, short, vocabulary, k, cfg)
+        runs.append(s)
+    (sk, st) = runs
+    check(sk.depth_maps_published == st.depth_maps_published >= 1,
+          f"short stream: {sk.depth_maps_published} maps via kernels, "
+          f"{st.depth_maps_published} via twins")
+    agree = min(float(np.isclose(a["depth"], b["depth"], rtol=1e-4, atol=0.0).mean())
+                for a, b in zip(sk.depth_records, st.depth_records))
+    check(agree >= 0.999, f"short stream: maps agree at {agree:.5f} of pixels, < 0.999")
+    check(set(sk.volume.slot_of) == set(st.volume.slot_of),
+          f"short stream: chunk sets differ ({len(sk.volume.slot_of)} vs "
+          f"{len(st.volume.slot_of)})")
+    print(f"  {len(short)}-keyframe stream through the kernels and the twins: "
+          f"{sk.depth_maps_published} maps agreeing within 1e-4 relative at >= {agree:.5f} of "
+          f"pixels (tolerance 0.999), the same {len(sk.volume.slot_of)} chunks")
+    print("phase 6 pipeline: ok")
     return counts
 
 
@@ -789,10 +1186,15 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # phase 3: each kernel against its twin at the main path's shapes
-    checks = kernel_checks(dev, np.random.default_rng(1))
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    runs = (1, 1) if kernels_only else (10, 3)
+    checks = kernel_checks(dev, np.random.default_rng(1), runs=runs[0], twin_runs=runs[1])
     edge_checks(dev, np.random.default_rng(2))
+    memory_checks(dev, np.random.default_rng(3))
     torch.cuda.synchronize()
     print("phase 3 kernels vs twins: all within tolerance")
+    if kernels_only:
+        return 0
 
     # phase 4: the dense step + 4-DoF solve, counted
     torch.cuda.reset_peak_memory_stats()
@@ -835,10 +1237,14 @@ def main() -> int:
     print("phase 4 slice: ok")
 
     # phase 5: the collaborative server, counted
-    counts.update({k: v for k, v in server_phase(dev).items() if k in SERVER_KERNELS})
+    tree = server_phase(dev)
 
+    # phase 6: the whole server, packets with images -> depth -> TSDF -> mesh
+    pipe_counts = pipeline_phase(dev, tree)
+
+    # launches: the whole server's run (phase 6), which drives all six
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1], "launches": counts[name],
+                "replaces": SOURCES[name][1], "launches": pipe_counts[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2]} for name in SOURCES]
     # the port ran without JAX and without the JAX package

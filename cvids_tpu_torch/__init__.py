@@ -18,17 +18,25 @@ Ported so far:
 - ``dense``:    multi-view depth estimation (``fuse_measurement``)
 - ``geometry``: rotations and quaternions, SE(3) poses, float64 numpy
                 helpers for the server's host-side bookkeeping
-- ``server``:   the collaborative pose graph (``posegraph``: ingestion,
+- ``server``:   the whole collaborative server (``pipeline``: packets
+                with images -> pose graph -> per-client dense depth ->
+                TSDF -> mesh), the pose graph (``posegraph``: ingestion,
                 pipelined loop detection, submap alignment, background
                 solves), its keyframe store, BoW vocabularies and databases
-                (``vocab``), PCM outlier rejection (``pcm``) and the 4-DoF
-                pose-graph optimizer
-- ``io``:       the keyframe packet and the synthetic multi-agent streams
-                (numpy, copied from ``cvids_tpu.io``)
+                (``vocab``), PCM outlier rejection (``pcm``), the 4-DoF
+                pose-graph optimizer and the relaxation smoother
+- ``mapping``:  the chunked TSDF volume on the device (``tsdf``) and its
+                meshing by marching tetrahedra with PLY export (``mesh``,
+                ``ops/marching_cubes.py``)
+- ``utils``:    stage tracing and server/TSDF checkpoints (the JAX
+                package's npz layout, so either package loads the other's)
+- ``io``:       the keyframe packet, the synthetic multi-agent streams and
+                the textured-room renderer (numpy, copied from
+                ``cvids_tpu.io``)
 - ``native``:   the C++ max clique for PCM (``fmc.cpp``, built with the
                 host's compiler at first use)
-- ``interop``:  carry the JAX package's states, vocabularies and server
-                config (as numpy) to the port and back
+- ``interop``:  carry the JAX package's states, vocabularies, configs and
+                TSDF volumes (as numpy) to the port and back
 
 The package imports ``torch`` and never ``jax``, nor any module of
 ``cvids_tpu``: it runs without the JAX package.

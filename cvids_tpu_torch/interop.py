@@ -8,21 +8,25 @@ leaves, in field order, ready for the JAX package's constructors after
 ``jnp.asarray``. numpy has no bfloat16 of its own, so bf16 leaves come back
 as float32 (exact). The server's inputs cross the same way: a `Vocabulary`
 (its uint32 words become int32 tensors of the same bits), a `TreeVocabulary`
-(numpy in both packages) and a `ServerConfig` (field by field). Nothing here
-imports JAX.
+(numpy in both packages), a `ServerConfig` and a `PipelineConfig` (field by
+field, the nested configs included). A TSDF volume crosses whole: its pool
+arrays and its host tables. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
 
-from .dense.estimator import DenseState
+from .dense.estimator import DenseConfig, DenseState
+from .mapping.tsdf import ChunkPool, TsdfConfig, TsdfVolume
 from .ops.depth_filter import FilterState
 from .ops.hamming import descriptors_to_torch
 from .server.optimizer import PoseGraphEdges, PoseGraphNodes
+from .server.pipeline import PipelineConfig
 from .server.posegraph import ServerConfig
 from .server.vocab import TreeVocabulary, Vocabulary
 
@@ -31,7 +35,8 @@ __all__ = ["array_to_torch", "tensor_to_numpy",
            "filter_state_to_torch", "filter_state_to_numpy",
            "nodes_to_torch", "nodes_to_numpy", "edges_to_torch", "edges_to_numpy",
            "vocabulary_to_torch", "tree_vocabulary_to_torch",
-           "server_config_to_torch"]
+           "server_config_to_torch", "pipeline_config_to_torch",
+           "tsdf_volume_to_torch", "tsdf_volume_to_numpy"]
 
 
 def array_to_torch(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -132,7 +137,58 @@ def tree_vocabulary_to_torch(t) -> TreeVocabulary:
                             for x in (getattr(t, f) for f in TreeVocabulary._fields)))
 
 
+def _copy_config(cls, cfg):
+    return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)})
+
+
 def server_config_to_torch(cfg) -> ServerConfig:
     """A JAX `ServerConfig`, copied field by field."""
-    return ServerConfig(**{f.name: getattr(cfg, f.name)
-                           for f in dataclasses.fields(ServerConfig)})
+    return _copy_config(ServerConfig, cfg)
+
+
+def pipeline_config_to_torch(cfg) -> PipelineConfig:
+    """A JAX `PipelineConfig` with its nested `ServerConfig`, `DenseConfig`
+    and `TsdfConfig`, copied field by field."""
+    nested = {"server": server_config_to_torch(cfg.server),
+              "dense": _copy_config(DenseConfig, cfg.dense),
+              "tsdf": _copy_config(TsdfConfig, cfg.tsdf)}
+    return PipelineConfig(**{f.name: nested.get(f.name, getattr(cfg, f.name))
+                             for f in dataclasses.fields(PipelineConfig)})
+
+
+# the host-side attributes of a TSDF volume, shared by both packages
+_VOLUME_TABLES = ("capacity", "coords_np", "occupied_np", "slot_of", "free", "dirty",
+                  "max_chunks_per_frame", "dropped_chunks")
+
+
+def tsdf_volume_to_torch(vol, device) -> TsdfVolume:
+    """A JAX `TsdfVolume` (its pool leaves anything `np.asarray` takes) ->
+    the port's volume on `device`, with copies of the pool and of the host
+    tables (chunk coordinates, occupancy, coordinate -> slot map, free list,
+    dirty set, drop count)."""
+    out = TsdfVolume(_copy_config(TsdfConfig, vol.cfg), device=device)
+    out.pool = ChunkPool(*(array_to_torch(x, device, torch.float32) for x in vol.pool))
+    for name in _VOLUME_TABLES:
+        setattr(out, name, _copy_table(getattr(vol, name)))
+    return out
+
+
+def tsdf_volume_to_numpy(vol: TsdfVolume) -> types.SimpleNamespace:
+    """The port's volume as numpy, under the JAX `TsdfVolume`'s attribute
+    names: `cfg` (a dict of `TsdfConfig` fields), `pool` (a `ChunkPool` of
+    numpy arrays) and copies of the host tables. Setting each attribute on a
+    JAX volume (the pool after `jnp.asarray`) restores it there."""
+    return types.SimpleNamespace(
+        cfg=dataclasses.asdict(vol.cfg),
+        pool=ChunkPool(*(tensor_to_numpy(x) for x in vol.pool)),
+        **{name: _copy_table(getattr(vol, name)) for name in _VOLUME_TABLES})
+
+
+def _copy_table(v):
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    if isinstance(v, dict):
+        return {tuple(int(x) for x in key): int(s) for key, s in v.items()}
+    if isinstance(v, (list, set)):
+        return type(v)(int(x) for x in v)
+    return v

@@ -316,7 +316,11 @@ def test_rotations(rng):
 def test_port_imports_without_jax():
     code = ("import sys, cvids_tpu_torch, cvids_tpu_torch.interop, "
             "cvids_tpu_torch.dense.estimator, cvids_tpu_torch.server.optimizer, "
-            "cvids_tpu_torch.ops.cuda_kernels, cvids_tpu_torch._build; "
+            "cvids_tpu_torch.ops.cuda_kernels, cvids_tpu_torch._build, "
+            "cvids_tpu_torch.server.pipeline, cvids_tpu_torch.server.smooth_optimizer, "
+            "cvids_tpu_torch.mapping.tsdf, cvids_tpu_torch.mapping.mesh, "
+            "cvids_tpu_torch.ops.marching_cubes, cvids_tpu_torch.utils.checkpoint, "
+            "cvids_tpu_torch.utils.tracing, cvids_tpu_torch.io.render; "
             "print('jax' in sys.modules, 'cvids_tpu' in sys.modules)")
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
                          capture_output=True, text=True, timeout=120)
@@ -350,3 +354,59 @@ def test_server_port_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.split() == ["False", "False", "4"], res.stdout
+
+
+def test_pipeline_port_runs_without_jax(tmp_path):
+    """Keyframes with rendered images go through the port's whole server
+    (pose graph, dense depth, TSDF, mesh, checkpoints) in a fresh process
+    that loads neither JAX nor any module of `cvids_tpu`."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from cvids_tpu_torch.dense.estimator import DenseConfig\n"
+        "from cvids_tpu_torch.io import multiagent, render\n"
+        "from cvids_tpu_torch.io.msgs import KeyframePacket\n"
+        "from cvids_tpu_torch.io.synthetic import quat_from_matrix_np\n"
+        "from cvids_tpu_torch.mapping.mesh import read_ply\n"
+        "from cvids_tpu_torch.mapping.tsdf import TsdfConfig\n"
+        "from cvids_tpu_torch.server import pipeline, posegraph, vocab\n"
+        "from cvids_tpu_torch.utils import checkpoint\n"
+        "h, w = 48, 64\n"
+        "cam = render.Pinhole(40.0, 40.0, w / 2, h / 2, w, h)\n"
+        "lm = render.sample_scene_landmarks(300, np.random.default_rng(0))\n"
+        "desc = multiagent.landmark_descriptors(300)\n"
+        "cfg = pipeline.PipelineConfig(\n"
+        "    server=posegraph.ServerConfig(kf_capacity=16, max_win=40, max_ext=40),\n"
+        "    dense=DenseConfig(height=h, width=w, num_depths=32, dep_sample=1 / (0.11 * 40)),\n"
+        "    tsdf=TsdfConfig(voxel_size=0.2, capacity=64), ref_advance=2)\n"
+        "s = pipeline.CollaborativeServer(vocab.synthesize_tree_vocabulary(k=4, levels=3), cfg)\n"
+        "s.set_client_intrinsics(0, cam.k_matrix)\n"
+        "r_cb = multiagent.R_CB_DEFAULT\n"
+        "for i in range(6):\n"
+        "    eye = np.array([1.2 + 0.1 * i, -2.2, 1.2])\n"
+        "    z = np.array([1.5, 1.0, 0.5]) - eye\n"
+        "    z /= np.linalg.norm(z)\n"
+        "    x = np.cross(z, [0.0, 0.0, 1.0])\n"
+        "    x /= np.linalg.norm(x)\n"
+        "    r_wc = np.stack([x, np.cross(z, x), z], 1)\n"
+        "    img, _ = render.render_textured_scene(cam, r_wc, eye)\n"
+        "    pc = (lm - eye) @ r_wc\n"
+        "    idx = np.nonzero(pc[:, 2] > 0.5)[0][:40]\n"
+        "    uv = (pc[idx, :2] / pc[idx, 2:]).astype(np.float32)\n"
+        "    ok = np.ones(len(idx), bool)\n"
+        "    s.submit(KeyframePacket(\n"
+        "        client_id=0, timestamp=float(i), p_wb=eye.astype(np.float32),\n"
+        "        q_wb=quat_from_matrix_np(r_wc @ r_cb).astype(np.float32), r_cb=r_cb,\n"
+        "        p_bc=np.zeros(3, np.float32), win_pts3d=lm[idx].astype(np.float32),\n"
+        "        win_uv=uv, win_ids=idx, win_desc=desc[idx], win_valid=ok, ext_uv=uv,\n"
+        "        ext_desc=desc[idx], ext_valid=ok, image=img))\n"
+        "s.process()\n"
+        f"n = s.save_mesh({str(tmp_path / 'mesh.ply')!r})\n"
+        f"assert read_ply({str(tmp_path / 'mesh.ply')!r})[1] == n > 0\n"
+        f"checkpoint.save_tsdf({str(tmp_path / 'map.npz')!r}, s.volume)\n"
+        "s.close()\n"
+        "print('jax' in sys.modules, 'cvids_tpu' in sys.modules, s.depth_maps_published)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["False", "False", "2"], res.stdout
