@@ -21,13 +21,29 @@ that every kernel of each path ran:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
+    python3 chip_smoke.py --dense-probe [--package DIR]   # the dense frame's times only
+
+`--dense-probe` builds, runs 40 dense frames for the wall time per frame and
+profiles three frames for the device's busy time and each kernel's time in
+the frame. With `--package DIR` it imports `cvids_tpu_torch` from DIR (an
+unpacked `git archive` of another commit) instead of this script's
+directory: the run to make in turns on two trees (parent, change, change,
+parent) inside one call when a change to the dense path is measured, e.g.
+
+    git archive HEAD~1 cvids_tpu_torch | tar -x -C build/parent
+    for t in build/parent . . build/parent; do
+        python3 chip_smoke.py --dense-probe --package $t; done
 
 `--kernels-only` is the run to put under compute-sanitizer (memcheck,
 initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
 /usr/local/cuda/bin). Imports neither JAX nor any module of `cvids_tpu`,
 and checks so at the end. Exits
 non-zero on any failed phase. The line before the last is the kernel table
-as JSON; the last line is {"ok": true, "device": {...}}.
+as JSON (per kernel: launches on the whole server's run, launches per dense
+frame or, for the Hamming kernel, per keyframe, max abs err against the twin, kernel and twin ms, the roofline bound
+of the same call from `cuda_kernels.kernel_work` and the H100's published
+peaks, and the share of it reached); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -81,7 +98,11 @@ SHORT_KF = 12               # the kernel-vs-twin stream: agent 0's first keyfram
 # the filter kernel against its twin, per field: the same fp32 operations in
 # the same order with no FMA contraction, so at most 2 ulp apart
 FILTER_MAX_ULP = 2
-
+# published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
+# and fp32 rate outside the tensor cores; the roofline bounds are held
+# against these whatever the card's power limit, which is printed beside them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
@@ -157,6 +178,17 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def roofline(name: str, calls: int = 1, **shape) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations"): the least time an H100 could
+    take for `calls` calls of kernel `name` at `shape`, from the bytes and
+    operations `cuda_kernels.kernel_work` counts and the published peaks."""
+    from cvids_tpu_torch.ops.cuda_kernels import kernel_work
+    nbytes, ops = kernel_work(name, **shape)
+    t_bytes = calls * nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = calls * ops / PEAK_FP32_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------
@@ -197,7 +229,9 @@ def banded_gate(a_mat: np.ndarray, h: int, w: int) -> bool:
 
 def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     """Run each kernel and its twin on the same inputs at the main path's
-    shapes; returns {name: (max_abs_err, ms, plain_ms)}."""
+    shapes; returns {name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)},
+    the bound being the roofline of the timed call (the SGM row: one
+    frame's two launches)."""
     from cvids_tpu_torch.ops import costvolume, cuda_kernels as ck
     from cvids_tpu_torch.ops.image import projective_warp_mxu
 
@@ -227,7 +261,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ms = time_ms(lambda: ck.projective_warp_banded(meas_t, m_rot, 96, 48), runs) if timed else 0.0
     pms = time_ms(lambda: ck.projective_warp_banded_twin(meas_t, m_rot, 96, 48),
                   twin_runs) if timed else 0.0
-    out["warp_banded"] = (err, ms, pms)
+    out["warp_banded"] = (err, ms, pms, *roofline("warp_banded", h=h, w=w))
 
     # --- plane sweep at the slice's geometry, bf16 volume
     a_t = torch.from_numpy(a_mat).to(dev)
@@ -242,31 +276,28 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     both = (c1 >= 0) & (c2 >= 0)
     e = (c1 - c2).abs()[both]
     e_max, e_mean = e.max().item(), e.mean().item()
-    # tests/test_pallas.py's sweep tolerances
-    check(e_max < 1.5 and e_mean < 0.2, f"plane_sweep: max {e_max} mean {e_mean}")
+    # the same fp32 operations in the same order, no FMA contraction: exact
+    check(e_max == 0.0, f"plane_sweep: max {e_max} mean {e_mean}")
     print(f"  plane_sweep bf16: max|err| {e_max:.3g} mean {e_mean:.3g} "
-          f"(tolerance 1.5 / 0.2), valid masks identical, valid {both.float().mean().item():.3f}")
+          f"(tolerance: exact), valid masks identical, valid {both.float().mean().item():.3f}")
     ms = time_ms(lambda: ck.plane_sweep(ref_t, meas_al, *pos), runs) if timed else 0.0
     pms = time_ms(lambda: ck.plane_sweep_twin(ref_t, meas_al, *pos), twin_runs) if timed else 0.0
-    out["plane_sweep"] = (e_max, ms, pms)
+    out["plane_sweep"] = (e_max, ms, pms, *roofline("plane_sweep", h=h, w=w, d=d, itemsize=2))
 
     # --- SGM scan, both orientations, bf16 and fp32
     cost = torch.from_numpy(rng.uniform(0, 50, (h, w, d)).astype(np.float32)).to(dev)
     p2 = torch.from_numpy(rng.uniform(0.8, 2.3, (h, w)).astype(np.float32) * 64.0).to(dev)
     err = 0.0
-    for dt, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-6)):
+    for dt in (torch.bfloat16, torch.float32):
         c_dt, p2_dt = cost.to(dt), p2.to(dt)
         p1 = torch.tensor(16.0, device=dev).to(dt)
         for axis in (0, 1):
             o1 = ck.sgm_scan_bidir(c_dt, p2_dt, p1, axis=axis).float()
             o2 = ck.sgm_scan_bidir_twin(c_dt, p2_dt, p1, axis=axis).float()
             e = (o1 - o2).abs().max().item()
-            rel = ((o1 - o2).abs() / o2.abs().clamp(min=1.0)).max().item()
-            # the same fp32 recurrence and rounding points: exact expected;
-            # tolerance one ulp of the cost dtype, relative
-            check(rel <= tol, f"sgm_scan {dt} axis {axis}: rel err {rel}")
-            print(f"  sgm_scan {str(dt)[6:]} axis {axis}: max|err| {e:.3g} "
-                  f"max rel {rel:.3g} (tolerance {tol:.3g} relative)")
+            # the same fp32 recurrence and rounding points: exact
+            check(e == 0.0, f"sgm_scan {dt} axis {axis}: max abs err {e}")
+            print(f"  sgm_scan {str(dt)[6:]} axis {axis}: max|err| {e:.3g} (tolerance: exact)")
             err = max(err, e)
     c_bf, p2_bf = cost.to(torch.bfloat16), p2.to(torch.bfloat16)
     p1_bf = torch.tensor(16.0, device=dev).to(torch.bfloat16)
@@ -276,7 +307,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
 
     ms = time_ms(sgm_pair(ck.sgm_scan_bidir), runs) if timed else 0.0
     pms = time_ms(sgm_pair(ck.sgm_scan_bidir_twin), twin_runs) if timed else 0.0
-    out["sgm_scan"] = (err, ms, pms)
+    out["sgm_scan"] = (err, ms, pms, *roofline("sgm_scan", calls=2, s=h, x=w, d=d, itemsize=2))
 
     # --- WTA on two bf16 parts
     pa = torch.from_numpy(rng.uniform(0, 50, (h, w, d)).astype(np.float32)).to(dev).to(torch.bfloat16)
@@ -298,7 +329,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
           f"{int((f1 != f2).sum().item())} pixels, {n_conf_diff} away from a c0 = 0.98 c2 tie")
     ms = time_ms(lambda: ck.wta(pa, pb), runs) if timed else 0.0
     pms = time_ms(lambda: ck.wta_twin(pa, pb), twin_runs) if timed else 0.0
-    out["wta"] = (e, ms, pms)
+    out["wta"] = (e, ms, pms, *roofline("wta", h=h, w=w, d=d, itemsize=2, parts=2))
 
     # --- depth filter at the dense path's (H, W), scalar tau2 as the estimator passes it
     st, x, valid = filter_inputs(rng, dev, h, w)
@@ -309,7 +340,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                                     f"depth_filter {h}x{w} tau2 {'map' if torch.is_tensor(tau2) else 'scalar'}"))
     ms = time_ms(lambda: ck.depth_filter_update(st, x, 0.013, valid), runs) if timed else 0.0
     pms = time_ms(lambda: ck.depth_filter_update_twin(st, x, 0.013, valid), runs) if timed else 0.0
-    out["depth_filter_update"] = (err, ms, pms)
+    out["depth_filter_update"] = (err, ms, pms, *roofline("depth_filter_update", h=h, w=w))
 
     # --- Hamming at the loop verification's shape (160 window x 512 extra), masked
     a, b, av, bv = hamming_inputs(rng, dev, 160, 512)
@@ -322,14 +353,39 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     d1, d2 = ck.hamming_matrix(a2, b2), ck.hamming_matrix_twin(a2, b2)
     e2 = (d1 - d2).abs().max().item()
     check(torch.equal(d1, d2), f"hamming_matrix 2048x2048: kernel != twin (max |err| {e2})")
-    out["hamming_matrix"] = (max(e1, e2), ms, pms)
+    out["hamming_matrix"] = (max(e1, e2), ms, pms, *roofline("hamming_matrix", n=160, m=512))
     ms2 = time_ms(lambda: ck.hamming_matrix(a2, b2), runs) if timed else 0.0
     pms2 = time_ms(lambda: ck.hamming_matrix_twin(a2, b2), twin_runs) if timed else 0.0
     print(f"  hamming_matrix 160x512 masked and 2048x2048: max |err| {e1}, {e2} "
           f"(tolerance: exact); 2048x2048 kernel {ms2:.4f} ms, twin {pms2:.4f} ms")
-    for name, (_, ms, pms) in out.items():
-        print(f"  time {name}: kernel {ms:.4f} ms, twin {pms:.4f} ms")
+    for name, (_, ms, pms, bound, by) in out.items():
+        share = f"{bound / ms:.1%}" if ms > 0 else "not measured"
+        print(f"  time {name}: kernel {ms:.4f} ms, twin {pms:.4f} ms; bound {bound:.4f} ms "
+              f"({by}; {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {PEAK_FP32_PER_S / 1e12:.0f} "
+              f"TFLOP/s fp32), share of bound {share}")
     return out
+
+
+def plan_checks() -> None:
+    """The scan's and the sweep's launch plans as Python restates them (and
+    the CPU tests hold to the card's limits) against what the built library
+    reports for the same shapes: every D and dtype, ragged line counts and
+    tiles."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    n = 0
+    for d in range(32, 257, 32):
+        for dt in (torch.bfloat16, torch.float32):
+            for lines in (1, 3, H, W + 1):
+                want, got = ck.sgm_scan_plan(lines, d, dt), ck.compiled_sgm_scan_plan(lines, d, dt)
+                check(want == got, f"sgm_scan plan at {lines} lines, D {d}, {dt}: Python "
+                                   f"{want}, library {got}")
+                n += 1
+        for h, w in ((H, W), (37, 53), (1, 33), (9, 31)):
+            want, got = ck.plane_sweep_plan(h, w, d), ck.compiled_plane_sweep_plan(h, w, d)
+            check(want == got, f"plane_sweep plan at {h}x{w}x{d}: Python {want}, library {got}")
+            n += 1
+    print(f"  launch plans: Python's equal the library's at {n} shapes")
 
 
 def filter_inputs(rng, dev, h, w):
@@ -418,6 +474,30 @@ def edge_checks(device, rng) -> None:
             parts = [cost, cost.flip(2).contiguous(), cost.roll(1, 2), cost.roll(3, 2)]
             for n in (1, 3, 4):
                 same(ck.wta(*parts[:n]), ck.wta_twin(*parts[:n]), f"wta {n} x {h}x{w}x{d} {dt}")
+    # the scan's lane groupings (every D/32 in both dtypes), scan lengths of
+    # one, two, odd, below and above the 8-row ring, and line counts
+    # that leave a block's last groups spare; sweep tiles (8 x 30 x 64) one
+    # over, one under and exactly full, and depth blocks half empty
+    for s_len, x, d in ((1, 3, 32), (2, 5, 64), (3, 2, 96), (7, 9, 128), (15, 1, 160),
+                        (17, 4, 192), (33, 3, 224), (5, 7, 256), (16, 33, 128)):
+        cost = torch.from_numpy(rng.uniform(0, 50, (s_len, x, d)).astype(np.float32)).to(dev)
+        p2 = torch.from_numpy(rng.uniform(30, 90, (s_len, x)).astype(np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            for axis in (0, 1):
+                same(ck.sgm_scan_bidir(cost.to(dt), p2.to(dt), 7.0, axis=axis),
+                     ck.sgm_scan_bidir_twin(cost.to(dt), p2.to(dt), 7.0, axis=axis),
+                     f"sgm {s_len}x{x}x{d} {dt} axis {axis}")
+    for h, w, d in ((9, 31, 96), (8, 30, 64), (7, 29, 160), (17, 61, 224), (25, 91, 32)):
+        img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
+        k = np.array([[40.0, 0, w / 2], [0, 40.0, h / 2], [0, 0, 1]], np.float32)
+        m = torch.from_numpy(rotation_homography(k, 0.03)).to(dev)
+        b = torch.from_numpy(k @ np.array([-0.1, 0.02, 0.01], np.float32)).to(dev)
+        inv = (torch.arange(d, dtype=torch.float32, device=dev) + 1.0) * 0.02
+        pos = [p.contiguous() for p in costvolume._sweep_positions(m, b, inv, h, w)]
+        for dt in (torch.float32, torch.bfloat16):
+            same(ck.plane_sweep(img, img.flip(1).contiguous(), *pos, out_dtype=dt),
+                 ck.plane_sweep_twin(img, img.flip(1).contiguous(), *pos, out_dtype=dt),
+                 f"sweep {h}x{w}x{d} {dt}")
     for n, m in ((1, 1), (37, 129), (160, 1), (33, 4097)):
         a, b, av, bv = hamming_inputs(rng, dev, n, m)
         for masks in ((None, None), (av, None), (None, bv), (av, bv)):
@@ -432,7 +512,9 @@ def edge_checks(device, rng) -> None:
             filter_agree(ck.depth_filter_update(st, x, tau2, valid),
                          ck.depth_filter_update_twin(st, x, tau2, valid),
                          f"depth_filter {h}x{w} tau2 {'map' if torch.is_tensor(tau2) else 'scalar'}")
-    print("  edge shapes (37x53x32, 16x128x256, 1x33x64; fp32 and bf16; "
+    print("  edge shapes (37x53x32, 16x128x256, 1x33x64; fp32 and bf16; scans of 1, 2, 3, "
+          "7, 15, 17 and 33 rows (the ring holds 8) at every D from 32 to 256; sweeps of 9x31, 8x30, 7x29, "
+          "17x61 and 25x91 pixels at D 96, 64, 160, 224 and 32; "
           "1/3/4 WTA parts; Hamming 1x1, 37x129, 160x1, 33x4097 with and without "
           "masks; filter 37x53, 1x33, 481x641): every kernel agrees with its twin")
 
@@ -491,7 +573,7 @@ def memory_checks(device, rng, repeats=3) -> int:
 
     dev = torch.device(device)
     cases = []
-    for h, w, d in ((H, W, D), (37, 53, 32), (1, 33, 64)):
+    for h, w, d in ((H, W, D), (37, 53, 32), (1, 33, 64), (9, 31, 96), (17, 3, 224)):
         img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
         k = np.array([[FOCAL, 0, w / 2], [0, FOCAL, h / 2], [0, 0, 1]], np.float32)
         m = torch.from_numpy(rotation_homography(k, 0.03)).to(dev)
@@ -660,6 +742,21 @@ def profile_slice(device):
           f"{ours:.3f} ms, {len(rows)} distinct device activities")
     for name, ms, calls in rows[:14]:
         print(f"    {ms:8.4f} ms  x{calls:<3d} {name[:110]}")
+
+
+def dense_probe(device) -> None:
+    """The dense frame's times, one line each: the wall time per
+    fuse_measurement over 35 frames after 5 of warm-up, and three profiled
+    frames (device busy ms, wall with the profiler on, device ms by kernel).
+    Uses only what every revision of the package has."""
+    import cvids_tpu_torch
+    print(f"dense probe of {cvids_tpu_torch.__path__[0]}")
+    frame_ms = dense_chain(device, 0, n_frames=40)[3][5:]
+    print(f"dense probe frame wall ms over {len(frame_ms)} frames: median "
+          f"{statistics.median(frame_ms):.3f} min {min(frame_ms):.3f} p90 "
+          f"{sorted(frame_ms)[int(0.9 * len(frame_ms))]:.3f}")
+    for _ in range(3):
+        profile_slice(device)
 
 
 def twin_patches():
@@ -1054,6 +1151,26 @@ def depth_rms(server, truth) -> list[float]:
     return out
 
 
+def default_device_check(vocabulary) -> None:
+    """A server built with no `device` argument lives on the card: the
+    port's entry points take the card unless the caller asks for the CPU."""
+    import cvids_tpu_torch
+    from cvids_tpu_torch.server.pipeline import CollaborativeServer
+
+    server = CollaborativeServer(vocabulary)
+    try:
+        want = cvids_tpu_torch.default_device()
+        devices = {"server": server.device, "graph": server.graph.device,
+                   "bow database": server.graph.db.ids.device,
+                   "TSDF pool": server.volume.pool.sdf.device}
+        check(want.type == "cuda" and all(d == want for d in devices.values()),
+              f"a server built without a device is not on the card: {devices}")
+    finally:
+        server.close()
+    print(f"  a CollaborativeServer built with no device argument: server, pose graph, BoW "
+          f"database and TSDF pool on {want}")
+
+
 def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, w=W,
                    focal=FOCAL, dense=None, short_kf=SHORT_KF):
     """Phase 6: the whole server at DenseConfig() and TsdfConfig() defaults
@@ -1079,6 +1196,7 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
           f"rendered in {time.perf_counter() - t0:.1f} s; dense {cfg.dense.height}x"
           f"{cfg.dense.width}x{cfg.dense.num_depths} {cfg.dense.dtype}")
     if dev.type == "cuda":
+        default_device_check(vocabulary)
         torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
     t0 = time.perf_counter()
@@ -1163,6 +1281,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if "--package" in sys.argv[1:]:     # the package of another tree, for --dense-probe
+        check("--dense-probe" in sys.argv[1:], "--package goes with --dense-probe")
+        sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--package") + 1]).resolve()))
     from cvids_tpu_torch import _build
     from cvids_tpu_torch.ops import cuda_kernels as ck
 
@@ -1185,11 +1306,16 @@ def main() -> int:
     print_ptxas_summary(log)
     torch.cuda.synchronize()
 
+    if "--dense-probe" in sys.argv[1:]:
+        dense_probe(dev)
+        return 0
+
     # phase 3: each kernel against its twin at the main path's shapes
     kernels_only = "--kernels-only" in sys.argv[1:]
     runs = (1, 1) if kernels_only else (10, 3)
     checks = kernel_checks(dev, np.random.default_rng(1), runs=runs[0], twin_runs=runs[1])
     edge_checks(dev, np.random.default_rng(2))
+    plan_checks()
     memory_checks(dev, np.random.default_rng(3))
     torch.cuda.synchronize()
     print("phase 3 kernels vs twins: all within tolerance")
@@ -1210,7 +1336,9 @@ def main() -> int:
           f"device memory {peak:.2f} GiB")
     print(f"  pose graph {N_NODES} KF (2 LM x 10 CG): residual norm {before:.4f} -> "
           f"{after:.4f}; solve ms {[round(x, 1) for x in pg_ms]} (first, second)")
-    print(f"  launches on the dense path: {counts}")
+    n_dense = N_FRAMES + 1      # the chain's banded frames and its one exact-warp frame
+    per_frame = {k: v / n_dense for k, v in counts.items()}
+    print(f"  launches on the dense path: {counts} over {n_dense} frames")
     check(abs(med - DEPTH) < 0.4, f"median depth {med} not within 0.4 m of {DEPTH}")
     check(gates == (True, False), f"gates {gates}: expected banded then exact")
     check(after <= before, f"pose graph residual grew: {before} -> {after}")
@@ -1242,11 +1370,20 @@ def main() -> int:
     # phase 6: the whole server, packets with images -> depth -> TSDF -> mesh
     pipe_counts = pipeline_phase(dev, tree)
 
-    # launches: the whole server's run (phase 6), which drives all six
+    # launches: the whole server's run (phase 6), which drives all six;
+    # launches_per_frame: per fuse_measurement of phase 4's chain; the
+    # Hamming kernel's launches_per_keyframe: of phase 6's stream.
+    # library_ms: null, no single PyTorch call computes any of the six
+    rate = {k: {"launches_per_frame": v} for k, v in per_frame.items()}
+    rate["hamming_matrix"] = {"launches_per_keyframe":
+                              pipe_counts["hamming_matrix"] / (PIPE_AGENTS * PIPE_KF)}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1], "launches": pipe_counts[name],
+                "replaces": SOURCES[name][1], "launches": pipe_counts[name], **rate[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
-                "plain_ms": checks[name][2]} for name in SOURCES]
+                "plain_ms": checks[name][2], "bound_ms": checks[name][3],
+                "bound_by": checks[name][4], "share": checks[name][3] / checks[name][1],
+                "library_ms": None}
+               for name in SOURCES]
     # the port ran without JAX and without the JAX package
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cvids_tpu"))
     check(not ref_mods, f"JAX or JAX-package modules loaded: {ref_mods}")

@@ -40,6 +40,34 @@ Ported so far:
 
 The package imports ``torch`` and never ``jax``, nor any module of
 ``cvids_tpu``: it runs without the JAX package.
+
+Entry points that own device state (``CollaborativeServer``,
+``CollaborativePoseGraph``, ``TsdfVolume``, ``SparseBowDatabase``,
+``train_vocabulary``) run on the card unless the caller names a device:
+``device=None`` means `default_device()`, which raises where there is no
+card rather than falling back to the CPU. Pass ``device="cpu"`` to run the
+PyTorch twins on the host, as the CPU tests do.
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+__all__ = ["default_device", "resolve_device"]
+
+
+def default_device() -> torch.device:
+    """The device the port's entry points use when none is given: the
+    current CUDA card. Raises when there is none, so nothing runs on the CPU
+    unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "cvids_tpu_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device: "torch.device | str | None") -> torch.device:
+    """`device` as a torch.device; None means `default_device()`."""
+    return default_device() if device is None else torch.device(device)

@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 __all__ = ["TsdfConfig", "ChunkPool", "TsdfVolume", "integrate_chunks"]
 
 
@@ -138,9 +140,11 @@ class TsdfVolume:
     """
 
     def __init__(self, cfg: TsdfConfig | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
+        """`device=None` is the card (`default_device()`, which raises
+        where there is none); pass "cpu" to run on the host."""
         self.cfg = cfg or TsdfConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.capacity = self.cfg.capacity
         self.pool = _empty_pool(self.capacity, self.cfg.chunk_size, self.device)
         self.coords_np = np.zeros((self.capacity, 3), np.int32)

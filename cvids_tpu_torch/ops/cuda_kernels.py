@@ -23,11 +23,19 @@ through. Callers reach the wrappers as attributes of this module
 (``cuda_kernels.plane_sweep(...)``).
 
 The volume kernels need D a multiple of 32 with D <= 256; the twins take any
-D. Descriptors are (N, 8) int32 tensors: the uint32 words of the packets,
-viewed as int32 (XOR and popcount ignore the sign).
+D. The scan's and the sweep's launches (lane groups, ring depth, tile, grid,
+dynamic shared memory) are decided in their ``.cu`` files; `sgm_scan_plan`
+and `plane_sweep_plan` restate them as pure functions, and
+`compiled_sgm_scan_plan` and `compiled_plane_sweep_plan` read them from the
+built library. `kernel_work` gives the bytes and operations a call must at
+least move and do, for a roofline bound. Descriptors are (N, 8) int32
+tensors: the uint32 words of the packets, viewed as int32 (XOR and popcount
+ignore the sign).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,13 +47,16 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "projective_warp_banded_twin", "plane_sweep_twin",
            "sgm_scan_bidir_twin", "wta_twin", "hamming_matrix_twin",
            "depth_filter_update_twin", "popcount32", "launches",
-           "reset_launches"]
+           "reset_launches", "sgm_scan_plan", "plane_sweep_plan",
+           "compiled_sgm_scan_plan", "compiled_plane_sweep_plan", "kernel_work",
+           "SgmScanPlan", "PlaneSweepPlan", "MAX_DYNAMIC_SMEM"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
             "hamming_matrix": 0, "depth_filter_update": 0}
 
 _BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
+MAX_DYNAMIC_SMEM = 232_448      # bytes a block can use on an H100 (227 KB)
 
 
 def reset_launches() -> None:
@@ -78,6 +89,12 @@ def _require_depths(d: int) -> None:
     if d % 32 != 0 or not 32 <= d <= 256:
         raise ValueError(f"the CUDA kernels take D a multiple of 32 with "
                          f"D <= 256, got D = {d}")
+
+
+def _require_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: storage must be 16-byte aligned for the "
+                         f"kernel's vector accesses (offset {t.data_ptr() % 16})")
 
 
 def _launch(name: str, fn_name: str, device: torch.device, *args) -> None:
@@ -219,6 +236,58 @@ def plane_sweep_twin(ref: torch.Tensor, meas_al: torch.Tensor,
     return out
 
 
+class PlaneSweepPlan(NamedTuple):
+    """The sweep kernel's launch: a block owns `tile_h` x `tile_w` pixels
+    and `tile_d` depths and keeps the absolute differences of the tile plus
+    a 1-pixel halo in shared memory."""
+    tile_h: int
+    tile_w: int
+    tile_d: int
+    threads: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+
+
+def plane_sweep_plan(h: int, w: int, d: int) -> PlaneSweepPlan:
+    """Tile, grid and dynamic shared memory of one `plane_sweep` launch, as
+    ``csrc/plane_sweep.cu`` compiles them, restated here so that they can be
+    held to the card's limits without the card. The kernel owns the values:
+    the wrapper passes it none of them, and `compiled_plane_sweep_plan`
+    reads the built library's own for comparison.
+
+    Shared memory holds (tile_h + 2) x (tile_w + 2) halo pixels x (tile_d +
+    4) floats of absolute differences (the depth run padded by 4 floats, so
+    the pixel-major stores hit 32 different banks and the depth-major float4
+    reads stay aligned), two float4 per (halo row, depth) of row entries,
+    and the reference tile. Two blocks must fit one SM."""
+    th, tw, db = 8, 30, 64
+    hh, hw = th + 2, tw + 2
+    smem = 4 * hh * hw * (db + 4) + 2 * 16 * hh * db + 4 * hh * hw
+    grid = (-(-w // tw), -(-h // th), -(-d // db))
+    return PlaneSweepPlan(th, tw, db, 256, grid, smem)
+
+
+def _compiled_plan(fn_name: str, n: int, *args) -> list[int]:
+    """`n` ints that the built library's `fn_name` reports for `args`
+    (builds the library; launches nothing)."""
+    import ctypes
+
+    from .. import _build
+    lib = _build.load()
+    buf = (ctypes.c_int * n)()
+    err = getattr(lib, fn_name)(*args, buf)
+    if err != 0:
+        msg = lib.cvids_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
+    return list(buf)
+
+
+def compiled_plane_sweep_plan(h: int, w: int, d: int) -> PlaneSweepPlan:
+    """`plane_sweep_plan` as the built library reports it."""
+    v = _compiled_plan("cvids_plane_sweep_plan", 8, h, w, d)
+    return PlaneSweepPlan(v[0], v[1], v[2], v[3], (v[4], v[5], v[6]), v[7])
+
+
 def plane_sweep(ref: torch.Tensor, meas_al: torch.Tensor,
                 pos_x: torch.Tensor, pos_y: torch.Tensor,
                 mx: torch.Tensor, my: torch.Tensor,
@@ -245,15 +314,13 @@ def plane_sweep(ref: torch.Tensor, meas_al: torch.Tensor,
     _require_depths(d)
     if out_dtype not in _VOLUME_DTYPES:
         raise ValueError(f"out_dtype {out_dtype} not in {_VOLUME_DTYPES}")
-    # depth-innermost tables, so the kernel's depth-parallel reads coalesce
-    pos_x_t = pos_x.T.contiguous()                               # (W, D)
-    pos_y_t = pos_y.T.contiguous()                               # (H, D)
-    mx_t = mx.permute(1, 2, 0).contiguous()                      # (3, W, D)
-    my_t = my.permute(1, 2, 0).contiguous()                      # (3, H, D)
     out = torch.empty((h, w, d), dtype=out_dtype, device=ref.device)
+    _require_aligned(out, "out")
+    if h * w == 0:
+        return out
     _launch("plane_sweep", "cvids_plane_sweep", ref.device,
-            ref.data_ptr(), meas_al.data_ptr(), pos_x_t.data_ptr(),
-            pos_y_t.data_ptr(), mx_t.data_ptr(), my_t.data_ptr(),
+            ref.data_ptr(), meas_al.data_ptr(), pos_x.data_ptr(),
+            pos_y.data_ptr(), mx.data_ptr(), my.data_ptr(),
             out.data_ptr(), h, w, d, int(out_dtype == torch.bfloat16))
     return out
 
@@ -297,6 +364,56 @@ def sgm_scan_bidir_twin(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
     return torch.movedim(total, 0, axis).contiguous()
 
 
+class SgmScanPlan(NamedTuple):
+    """The scan kernel's launch: `group` lanes carry one line in one
+    direction, `vectors` 16-byte vectors each; a block of `threads` carries
+    32 / `group` lines in both directions with a `stages`-deep ring of cost
+    rows and one of partial rows."""
+    group: int
+    vectors: int
+    stages: int
+    threads: int
+    grid: int
+    smem_bytes: int
+
+
+def sgm_scan_plan(lines: int, d: int, dtype: torch.dtype) -> SgmScanPlan:
+    """Lane groups, ring depth, grid and dynamic shared memory of one
+    `sgm_scan_bidir` launch over `lines` scan lines of depth `d`, as
+    ``csrc/sgm_scan.cu`` compiles them, restated here so that they can be
+    held to the card's limits without the card. The kernel owns the values:
+    the wrapper passes it none of them, and `compiled_sgm_scan_plan` reads
+    the built library's own for comparison.
+
+    A D-row is d * itemsize / 16 vectors of 16 bytes; the group is the
+    largest power of two (<= 32) that divides that count, so every lane
+    loads and stores whole vectors and the shuffles stay inside aligned
+    lane groups. The ring is 8 rows deep (a step takes ~0.15 us on an H100,
+    so 8 steps cover a trip to device memory; deeper rings measured no
+    faster), 4 where a lane holds more than 4 vectors, which keeps a block's
+    two rings within 64 KB."""
+    _require_depths(d)
+    if dtype not in _VOLUME_DTYPES:
+        raise ValueError(f"dtype {dtype} not in {_VOLUME_DTYPES}")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    n_vec = d * itemsize // 16
+    group = 32
+    while n_vec % group:
+        group //= 2
+    vectors = n_vec // group
+    stages = 8 if vectors <= 4 else 4
+    threads = 64
+    lines_per_block = 32 // group
+    return SgmScanPlan(group, vectors, stages, threads, -(-lines // lines_per_block),
+                       2 * stages * vectors * threads * 16)
+
+
+def compiled_sgm_scan_plan(lines: int, d: int, dtype: torch.dtype) -> SgmScanPlan:
+    """`sgm_scan_plan` as the built library reports it."""
+    return SgmScanPlan(*_compiled_plan("cvids_sgm_scan_plan", 6, lines, d,
+                                       int(dtype == torch.bfloat16)))
+
+
 def sgm_scan_bidir(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
                    axis: int = 0) -> torch.Tensor:
     """Forward + backward SGM aggregation along `axis` (0 or 1) of a 3-D
@@ -322,6 +439,11 @@ def sgm_scan_bidir(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
     _require_depths(d)
     p1_f = p1_t.reshape(1).to(torch.float32).contiguous()
     out = torch.empty_like(cost)
+    # every row start is a multiple of d * itemsize >= 64 bytes from the base
+    _require_aligned(cost, "cost")
+    _require_aligned(out, "out")
+    if a * b == 0:
+        return out
     if axis == 0:   # scan over rows a, lines b
         s, x, cs_s, cs_x, p2_s, p2_x = a, b, b * d, d, b, 1
     else:           # scan over columns b, lines a
@@ -496,3 +618,59 @@ def depth_filter_update(state: depth_filter.FilterState, x: torch.Tensor,
             meas_valid.data_ptr(), lo, hi, 1.0 / (hi - lo),
             *(t.data_ptr() for t in out), h * w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The least work of a call, for a roofline bound
+# ---------------------------------------------------------------------------
+
+
+def kernel_work(name: str, **shape) -> tuple[int, int]:
+    """(bytes, operations) that one call of kernel `name` (a key of
+    `launches`) must at least move and do at `shape`: every input read once
+    and every output written once, whatever the kernel reads again, and the
+    arithmetic the function needs, each value computed once where it is
+    shared (every add, multiply, compare and min counts as one operation,
+    although a card's peak rate assumes fused multiply-adds, so the
+    operations time errs high). A time bound on a card is
+    max(bytes / its memory rate, operations / its peak rate).
+
+    Shapes: warp_banded h, w; plane_sweep h, w, d, itemsize; sgm_scan s, x,
+    d, itemsize (one launch: one axis, both directions); wta h, w, d,
+    itemsize, parts; depth_filter_update h, w, tau2_map (False: a scalar);
+    hamming_matrix n, m, a_mask, b_mask (True: the validity mask is given)."""
+    g = shape.get
+    if name == "warp_banded":
+        px = g("h") * g("w")
+        # img in; out and coverage out; the 3x3 map. Two passes of two hat
+        # taps with their bounds, and the positions: ~60 operations a pixel
+        return 3 * 4 * px + 36, 60 * px
+    if name == "plane_sweep":
+        h, w, d = g("h"), g("w"), g("d")
+        tables = 4 * d * (w + h) * 4           # pos_x, pos_y, mx (3), my (3)
+        # per sample: the three m sums and the quad test 10, bilinear 9,
+        # |diff| 2, 3x3 box with the division and the clamp 11: 32. The hat
+        # weights (6) and the in-bounds test (2) depend on one coordinate
+        # and the depth only: 8 per table entry, not per sample
+        return (h * w * d * g("itemsize") + 2 * 4 * h * w + tables,
+                32 * h * w * d + 8 * (w + h) * d)
+    if name == "sgm_scan":
+        s, x, d, es = g("s"), g("x"), g("d"), g("itemsize")
+        # cost in, sum out, P2 in, P1. Per element and direction: the min
+        # over D 1, the candidate 4, the update 2, rounding 1; then the sum
+        return 2 * s * x * d * es + s * x * es + 4, 17 * s * x * d
+    if name == "wta":
+        h, w, d, n = g("h"), g("w"), g("d"), g("parts")
+        # the parts in; idx_f (4 bytes) and conf (1) out. Per element: the
+        # sum of the parts, first and second minimum with their masks
+        return n * h * w * d * g("itemsize") + 5 * h * w, (n + 3) * h * w * d
+    if name == "depth_filter_update":
+        px = g("h") * g("w")
+        maps = 4 + 1 + 4 + (1 if g("tau2_map", False) else 0)   # state, x, new state
+        return maps * 4 * px + px, 60 * px
+    if name == "hamming_matrix":
+        n, m = g("n"), g("m")
+        # 8 words a descriptor; xor, popcount and add per word pair
+        masks = (n if g("a_mask", True) else 0) + (m if g("b_mask", True) else 0)
+        return 32 * (n + m) + 4 * n * m + masks, 24 * n * m
+    raise KeyError(f"no kernel named {name!r}")

@@ -25,6 +25,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..dense import estimator
 from ..geometry.hostmath import quat_to_matrix_np, ypr_to_r_np
 from ..io.msgs import KeyframePacket
@@ -68,12 +69,14 @@ class _DenseClientState:
 
 class CollaborativeServer:
     def __init__(self, voc, cfg: PipelineConfig | None = None,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str | None = None,
                  noise: Callable[[int, int], torch.Tensor] | None = None):
         """`voc` and `noise` as for `CollaborativePoseGraph` (a dense
-        `Vocabulary` or a `TreeVocabulary`; the RANSAC noise source)."""
+        `Vocabulary` or a `TreeVocabulary`; the RANSAC noise source).
+        `device=None` is the card (`default_device()`, which raises where
+        there is none); pass "cpu" to run on the host."""
         self.cfg = cfg or PipelineConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.graph = CollaborativePoseGraph(voc, self.cfg.server, device=self.device,
                                             noise=noise)
         self.volume = TsdfVolume(self.cfg.tsdf, device=self.device)

@@ -40,6 +40,7 @@ from typing import TYPE_CHECKING, Callable
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..geometry import Pose, compose, inverse, matrix_to_quat, rot_z, wrap_angle, ypr_to_r
 from ..geometry.hostmath import (
     matrix_to_quat_np,
@@ -173,15 +174,17 @@ def _match_and_pnp(win_desc, win_valid, win_uv, win_pts_camj, ext_desc,
 
 class CollaborativePoseGraph:
     def __init__(self, voc, config: ServerConfig | None = None,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str | None = None,
                  noise: Callable[[int, int], torch.Tensor] | None = None):
         """`voc` is a trained dense `Vocabulary` (small word counts; moved to
         `device`) or a `TreeVocabulary` (the reference's k=10 L=6
         million-word scale), which switches place recognition to the sparse
         database. `noise(num_hyp, n)` returns (num_hyp, n) standard Gumbel
-        noise for one RANSAC stage, on the CPU or on `device`."""
+        noise for one RANSAC stage, on the CPU or on `device`.
+        `device=None` is the card (`default_device()`, which raises where
+        there is none); pass "cpu" to run on the host."""
         self.cfg = config or ServerConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.store = KeyframeStore(self.cfg.kf_capacity, self.cfg.max_win,
                                    self.cfg.max_ext)
         self._tree_mode = isinstance(voc, vocab_mod.TreeVocabulary)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops.cuda_kernels import popcount32
 from ..ops.hamming import descriptors_to_torch
 
@@ -99,7 +100,9 @@ def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 3,
                      seed: int = 0, weighting: str = "idf",
                      device=None) -> Vocabulary:
     """Hierarchical binary k-means (numpy) of (N, 8) uint32 descriptors; the
-    vocabulary's tensors are put on `device`."""
+    vocabulary's tensors are put on `device` (None: the card,
+    `default_device()`, which raises where there is none; "cpu": the host)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     desc = np.asarray(descriptors, np.uint32)
 
@@ -463,6 +466,9 @@ class SparseBowDatabase:
 
     def __init__(self, tree: TreeVocabulary, capacity: int = 4096,
                  words_per_frame: int = 256, device=None):
+        """`device=None` is the card (`default_device()`, which raises
+        where there is none); pass "cpu" to run on the host."""
+        device = resolve_device(device)
         self.tree = tree
         self.f = words_per_frame
         self.ids = torch.full((capacity, words_per_frame), -1, dtype=torch.int32, device=device)

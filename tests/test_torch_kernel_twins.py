@@ -83,8 +83,7 @@ def test_warp_banded_twin_band_edge(rng):
     np.testing.assert_allclose(_np(a8), np.asarray(a_x), atol=1e-4)
 
 
-def test_plane_sweep_twin_matches_pallas(rng):
-    h, w, d = 16, 128, 8
+def _check_plane_sweep_twin(rng, h, w, d):
     ref = rng.uniform(0, 255, (h, w)).astype(np.float32)
     meas = rng.uniform(0, 255, (h, w)).astype(np.float32)
     k = np.array([[50.0, 0, w / 2], [0, 50.0, h / 2], [0, 0, 1]], np.float32)
@@ -111,15 +110,26 @@ def test_plane_sweep_twin_matches_pallas(rng):
         # the Pallas kernel resamples with bf16 matmul operands and sums the
         # box in bf16; the twin is fp32 (stored bf16 in the bf16 case): the
         # tolerances of test_pallas.py's sweep check
-        assert err.max() < 1.5, err.max()
-        assert err.mean() < 0.2, err.mean()
+        if both.any():        # a single row has no sample in view
+            assert err.max() < 1.5, err.max()
+            assert err.mean() < 0.2, err.mean()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [48, 45])
-def test_sgm_scan_twin_matches_pallas(rng, s, dtype):
-    cost = rng.uniform(0, 50, (s, 32, 128)).astype(np.float32)
-    p2 = rng.uniform(30, 70, (s, 32)).astype(np.float32)
+def test_plane_sweep_twin_matches_pallas(rng):
+    _check_plane_sweep_twin(rng, 16, 128, 8)
+
+
+@pytest.mark.parametrize("h,w", [(9, 31), (8, 30), (17, 61), (1, 33), (11, 29)])
+def test_plane_sweep_twin_matches_pallas_ragged(rng, h, w):
+    """Heights and widths that are not multiples of the CUDA kernel's
+    8 x 30 tile (one row or column over, one under, exactly one tile, a
+    single row)."""
+    _check_plane_sweep_twin(rng, h, w, 4)
+
+
+def _check_sgm_scan_twin(rng, s, x, d, dtype):
+    cost = rng.uniform(0, 50, (s, x, d)).astype(np.float32)
+    p2 = rng.uniform(30, 70, (s, x)).astype(np.float32)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     cost_j, p2_j = jnp.asarray(cost, jdt), jnp.asarray(p2, jdt)
@@ -132,6 +142,28 @@ def test_sgm_scan_twin_matches_pallas(rng, s, dtype):
     # fp32 carries, each direction rounded to the cost dtype, then added in
     # the cost dtype, in the kernel's operation order: exact
     np.testing.assert_array_equal(_np(out), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [48, 45])
+def test_sgm_scan_twin_matches_pallas(rng, s, dtype):
+    _check_sgm_scan_twin(rng, s, 32, 128, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 2, 3, 7, 15, 17, 33])
+def test_sgm_scan_twin_matches_pallas_short(rng, s, dtype):
+    """Scan lengths around the CUDA kernel's ring: one and two rows (the two
+    directions meet at once), odd lengths (both reach the middle row in the
+    same step), shorter than the 8-row ring, one under and over twice it, and
+    one over four times it; a line count that leaves a block's last group spare."""
+    _check_sgm_scan_twin(rng, s, 3, 128, dtype)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 160, 192, 224, 256])
+def test_sgm_scan_twin_matches_pallas_depths(rng, d):
+    """Every D/32 that takes another lane grouping in the CUDA kernel."""
+    _check_sgm_scan_twin(rng, 9, 5, d, "float32")
 
 
 def test_sgm_scan_twin_axis1_matches_pallas(rng):
@@ -291,3 +323,122 @@ def test_depth_filter_twin_matches_pallas(rng, h, w, tau2_kind):
         assert _np(out.mu)[0, k] == st[0][0, k]
     assert _np(out.b)[0, 1] == st[3][0, 1]               # invalid: unchanged
     assert _np(out.b)[0, 2] == np.float32(st[3][0, 2] + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# What Python decides about a launch: plans and the roofline work
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_sgm_scan_plan(d, dtype):
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    for lines in (1, 3, 480, 641):
+        plan = ck.sgm_scan_plan(lines, d, dtype)
+        # lanes x vectors x 16 bytes cover a D-row exactly, in aligned groups
+        assert plan.group in (4, 8, 16, 32) and 32 % plan.group == 0
+        row_bytes = d * itemsize
+        assert plan.group * plan.vectors * 16 == row_bytes
+        depths_per_lane = plan.vectors * 16 // itemsize
+        assert depths_per_lane * plan.group == d
+        # every row start of either axis is 16-byte aligned from an aligned
+        # base: row strides are multiples of the row's bytes
+        assert row_bytes % 16 == 0
+        for axis_stride in (d, 641 * d):             # elements, axis 1 and axis 0
+            assert (axis_stride * itemsize) % 16 == 0
+        # a block carries both directions of whole lines
+        lines_per_block = 32 // plan.group
+        assert plan.threads == 2 * plan.group * lines_per_block == 64
+        assert plan.grid * lines_per_block >= lines > (plan.grid - 1) * lines_per_block
+        # two rings (cost rows, partial rows) of `stages` rows per thread
+        assert plan.stages == (8 if plan.vectors <= 4 else 4)
+        assert plan.smem_bytes == 2 * plan.stages * plan.vectors * 16 * plan.threads
+        assert plan.smem_bytes <= 64 * 1024 < ck.MAX_DYNAMIC_SMEM
+        # the deeper ring wherever both rings of a block fit 64 KB
+        assert plan.stages == 8 or 2 * 8 * plan.vectors * 16 * plan.threads > 64 * 1024
+    # the main path: 16 lanes a line and direction, 8 bf16 a lane, 8 stages
+    if d == 128 and dtype == torch.bfloat16:
+        assert (plan.group, depths_per_lane, plan.stages) == (16, 8, 8)
+
+
+def test_sgm_scan_plan_rejects():
+    with pytest.raises(ValueError):
+        ck.sgm_scan_plan(8, 48, torch.float32)
+    with pytest.raises(ValueError):
+        ck.sgm_scan_plan(8, 64, torch.float16)
+
+
+@pytest.mark.parametrize("h,w,d", [(480, 640, 128), (37, 53, 32), (1, 33, 64),
+                                   (8, 30, 64), (9, 31, 96), (16, 128, 256)])
+def test_plane_sweep_plan(h, w, d):
+    plan = ck.plane_sweep_plan(h, w, d)
+    th, tw, db = plan.tile_h, plan.tile_w, plan.tile_d
+    # the halo columns fill whole groups of 8 (the gather's thread map), the
+    # depth block whole 8-depth store chunks
+    assert (tw + 2) % 8 == 0 and db % 8 == 0 and db % 32 == 0
+    # the tiles cover the volume and none is empty
+    gx, gy, gz = plan.grid
+    assert gx * tw >= w > (gx - 1) * tw
+    assert gy * th >= h > (gy - 1) * th
+    assert gz * db >= d > (gz - 1) * db
+    # one output chunk column per thread at most in the box phase
+    assert tw * (db // 8) <= plan.threads == 256
+    # |diff| of the halo tile (depth run padded by 4 floats), two float4 per
+    # (halo row, depth), the reference tile
+    want = 4 * (th + 2) * (tw + 2) * (db + 4) + 32 * (th + 2) * db + 4 * (th + 2) * (tw + 2)
+    assert plan.smem_bytes == want
+    # two blocks per SM, each with its 1 KB reserve, inside the SM's 228 KB
+    assert plan.smem_bytes <= ck.MAX_DYNAMIC_SMEM
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    # the float4 reads of a pixel's depth run stay 16-byte aligned
+    assert ((db + 4) * 4) % 16 == 0
+    # every output chunk (8 depths) starts 16-byte aligned in both dtypes
+    for itemsize in (2, 4):
+        assert (d * itemsize) % 16 == 0 and (8 * itemsize) % 16 == 0
+
+
+# hand-computed at 640x480x128 bf16 (and 160x512 Hamming with both masks):
+# bytes with every input read once and every output written once
+_WORK = {
+    # img 1,228,800 in; out and coverage 2 x 1,228,800; the 3x3 map 36
+    "warp_banded": (dict(h=480, w=640), 3_686_436, 60 * 307_200),
+    # volume 39,321,600 x 2; ref + meas 2 x 1,228,800; tables 4 x 128 x 1120 x 4
+    "plane_sweep": (dict(h=480, w=640, d=128, itemsize=2),
+                    78_643_200 + 2_457_600 + 2_293_760,
+                    32 * 39_321_600 + 8 * 1120 * 128),
+    # cost in and sum out 2 x 78,643,200; P2 614,400; P1 4
+    "sgm_scan": (dict(s=480, x=640, d=128, itemsize=2), 157_286_400 + 614_400 + 4,
+                 17 * 39_321_600),
+    # two parts 2 x 78,643,200; idx_f 1,228,800 and conf 307,200
+    "wta": (dict(h=480, w=640, d=128, itemsize=2, parts=2), 157_286_400 + 1_536_000,
+            5 * 39_321_600),
+    # state 4, x 1, new state 4 maps of 1,228,800; the mask 307,200
+    "depth_filter_update": (dict(h=480, w=640), 9 * 1_228_800 + 307_200, 60 * 307_200),
+    # descriptors (160 + 512) x 32; distances 160 x 512 x 4; masks 672
+    "hamming_matrix": (dict(n=160, m=512), 21_504 + 327_680 + 672, 24 * 81_920),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WORK))
+def test_kernel_work(name):
+    shape, want_bytes, want_ops = _WORK[name]
+    assert set(_WORK) == set(ck.launches)
+    got = ck.kernel_work(name, **shape)
+    assert got == (want_bytes, want_ops)
+    assert all(isinstance(v, int) for v in got)
+    # in MB: 3.7, 83.4, 157.9 (315.8 for a frame's two launches), 158.8, 11.4,
+    # 0.35
+    mb = {"warp_banded": 3.7, "plane_sweep": 83.4, "sgm_scan": 157.9, "wta": 158.8,
+          "depth_filter_update": 11.4, "hamming_matrix": 0.35}[name]
+    assert abs(got[0] / 1e6 - mb) < 0.06
+    if name == "plane_sweep":
+        # the weights and in-bounds tests of one coordinate are counted per
+        # table entry, so on an H100 (3.35 TB/s, 67 TFLOP/s) bytes bound it
+        assert got[0] / 3.35e12 > got[1] / 67e12
+    if name == "depth_filter_update":
+        assert ck.kernel_work(name, tau2_map=True, **shape)[0] == want_bytes + 1_228_800
+    if name == "hamming_matrix":
+        assert ck.kernel_work(name, a_mask=False, b_mask=False, **shape)[0] == want_bytes - 672
+    with pytest.raises(KeyError):
+        ck.kernel_work("no_such_kernel")

@@ -65,7 +65,7 @@ def sphere_frames():
 def volumes(reserve_slot0=True, **kwargs):
     """A JAX volume and the port's, with the same config."""
     jv = jtsdf.TsdfVolume(jtsdf.TsdfConfig(**kwargs))
-    tv = tsdf.TsdfVolume(tsdf.TsdfConfig(**kwargs))
+    tv = tsdf.TsdfVolume(tsdf.TsdfConfig(**kwargs), device="cpu")
     if reserve_slot0:
         jv.free.remove(0)
         tv.free.remove(0)
@@ -218,7 +218,7 @@ def test_mesh_and_ply_match_jax(sphere_pair, tmp_path):
     assert t == len(vt)
     np.testing.assert_array_equal(v2, vt.reshape(-1, 3))
     np.testing.assert_array_equal(n2, nt.reshape(-1, 3))
-    empty = mesh.extract_mesh(tsdf.TsdfVolume(tsdf.TsdfConfig(capacity=8)))
+    empty = mesh.extract_mesh(tsdf.TsdfVolume(tsdf.TsdfConfig(capacity=8), device="cpu"))
     assert all(x.shape == (0, 3, 3) for x in empty)
 
 
@@ -281,12 +281,12 @@ def server_pair(tree: bool):
         [multiagent.AgentSim(Trajectory.circle(radius=4.0, omega=0.5))],
         landmarks, descs, duration=5.0, kf_rate=1.0, max_feats=30)
     sj = jpg.CollaborativePoseGraph(voc_j, cfg(jpg))
-    st = tpg.CollaborativePoseGraph(voc_t, cfg(tpg))
+    st = tpg.CollaborativePoseGraph(voc_t, cfg(tpg), device="cpu")
     for s, packets in ((sj, pj), (st, pt)):
         for _, _, _, pkt in packets:
             s.add_keyframe(pkt)
     fresh = (lambda: jpg.CollaborativePoseGraph(voc_j, cfg(jpg)),
-             lambda: tpg.CollaborativePoseGraph(voc_t, cfg(tpg)))
+             lambda: tpg.CollaborativePoseGraph(voc_t, cfg(tpg), device="cpu"))
     return sj, st, fresh, pt[-1][3]
 
 
@@ -329,7 +329,7 @@ def test_tsdf_checkpoint_crosses_packages(sphere_pair, tmp_path):
     jv, tv = sphere_pair
     jckpt.save_tsdf(str(tmp_path / "jax.npz"), jv)
     checkpoint.save_tsdf(str(tmp_path / "port.npz"), tv)
-    into_t = tsdf.TsdfVolume(tsdf.TsdfConfig(voxel_size=0.05, capacity=16))
+    into_t = tsdf.TsdfVolume(tsdf.TsdfConfig(voxel_size=0.05, capacity=16), device="cpu")
     into_j = jtsdf.TsdfVolume(jtsdf.TsdfConfig(voxel_size=0.05, capacity=16))
     checkpoint.load_tsdf(str(tmp_path / "jax.npz"), into_t)
     jckpt.load_tsdf(str(tmp_path / "port.npz"), into_j)

@@ -345,7 +345,8 @@ def test_server_port_runs_without_jax():
         "pk, _ = multiagent.generate_packets([multiagent.AgentSim(Trajectory.circle())], lm, d,\n"
         "                                     duration=3.0, max_feats=40)\n"
         "s = pg.CollaborativePoseGraph(voc.synthesize_tree_vocabulary(k=4, levels=3),\n"
-        "                              pg.ServerConfig(kf_capacity=16, max_win=40, max_ext=40))\n"
+        "                              pg.ServerConfig(kf_capacity=16, max_win=40, max_ext=40),\n"
+        "                              device='cpu')\n"
         "[s.add_keyframe(p) for _, _, _, p in pk]\n"
         "s.flush()\n"
         "assert pcm.max_clique(np.ones((4, 4), bool)).tolist() == [0, 1, 2, 3]\n"
@@ -379,7 +380,8 @@ def test_pipeline_port_runs_without_jax(tmp_path):
         "    server=posegraph.ServerConfig(kf_capacity=16, max_win=40, max_ext=40),\n"
         "    dense=DenseConfig(height=h, width=w, num_depths=32, dep_sample=1 / (0.11 * 40)),\n"
         "    tsdf=TsdfConfig(voxel_size=0.2, capacity=64), ref_advance=2)\n"
-        "s = pipeline.CollaborativeServer(vocab.synthesize_tree_vocabulary(k=4, levels=3), cfg)\n"
+        "s = pipeline.CollaborativeServer(vocab.synthesize_tree_vocabulary(k=4, levels=3), cfg,\n"
+        "                                 device='cpu')\n"
         "s.set_client_intrinsics(0, cam.k_matrix)\n"
         "r_cb = multiagent.R_CB_DEFAULT\n"
         "for i in range(6):\n"
@@ -410,3 +412,52 @@ def test_pipeline_port_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.split() == ["False", "False", "2"], res.stdout
+
+
+def _device_owners():
+    """(name, constructor taking a device) for every entry point of the port
+    that owns device state."""
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
+    from cvids_tpu_torch.server import pipeline, posegraph, vocab
+
+    tree = vocab.synthesize_tree_vocabulary(k=4, levels=2)
+    descs = np.random.default_rng(0).integers(0, 2 ** 32, (64, 8), dtype=np.uint32)
+    small = posegraph.ServerConfig(kf_capacity=16, max_win=8, max_ext=8)
+    pcfg = pipeline.PipelineConfig(server=small, tsdf=TsdfConfig(capacity=8),
+                                   dense_enabled=False)
+    return {
+        "CollaborativeServer": lambda **kw: pipeline.CollaborativeServer(tree, pcfg, **kw),
+        "CollaborativePoseGraph": lambda **kw: posegraph.CollaborativePoseGraph(tree, small, **kw),
+        "TsdfVolume": lambda **kw: TsdfVolume(TsdfConfig(capacity=8), **kw),
+        "SparseBowDatabase": lambda **kw: vocab.SparseBowDatabase(tree, capacity=8, **kw),
+        "train_vocabulary": lambda **kw: vocab.train_vocabulary(descs, k=2, levels=2, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["default_device", "CollaborativeServer",
+                                  "CollaborativePoseGraph", "TsdfVolume",
+                                  "SparseBowDatabase", "train_vocabulary"])
+def test_default_device_is_the_card(name, monkeypatch):
+    """With no device given, every entry point that owns device state asks
+    for the card: without one it raises and names the remedy (no silent
+    CPU); with device="cpu" it builds, on the CPU."""
+    import cvids_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if name == "default_device":
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cvids_tpu_torch.default_device()
+        assert cvids_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+        return
+    build = _device_owners()[name]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()
+    obj = build(device="cpu")
+    where = {"CollaborativeServer": lambda o: o.volume.pool.sdf.device,
+             "CollaborativePoseGraph": lambda o: o.db.ids.device,
+             "TsdfVolume": lambda o: o.pool.sdf.device,
+             "SparseBowDatabase": lambda o: o.ids.device,
+             "train_vocabulary": lambda o: o.weights.device}[name](obj)
+    assert where == torch.device("cpu")
+    if hasattr(obj, "close"):
+        obj.close()

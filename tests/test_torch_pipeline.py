@@ -174,7 +174,8 @@ def test_disturbance_injection(tmp_path):
                                 max_loops=32, optimize_every=10000),
         dense_enabled=False, disturbance_after=16)
     server = tpipe.CollaborativeServer(
-        interop.vocabulary_to_torch(jax.tree_util.tree_map(np.asarray, voc), "cpu"), cfg)
+        interop.vocabulary_to_torch(jax.tree_util.tree_map(np.asarray, voc), "cpu"), cfg,
+        device="cpu")
     agents = [multiagent.AgentSim(Trajectory.circle(radius=5.0, omega=0.5))]
     packets, _ = multiagent.generate_packets(agents, landmarks, descs, duration=20.0,
                                              kf_rate=1.0, max_feats=30)
@@ -196,7 +197,8 @@ def test_disturbance_injection(tmp_path):
 def test_set_client_camera():
     """An undistorted pinhole installs its K and no remap grid; other
     cameras wait for the camera models."""
-    server = tpipe.CollaborativeServer(small_port_vocabulary(), tpipe.PipelineConfig())
+    server = tpipe.CollaborativeServer(small_port_vocabulary(), tpipe.PipelineConfig(),
+                                       device="cpu")
     cam = render.Pinhole(200.0, 210.0, 160.0, 120.0, 320, 240)
     server.set_client_camera(2, cam)
     np.testing.assert_array_equal(server._client_k[2], cam.k_matrix)

@@ -105,7 +105,8 @@ def run_both(packets_j, packets_t, voc_j, voc_t):
     port) after flush(final=False), with the accepted edge sets taken
     there."""
     servers = [jpg.CollaborativePoseGraph(voc_j, small_config(jpg)),
-               tpg.CollaborativePoseGraph(voc_t, small_config(tpg), noise=JaxKeyChain())]
+               tpg.CollaborativePoseGraph(voc_t, small_config(tpg), device="cpu",
+                                          noise=JaxKeyChain())]
     for s, packets in zip(servers, (packets_j, packets_t)):
         for _, _, _, pkt in packets:
             s.add_keyframe(pkt)
@@ -170,7 +171,7 @@ def test_pipelined_detection_matches_synchronous(world):
     voc_t = interop.vocabulary_to_torch(jax.tree_util.tree_map(np.asarray, voc), "cpu")
 
     def run(sync: bool):
-        server = tpg.CollaborativePoseGraph(voc_t, small_config(tpg))
+        server = tpg.CollaborativePoseGraph(voc_t, small_config(tpg), device="cpu")
         for _, _, _, pkt in packets:
             server.add_keyframe(pkt)
             if sync:
@@ -197,7 +198,8 @@ def test_async_optimize_meets_ate(world):
     cfg.async_optimize = True
     cfg.optimize_period_s = 0.2
     server = tpg.CollaborativePoseGraph(
-        interop.vocabulary_to_torch(jax.tree_util.tree_map(np.asarray, voc), "cpu"), cfg)
+        interop.vocabulary_to_torch(jax.tree_util.tree_map(np.asarray, voc), "cpu"), cfg,
+        device="cpu")
     try:
         for _, _, _, pkt in packets:
             server.add_keyframe(pkt)
@@ -233,7 +235,7 @@ def test_store_growth_and_trajectory(world):
     packets, _ = multiagent.generate_packets(two_agents()[:1], landmarks, descs,
                                              duration=6.0, kf_rate=1.0, max_feats=60)
     tree = interop.tree_vocabulary_to_torch(jvoc.tree_from_trained(voc))
-    server = tpg.CollaborativePoseGraph(tree, small_config(tpg))
+    server = tpg.CollaborativePoseGraph(tree, small_config(tpg), device="cpu")
     server.loop_i = server.loop_i[:2]
     for name in ("loop_j", "loop_t", "loop_yaw", "loop_inter", "loop_valid", "loop_pcm_ok"):
         setattr(server, name, getattr(server, name)[:2])

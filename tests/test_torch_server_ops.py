@@ -316,7 +316,7 @@ def trained():
 
 def test_train_vocabulary_and_bow(trained, rng):
     descs, voc_j = trained
-    voc_t = tvoc.train_vocabulary(descs, k=5, levels=2, seed=1)
+    voc_t = tvoc.train_vocabulary(descs, k=5, levels=2, seed=1, device="cpu")
     # the same numpy k-medoids and idf: identical trees and weights
     for a, b in zip(voc_t.level_desc, voc_j.level_desc):
         np.testing.assert_array_equal(_np(a).view(np.uint32), np.asarray(b))
@@ -373,7 +373,7 @@ def test_tree_vocabulary_quantize_and_sparse_db(rng):
     # 32 words per frame < the ~50 distinct words of a frame: the top-f
     # truncation breaks the ties of uniform weights by word id in both
     db_j = jvoc.SparseBowDatabase(tree_j, capacity=8, words_per_frame=32)
-    db_t = tvoc.SparseBowDatabase(tree_t, capacity=8, words_per_frame=32)
+    db_t = tvoc.SparseBowDatabase(tree_t, capacity=8, words_per_frame=32, device="cpu")
     for i, f in enumerate(frames):
         v = rng.random(60) > 0.1
         i_j, s_j = db_j.query_and_add(jnp.asarray(f), i % 3, exclude_recent=4, valid=jnp.asarray(v))
@@ -383,8 +383,8 @@ def test_tree_vocabulary_quantize_and_sparse_db(rng):
     np.testing.assert_array_equal(_np(db_t.ids), np.asarray(db_j.ids))
     np.testing.assert_allclose(_np(db_t.vals), np.asarray(db_j.vals), rtol=1e-6)
     # query() + add_descriptors() return what the fused step returns
-    db_q = tvoc.SparseBowDatabase(tree_t, capacity=8, words_per_frame=32)
-    db_f = tvoc.SparseBowDatabase(tree_t, capacity=8, words_per_frame=32)
+    db_q = tvoc.SparseBowDatabase(tree_t, capacity=8, words_per_frame=32, device="cpu")
+    db_f = tvoc.SparseBowDatabase(tree_t, capacity=8, words_per_frame=32, device="cpu")
     for i, f in enumerate(frames):
         i_q, s_q = db_q.query(_td(f), i % 3, exclude_recent=4)
         db_q.add_descriptors(_td(f), i % 3)
@@ -402,7 +402,8 @@ def test_dbow_binary_roundtrip_byte_for_byte(trained, tmp_path):
     the other's."""
     descs, voc_j = trained
     tree_j = jvoc.tree_from_trained(jvoc.train_vocabulary(descs, k=4, levels=3, seed=0))
-    tree_t = tvoc.tree_from_trained(tvoc.train_vocabulary(descs, k=4, levels=3, seed=0))
+    tree_t = tvoc.tree_from_trained(tvoc.train_vocabulary(descs, k=4, levels=3, seed=0,
+                                                        device="cpu"))
     synth = tvoc.synthesize_tree_vocabulary(k=10, levels=3, seed=2)
     for name, tj, tt in (("trained", tree_j, tree_t), ("synth", synth, synth)):
         pj, pt = tmp_path / f"{name}_jax.bin", tmp_path / f"{name}_torch.bin"
