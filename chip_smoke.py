@@ -23,12 +23,17 @@ that every kernel of each path ran:
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
     python3 chip_smoke.py --dense-probe [--package DIR]   # the dense frame's times only
 
+The banded warp is one kernel that computes its own sample positions from
+the 3x3 map on the device; phase 3 also checks that a call is that one launch
+and no other device work.
+
 `--dense-probe` builds, runs 40 dense frames for the wall time per frame and
-profiles three frames for the device's busy time and each kernel's time in
-the frame. With `--package DIR` it imports `cvids_tpu_torch` from DIR (an
-unpacked `git archive` of another commit) instead of this script's
-directory: the run to make in turns on two trees (parent, change, change,
-parent) inside one call when a change to the dense path is measured, e.g.
+profiles three frames for the device's busy time, the number of device
+activities and each kernel's time in the frame. With `--package DIR` it
+imports `cvids_tpu_torch` from DIR (an unpacked `git archive` of another
+commit) instead of this script's directory: the run to make in turns on two
+trees (parent, change, change, parent) inside one call when a change to the
+dense path is measured, e.g.
 
     git archive HEAD~1 cvids_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
@@ -37,12 +42,12 @@ parent) inside one call when a change to the dense path is measured, e.g.
 `--kernels-only` is the run to put under compute-sanitizer (memcheck,
 initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
 /usr/local/cuda/bin). Imports neither JAX nor any module of `cvids_tpu`,
-and checks so at the end. Exits
-non-zero on any failed phase. The line before the last is the kernel table
-as JSON (per kernel: launches on the whole server's run, launches per dense
-frame or, for the Hamming kernel, per keyframe, max abs err against the twin, kernel and twin ms, the roofline bound
-of the same call from `cuda_kernels.kernel_work` and the H100's published
-peaks, and the share of it reached); the last line is
+and checks so at the end. Exits non-zero on any failed phase. The line before
+the last is the kernel table as JSON (per kernel: launches on the whole
+server's run, launches per dense frame or, for the Hamming kernel, per
+keyframe, max abs err against the twin, kernel and twin ms, the roofline
+bound of the same call from `cuda_kernels.kernel_work` and the H100's
+published peaks, and the share of it reached); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -130,23 +135,29 @@ def time_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+# the kernels' entry points as the compiler log and the profiler name them;
+# warp_rows_kernel and warp_cols_kernel are the two kernels of package
+# revisions before the fused warp, which `--package` may point at
+KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
+                  "plane_sweep_kernel", "sgm_scan_kernel", "wta_kernel",
+                  "depth_filter_kernel", "hamming_kernel")
+
+
 def print_ptxas_summary(log: str) -> None:
     """One line per kernel from nvcc's -Xptxas -v output: registers over the
     template instances, and the spill bytes."""
     import re
-    names = ("warp_rows_kernel", "warp_cols_kernel", "plane_sweep_kernel",
-             "sgm_scan_kernel", "wta_kernel", "depth_filter_kernel", "hamming_kernel")
-    regs = {n: [] for n in names}
-    spills = {n: 0 for n in names}
+    regs = {n: [] for n in KERNEL_ENTRIES}
+    spills = {n: 0 for n in KERNEL_ENTRIES}
     current = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            current = next((n for n in names if n in line), None)
+            current = next((n for n in KERNEL_ENTRIES if n in line), None)
         elif current and "Used" in line and "registers" in line:
             regs[current].append(int(re.search(r"Used (\d+) registers", line).group(1)))
         elif current and "spill" in line:
             spills[current] += sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
-    for n in names:
+    for n in KERNEL_ENTRIES:
         if regs[n]:
             print(f"  ptxas {n}: {len(regs[n])} instance(s), registers "
                   f"{min(regs[n])}-{max(regs[n])}, spill bytes {spills[n]}")
@@ -208,10 +219,14 @@ def textured_plane(rng, h=H, w=W, focal=FOCAL, baseline=BASELINE, depth=DEPTH):
     return ref, meas, a_mat, b_vec, k
 
 
-def rotation_homography(k: np.ndarray, yaw: float) -> np.ndarray:
+def rotation_homography(k: np.ndarray, yaw: float, pitch: float = 0.0) -> np.ndarray:
+    """K R K^-1 for a camera turned by `yaw` about y, then `pitch` about x
+    (a pitch makes m21 nonzero, so the warp's row pass depends on the row)."""
     c, s = np.cos(yaw), np.sin(yaw)
-    r = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
-    return (k @ r @ np.linalg.inv(k)).astype(np.float32)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    r_yaw = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    r_pitch = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    return (k @ r_pitch @ r_yaw @ np.linalg.inv(k)).astype(np.float32)
 
 
 def banded_gate(a_mat: np.ndarray, h: int, w: int) -> bool:
@@ -242,22 +257,33 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ref_t = torch.from_numpy(ref).to(dev)
     meas_t = torch.from_numpy(meas).to(dev)
 
-    # --- banded warp, identity and a small rotation, bands 96/48
+    # --- banded warp at phase 4's map and a small rotation, bands 96/48
     err = 0.0
     m_rot = None
-    for name, m in (("identity", a_mat), ("rotation", rotation_homography(k, 0.05))):
+    for name, m in (("phase 4's map", a_mat), ("rotation", rotation_homography(k, 0.05))):
         m_t = torch.from_numpy(m).to(dev)
         a1, c1 = ck.projective_warp_banded(meas_t, m_t, 96, 48)
         a2, c2 = ck.projective_warp_banded_twin(meas_t, m_t, 96, 48)
         e_val = (a1 - a2).abs().max().item()
         e_cov = (c1 - c2).abs().max().item()
-        # same fp32 operations in the same order (no FMA contraction)
-        check(e_val <= 1e-3 and e_cov <= 1e-6,
+        # the twin's fp32 operations in the twin's order, positions included
+        # (no FMA contraction, IEEE divisions): exact
+        check(e_val == 0.0 and e_cov == 0.0,
               f"warp_banded {name}: value err {e_val}, coverage err {e_cov}")
         print(f"  warp_banded {name}: max|err| value {e_val:.3g} coverage {e_cov:.3g}"
-              f" (tolerance 1e-3 / 1e-6); covered {(c1 > 0.999).float().mean().item():.3f}")
-        err = max(err, e_val)
+              f" (tolerance: exact); covered {(c1 > 0.999).float().mean().item():.3f}")
+        err = max(err, e_val, e_cov)
         m_rot = m_t
+    if timed:
+        # a call is one kernel launch and no other device work: no position
+        # math, no cast of the fp32 map, no memset
+        for _ in range(2):      # the first profile of a process may start late
+            _, acts = profile_frame(lambda: ck.projective_warp_banded(meas_t, m_rot, 96, 48))
+        check(len(acts) == 1 and acts[0][2] == 1 and "warp_banded_kernel" in acts[0][0],
+              f"warp_banded: a call's device activities are {[(a[0], a[2]) for a in acts]}, "
+              f"not one warp_banded_kernel")
+        print(f"  warp_banded: one device activity per call ({acts[0][0][:60]}, "
+              f"{acts[0][1]:.4f} ms under the profiler)")
     ms = time_ms(lambda: ck.projective_warp_banded(meas_t, m_rot, 96, 48), runs) if timed else 0.0
     pms = time_ms(lambda: ck.projective_warp_banded_twin(meas_t, m_rot, 96, 48),
                   twin_runs) if timed else 0.0
@@ -315,18 +341,12 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     i1, f1 = ck.wta(pa, pb)
     i2, f2 = ck.wta_twin(pa, pb)
     e = (i1 - i2).abs().max().item()
-    x = pa.float() + pb.float()
-    c0 = x.amin(-1)
-    idx = torch.argmin(x, dim=-1)                     # first minimum
-    lane = torch.arange(d, device=dev)
-    c2 = torch.where((lane - idx[..., None]).abs() <= 1, torch.full((), 3e38, device=dev),
-                     x).amin(-1)
-    tie = (c0 - 0.98 * c2).abs() <= 1e-6 * c0.abs().clamp(min=1.0)
-    n_conf_diff = int(((f1 != f2) & ~tie).sum().item())
-    check(e <= 1e-5, f"wta: idx err {e}")
-    check(n_conf_diff == 0, f"wta: conf differs at {n_conf_diff} non-tie pixels")
-    print(f"  wta 2 x bf16: max|idx err| {e:.3g} (tolerance 1e-5); conf differs at "
-          f"{int((f1 != f2).sum().item())} pixels, {n_conf_diff} away from a c0 = 0.98 c2 tie")
+    n_conf_diff = int((f1 != f2).sum().item())
+    # the twin's fp32 sums, comparisons and parabola in the twin's order: exact
+    check(torch.equal(i1, i2), f"wta: idx_f differs from the twin's, max abs err {e}")
+    check(n_conf_diff == 0, f"wta: conf differs at {n_conf_diff} pixels")
+    print(f"  wta 2 x bf16: max|idx err| {e:.3g}, conf differs at {n_conf_diff} pixels "
+          f"(tolerance: exact); confident {f1.float().mean().item():.3f}")
     ms = time_ms(lambda: ck.wta(pa, pb), runs) if timed else 0.0
     pms = time_ms(lambda: ck.wta_twin(pa, pb), twin_runs) if timed else 0.0
     out["wta"] = (e, ms, pms, *roofline("wta", h=h, w=w, d=d, itemsize=2, parts=2))
@@ -367,10 +387,10 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
 
 
 def plan_checks() -> None:
-    """The scan's and the sweep's launch plans as Python restates them (and
-    the CPU tests hold to the card's limits) against what the built library
-    reports for the same shapes: every D and dtype, ragged line counts and
-    tiles."""
+    """The scan's, the sweep's and the WTA's launch plans as Python restates
+    them (and the CPU tests hold to the card's limits) against what the built
+    library reports for the same shapes: every D and dtype, ragged line
+    counts, tiles and pixel counts."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
 
     n = 0
@@ -385,6 +405,11 @@ def plan_checks() -> None:
             want, got = ck.plane_sweep_plan(h, w, d), ck.compiled_plane_sweep_plan(h, w, d)
             check(want == got, f"plane_sweep plan at {h}x{w}x{d}: Python {want}, library {got}")
             n += 1
+            for dt in (torch.bfloat16, torch.float32):
+                want, got = ck.wta_plan(h * w, d, dt), ck.compiled_wta_plan(h * w, d, dt)
+                check(want == got, f"wta plan at {h * w} pixels, D {d}, {dt}: Python {want}, "
+                                   f"library {got}")
+                n += 1
     print(f"  launch plans: Python's equal the library's at {n} shapes")
 
 
@@ -439,9 +464,72 @@ def hamming_inputs(rng, dev, n, m):
             torch.from_numpy(rng.random(m) > 0.1).to(dev))
 
 
+def warp_edge_maps(h: int, w: int, band_x: int, band_y: int) -> dict[str, np.ndarray]:
+    """3x3 maps that decide what the fused warp must get right at (h, w):
+    shifts just inside, on and just beyond each band, a perspective map (m20
+    and m21 nonzero), a pitch that puts the degenerate row of the pass-1
+    inversion (|m11 - r m21| < 1e-3) inside the image, a map with that row at
+    h // 2 whose neighbouring rows keep coverage, and one that sends every
+    output row to it (y_in = h // 2 everywhere: only g = -1e9 on that row
+    keeps the coverage at 0)."""
+    maps = {}
+    for axis, band in ((0, band_x), (1, band_y)):
+        for shift in (band - 0.5, band, band + 0.5, band + 1.5, -band + 0.25, -band, -band - 1.0):
+            m = np.eye(3, dtype=np.float32)
+            m[axis, 2] = shift
+            maps[f"shift {'xy'[axis]} {shift:+.2f}"] = m
+    focal = 0.72 * w
+    k = np.array([[focal, 0, w / 2], [0, focal, h // 2], [0, 0, 1]])
+    maps["perspective"] = rotation_homography(k, 0.03, -0.02)
+    if h >= 8:
+        # den(r) = cos a - (r - h // 2) sin a / focal = 0 at r = h // 2 + h // 4
+        maps["pitch, degenerate row"] = rotation_homography(k, 0.01, np.arctan(focal / (h // 4)))
+        r0 = h // 2
+        maps["degenerate row, neighbours covered"] = np.array(
+            [[1, 0, 0.25], [0, 1, 1], [0, 1.0 / r0, 0]], np.float32)
+        maps["degenerate row, sampled by every row"] = np.array(
+            [[1, 0, 0.25], [0, 1, r0], [0, 1.0 / r0, 1]], np.float32)
+    return maps
+
+
+def degenerate_rows(m: np.ndarray, h: int) -> int:
+    """Rows of an h-row image where the warp's pass-1 inversion degenerates,
+    in the kernel's fp32 arithmetic."""
+    den = m[1, 1] - np.arange(h, dtype=np.float32) * m[2, 1]
+    return int((np.abs(den) < np.float32(1e-3)).sum())
+
+
+def wta_built_rows(d: int, n_vec_elems: int, rng) -> np.ndarray:
+    """(R, d) fp32 rows for the first part of a WTA call, built around what
+    the kernel's lane groups decide: ties across the depths where two lanes'
+    vectors meet and far apart, plateaus (whole row, and a run that spans
+    lanes), the minimum at index 0 and at d - 1, negative values, +-0."""
+    n = n_vec_elems
+    base = rng.uniform(10.0, 40.0, d).astype(np.float32)
+    rows = []
+    ties = [(n - 1, n), (2 * n - 1, 2 * n), (d // 2 - 1, d // 2), (d - 5, 3), (d - 1, 0),
+            (d - n - 1, d - n)]
+    for at in ties + [(0,), (d - 1,), (1,), (d - 2,)]:
+        r = base.copy()
+        r[list(at)] = -80.0
+        rows.append(r)
+    rows.append(np.full(d, 3.0, np.float32))
+    r = -base
+    r[d // 4: 3 * d // 4] = -90.0
+    rows.append(r)
+    r = np.zeros(d, np.float32)
+    r[[5, d - 3]] = -0.0
+    rows.append(r)
+    r = np.full(d, -0.0, np.float32)
+    r[n] = 0.0
+    rows.append(r)
+    return np.stack(rows)
+
+
 def edge_checks(device, rng) -> None:
     """Kernel == twin off the main path's shapes: ragged tiles, odd scan
-    lengths, the extreme depth counts, 1 to 4 WTA parts."""
+    lengths, the extreme depth counts, 1 to 4 WTA parts, the warp's bands and
+    degenerate rows, the WTA's lane groups on built rows."""
     from cvids_tpu_torch.ops import costvolume, cuda_kernels as ck
 
     dev = torch.device(device)
@@ -451,6 +539,41 @@ def edge_checks(device, rng) -> None:
                         b if isinstance(b, tuple) else (b,)):
             check(torch.equal(x, y), f"{what}: kernel != twin "
                   f"(max diff {(x.float() - y.float()).abs().max().item()})")
+
+    # the fused warp: the path's shape with its bands, ragged shapes (W not a
+    # multiple of the block's 128 columns, bands larger than the image), H = 1
+    n_maps, n_deg = 0, 0
+    for h, w, bands in ((H, W, (96, 48)), (37, 53, (8, 4)), (16, 130, (8, 4)),
+                        (1, 33, (8, 4)), (9, 7, (96, 48))):
+        img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
+        for name, m in warp_edge_maps(h, w, *bands).items():
+            if "degenerate" in name:
+                check(degenerate_rows(m, h) >= 1, f"warp {h}x{w} {name}: no degenerate row")
+                n_deg += 1
+            m_t = torch.from_numpy(m).to(dev)
+            same(ck.projective_warp_banded(img, m_t, *bands),
+                 ck.projective_warp_banded_twin(img, m_t, *bands), f"warp {h}x{w} {name}")
+            n_maps += 1
+        m64 = torch.eye(3, dtype=torch.float64, device=dev)     # cast as the twin casts it
+        same(ck.projective_warp_banded(img, m64, *bands),
+             ck.projective_warp_banded_twin(img, m64, *bands), f"warp {h}x{w} float64 map")
+    # the WTA: every D/32 in both dtypes with 1 to 4 parts, on 77 pixels (no
+    # multiple of a block's 8 to 64 pixels), random values of both signs and
+    # the built rows
+    n_wta = 0
+    for d in range(32, 257, 32):
+        for dt in (torch.float32, torch.bfloat16):
+            vol = rng.uniform(-20, 50, (7, 11, d)).astype(np.float32)
+            built = wta_built_rows(d, 8 if dt == torch.bfloat16 else 4, rng)
+            vol.reshape(-1, d)[:len(built)] = built
+            first = torch.from_numpy(vol).to(dev).to(dt)
+            const = [torch.full_like(first, c) for c in (1.5, -0.25, 2.0)]
+            noisy = [first.roll(1, 2), first.flip(2).contiguous(), first.roll(3, 2)]
+            for n in (1, 2, 3, 4):
+                for others in (const, noisy):
+                    parts = [first, *others[:n - 1]]
+                    same(ck.wta(*parts), ck.wta_twin(*parts), f"wta {n} x 7x11x{d} {dt}")
+                    n_wta += 1
 
     for h, w, d in ((37, 53, 32), (16, 128, 256), (1, 33, 64)):
         img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
@@ -512,6 +635,11 @@ def edge_checks(device, rng) -> None:
             filter_agree(ck.depth_filter_update(st, x, tau2, valid),
                          ck.depth_filter_update_twin(st, x, tau2, valid),
                          f"depth_filter {h}x{w} tau2 {'map' if torch.is_tensor(tau2) else 'scalar'}")
+    print(f"  fused warp: {n_maps} maps (shifts inside, on and beyond each band, a perspective "
+          f"map, {n_deg} with a degenerate row inside the image, a float64 map) at 480x640, "
+          f"37x53, 16x130, 1x33 and 9x7; WTA: {n_wta} calls at every D from 32 to 256, fp32 and "
+          f"bf16, 1 to 4 parts, 77 pixels with built rows (ties across lanes, plateaus, the "
+          f"ends, negative values, +-0): every one equal to its twin")
     print("  edge shapes (37x53x32, 16x128x256, 1x33x64; fp32 and bf16; scans of 1, 2, 3, "
           "7, 15, 17 and 33 rows (the ring holds 8) at every D from 32 to 256; sweeps of 9x31, 8x30, 7x29, "
           "17x61 and 25x91 pixels at D 96, 64, 160, 224 and 32; "
@@ -734,20 +862,22 @@ def profile_slice(device):
 
     wall, rows = profile_frame(frame)
     total = sum(r[1] for r in rows)
-    ours = sum(r[1] for r in rows if any(k in r[0] for k in (
-        "warp_rows_kernel", "warp_cols_kernel", "plane_sweep_kernel",
-        "sgm_scan_kernel", "wta_kernel", "depth_filter_kernel")))
+    ours = sum(r[1] for r in rows if any(k in r[0] for k in KERNEL_ENTRIES))
     print(f"  profiled frame: wall {wall:.3f} ms (profiler on), device busy "
           f"{total:.3f} ms ({total / wall:.1%} of wall), the five kernels "
-          f"{ours:.3f} ms, {len(rows)} distinct device activities")
-    for name, ms, calls in rows[:14]:
-        print(f"    {ms:8.4f} ms  x{calls:<3d} {name[:110]}")
+          f"{ours:.3f} ms, {sum(r[2] for r in rows)} device activities "
+          f"({len(rows)} distinct)")
+    # the 14 largest, and the port's own kernels wherever they rank
+    for k, (name, ms, calls) in enumerate(rows):
+        if k < 14 or any(entry in name for entry in KERNEL_ENTRIES):
+            print(f"    {ms:8.4f} ms  x{calls:<3d} {name[:110]}")
 
 
 def dense_probe(device) -> None:
     """The dense frame's times, one line each: the wall time per
     fuse_measurement over 35 frames after 5 of warm-up, and three profiled
-    frames (device busy ms, wall with the profiler on, device ms by kernel).
+    frames (device busy ms, the number of device activities, wall with the
+    profiler on, device ms by kernel).
     Uses only what every revision of the package has."""
     import cvids_tpu_torch
     print(f"dense probe of {cvids_tpu_torch.__path__[0]}")
@@ -808,7 +938,7 @@ def gumbel_check(device, n_draws=40, n=160) -> None:
     rng = np.random.default_rng(3)
     err, diff_rows = 0.0, 0
     for k in range(n_draws):
-        a = ransac.gumbel_noise(128, n, g_cpu)
+        a = ransac.gumbel_noise(128, n, g_cpu, device="cpu")
         b = ransac.gumbel_noise(128, n, g_dev, device=device)
         err = max(err, (b.cpu() - a).abs().max().item())
         valid = torch.from_numpy(rng.random(n) < (k + 1) / n_draws)

@@ -43,9 +43,12 @@ The package imports ``torch`` and never ``jax``, nor any module of
 
 Entry points that own device state (``CollaborativeServer``,
 ``CollaborativePoseGraph``, ``TsdfVolume``, ``SparseBowDatabase``,
-``train_vocabulary``) run on the card unless the caller names a device:
-``device=None`` means `default_device()`, which raises where there is no
-card rather than falling back to the CPU. Pass ``device="cpu"`` to run the
+``train_vocabulary``) and the helpers that make tensors from nothing or
+from host data (``ops.depth_filter.init_state``,
+``ops.hamming.descriptors_to_torch``, ``ops.ransac.gumbel_noise``) run on
+the card unless the caller names a device: ``device=None`` means
+`default_device()`, which raises where there is no card rather than falling
+back to the CPU. Pass ``device="cpu"`` to run the
 PyTorch twins on the host, as the CPU tests do.
 """
 

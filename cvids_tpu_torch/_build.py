@@ -44,12 +44,13 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p, ints as c_int,
 # floats as c_float; each returns a cudaError_t as int
 SIGNATURES = {
-    "cvids_warp_banded": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cvids_warp_banded": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cvids_plane_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cvids_plane_sweep_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     "cvids_sgm_scan_bidir": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cvids_sgm_scan_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     "cvids_wta": [_P, _P, _P, _P, _I, _P, _P, ctypes.c_long, _I, _I, _F, _P],
+    "cvids_wta_plan": [ctypes.c_long, _I, _I, ctypes.POINTER(_I)],
     "cvids_hamming": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _F, _P, _F, _F, _F,
                            _P, _P, _P, _P, ctypes.c_long, _P],

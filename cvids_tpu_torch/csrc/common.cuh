@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: element loads and stores for the
-// two volume types (fp32 and bf16, both computed in fp32), their 16-byte
-// vectors, and warp reductions.
+// two volume types (fp32 and bf16, both computed in fp32) and their 16-byte
+// vectors.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,15 +68,3 @@ struct Vec16<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
 };
-
-__device__ __forceinline__ float cvids_warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(CVIDS_FULL_MASK, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int cvids_warp_min_int(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(CVIDS_FULL_MASK, v, o));
-  return v;
-}

@@ -3,8 +3,8 @@ of ``cvids_tpu/ops/pallas_kernels.py``).
 
 Each kernel has a wrapper and a twin with the same contract:
 
-- `projective_warp_banded` — banded two-pass alignment warp
-  (``csrc/warp_banded.cu``);
+- `projective_warp_banded` — banded two-pass alignment warp, one kernel
+  that computes its own sample positions (``csrc/warp_banded.cu``);
 - `plane_sweep` — per-depth AD cost with the 3x3 box, written as an
   (H, W, D) volume with the -1 sentinel (``csrc/plane_sweep.cu``);
 - `sgm_scan_bidir` — forward + backward SGM scan along axis 0 or 1 of a
@@ -23,14 +23,14 @@ through. Callers reach the wrappers as attributes of this module
 (``cuda_kernels.plane_sweep(...)``).
 
 The volume kernels need D a multiple of 32 with D <= 256; the twins take any
-D. The scan's and the sweep's launches (lane groups, ring depth, tile, grid,
-dynamic shared memory) are decided in their ``.cu`` files; `sgm_scan_plan`
-and `plane_sweep_plan` restate them as pure functions, and
-`compiled_sgm_scan_plan` and `compiled_plane_sweep_plan` read them from the
-built library. `kernel_work` gives the bytes and operations a call must at
-least move and do, for a roofline bound. Descriptors are (N, 8) int32
-tensors: the uint32 words of the packets, viewed as int32 (XOR and popcount
-ignore the sign).
+D. The scan's, the sweep's and the WTA's launches (lane groups, ring depth,
+tile, grid, dynamic shared memory) are decided in their ``.cu`` files;
+`sgm_scan_plan`, `plane_sweep_plan` and `wta_plan` restate them as pure
+functions, and `compiled_sgm_scan_plan`, `compiled_plane_sweep_plan` and
+`compiled_wta_plan` read them from the built library. `kernel_work` gives
+the bytes and operations a call must at least move and do, for a roofline
+bound. Descriptors are (N, 8) int32 tensors: the uint32 words of the
+packets, viewed as int32 (XOR and popcount ignore the sign).
 """
 
 from __future__ import annotations
@@ -47,9 +47,10 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "projective_warp_banded_twin", "plane_sweep_twin",
            "sgm_scan_bidir_twin", "wta_twin", "hamming_matrix_twin",
            "depth_filter_update_twin", "popcount32", "launches",
-           "reset_launches", "sgm_scan_plan", "plane_sweep_plan",
-           "compiled_sgm_scan_plan", "compiled_plane_sweep_plan", "kernel_work",
-           "SgmScanPlan", "PlaneSweepPlan", "MAX_DYNAMIC_SMEM"]
+           "reset_launches", "sgm_scan_plan", "plane_sweep_plan", "wta_plan",
+           "compiled_sgm_scan_plan", "compiled_plane_sweep_plan",
+           "compiled_wta_plan", "kernel_work", "SgmScanPlan", "PlaneSweepPlan",
+           "WtaPlan", "MAX_DYNAMIC_SMEM"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
             "hamming_matrix": 0, "depth_filter_update": 0}
@@ -159,22 +160,24 @@ def projective_warp_banded(img: torch.Tensor, m: torch.Tensor,
     each (H, W) fp32 — wherever the per-pass shifts stay within
     (band_x, band_y); larger shifts yield coverage 0.
 
-    img: (H, W) fp32; m: (3, 3) with [x_in, y_in, 1] ~ m @ [u, v, 1]."""
+    img: (H, W) fp32; m: (3, 3), contiguous, with [x_in, y_in, 1] ~ m @
+    [u, v, 1]. On the card this is one kernel launch: the positions of
+    `ops.image.warp_pass_positions` are computed in the kernel from `m`,
+    which stays on the device."""
     if not _on_cuda(img, m):
         return projective_warp_banded_twin(img, m, band_x, band_y)
-    if img.ndim != 2 or m.shape != (3, 3):
-        raise ValueError(f"img must be (H, W) and m (3, 3), got "
-                         f"{tuple(img.shape)} and {tuple(m.shape)}")
+    if img.ndim != 2:
+        raise ValueError(f"img must be (H, W), got {tuple(img.shape)}")
     h, w = img.shape
     _require(img, "img", (h, w), (torch.float32,))
-    g, y_in = warp_pass_positions(m, h, w)     # (H, W) fp32, contiguous
-    tmp = torch.empty_like(img)
-    cov1 = torch.empty_like(img)
+    m32 = m.to(torch.float32)       # as the twin rounds it; the kernel reads it on the device
+    _require(m32, "m", (3, 3), (torch.float32,))
     out = torch.empty_like(img)
     cov = torch.empty_like(img)
+    if h * w == 0:
+        return out, cov
     _launch("warp_banded", "cvids_warp_banded", img.device,
-            img.data_ptr(), g.data_ptr(), y_in.data_ptr(), tmp.data_ptr(),
-            cov1.data_ptr(), out.data_ptr(), cov.data_ptr(),
+            img.data_ptr(), m32.data_ptr(), out.data_ptr(), cov.data_ptr(),
             h, w, int(band_x), int(band_y))
     return out, cov
 
@@ -482,6 +485,47 @@ def wta_twin(*vols: torch.Tensor, peak_ratio: float = 0.98):
     return idx_f, conf
 
 
+class WtaPlan(NamedTuple):
+    """The WTA kernel's launch: `group` lanes own one pixel and load
+    `vectors` 16-byte vectors each per part; a block of `threads` works on
+    `pixels_per_block` pixels."""
+    group: int
+    vectors: int
+    threads: int
+    pixels_per_block: int
+    grid: int
+
+
+def wta_plan(npix: int, d: int, dtype: torch.dtype) -> WtaPlan:
+    """Lane groups and grid of one `wta` launch over `npix` pixels of depth
+    `d`, as ``csrc/wta.cu`` compiles them, restated here so that they can be
+    held to the card's limits without the card. The kernel owns the values:
+    the wrapper passes it none of them, and `compiled_wta_plan` reads the
+    built library's own for comparison.
+
+    A D-row of one part is d * itemsize / 16 vectors of 16 bytes; the group
+    is the smallest power of two, from 4 to 32, whose lanes cover the row
+    with at most 2 vectors each (32 lanes take what is left: 2 each at 256
+    fp32 depths). Where the vectors do not fill the group's slots (12, 20,
+    24, 28 ... vectors), the last slots load nothing."""
+    _require_depths(d)
+    if dtype not in _VOLUME_DTYPES:
+        raise ValueError(f"dtype {dtype} not in {_VOLUME_DTYPES}")
+    n_vec = d * (2 if dtype == torch.bfloat16 else 4) // 16
+    group = 4
+    while 2 * group < n_vec and group < 32:
+        group *= 2
+    threads = 256
+    pixels = threads // group
+    return WtaPlan(group, -(-n_vec // group), threads, pixels, -(-npix // pixels))
+
+
+def compiled_wta_plan(npix: int, d: int, dtype: torch.dtype) -> WtaPlan:
+    """`wta_plan` as the built library reports it."""
+    return WtaPlan(*_compiled_plan("cvids_wta_plan", 5, npix, d,
+                                   int(dtype == torch.bfloat16)))
+
+
 def wta(*vols: torch.Tensor, peak_ratio: float = 0.98):
     """WTA over the summed volume `sum(vols)` (1 to 4 (H, W, D) volumes,
     summed in fp32 in the kernel, never in memory). Returns (idx_f (H, W)
@@ -504,6 +548,11 @@ def wta(*vols: torch.Tensor, peak_ratio: float = 0.98):
     dev = vols[0].device
     idx_f = torch.empty((h, w), dtype=torch.float32, device=dev)
     conf = torch.empty((h, w), dtype=torch.bool, device=dev)
+    # every row start is a multiple of d * itemsize >= 64 bytes from the base
+    for i, v in enumerate(vols):
+        _require_aligned(v, f"vols[{i}]")
+    if h * w == 0:
+        return idx_f, conf
     ptrs = [v.data_ptr() for v in vols] + [0] * (4 - len(vols))
     _launch("wta", "cvids_wta", dev, *ptrs, len(vols), idx_f.data_ptr(),
             conf.data_ptr(), h * w, d, int(vols[0].dtype == torch.bfloat16),

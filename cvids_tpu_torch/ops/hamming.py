@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import cuda_kernels
 
 __all__ = ["hamming_distance_matrix", "match_descriptors", "MatchResult",
@@ -34,9 +35,10 @@ class MatchResult(NamedTuple):
 
 
 def descriptors_to_torch(desc: np.ndarray, device=None) -> torch.Tensor:
-    """(..., 8) uint32 numpy descriptors -> int32 tensor of the same bits."""
+    """(..., 8) uint32 numpy descriptors -> int32 tensor of the same bits on
+    `device` (None: the card, `cvids_tpu_torch.default_device()`)."""
     words = np.ascontiguousarray(desc, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(words.copy()).to(device)
+    return torch.from_numpy(words.copy()).to(resolve_device(device))
 
 
 def hamming_distance_matrix(a: torch.Tensor, b: torch.Tensor,

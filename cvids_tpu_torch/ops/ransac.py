@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..geometry import matrix_to_quat, quat_to_matrix, so3_exp, so3_hat
 
 __all__ = ["pnp_ransac", "fundamental_ransac", "refine_pose_gn", "PnPResult",
@@ -47,14 +48,16 @@ class FResult(NamedTuple):
 
 def gumbel_noise(num_hyp: int, n: int, generator: torch.Generator,
                  device=None) -> torch.Tensor:
-    """(num_hyp, n) float32 standard Gumbel noise on `device`: the uniforms
+    """(num_hyp, n) float32 standard Gumbel noise on `device` (None: the
+    card, `cvids_tpu_torch.default_device()`): the uniforms
     come from the CPU `generator` (the same uniforms whatever the device)
     and cross to the device through pinned memory; the two logs run there.
     The CPU's and the card's `log` need not round alike, so the noise agrees
     across devices only to an ulp or so; `chip_smoke.py` checks that the
     hypotheses it picks are the same."""
+    device = resolve_device(device)
     u = torch.rand((num_hyp, n), generator=generator, dtype=torch.float32)
-    if torch.device(device or "cpu").type == "cuda":
+    if device.type == "cuda":
         u = u.pin_memory().to(device, non_blocking=True)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))

@@ -61,6 +61,56 @@ def test_warp_banded_twin_matches_pallas(rng, kind):
         np.testing.assert_array_equal(_np(a_t), np.asarray(a_p))
 
 
+# power-of-two entries, so that every product in the positions is exact and
+# fused multiply-adds inside jit cannot move them: the pass-1 inversion
+# degenerates at row 16 (m11 - 16 m21 = 0), and y_in = 16 + 16 / v keeps
+# rows 9 to 25 within band_y = 8 of it
+_DEGENERATE_ROW = np.array([[1, 0, 0.25], [0, 1, 1], [0, 1.0 / 16, 0]], np.float32)
+# y_in = 16 (v + 16) / (v + 16): every output row samples the degenerate row
+_DEGENERATE_ROW_SAMPLED = np.array([[1, 0, 0.25], [0, 1, 16], [0, 1.0 / 16, 1]], np.float32)
+
+
+def _perspective(h, w):
+    """A homography with m20 and m21 well away from 0 (a camera turned about
+    all three axes), shifts within the bands of 8."""
+    k = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]])
+    a, b, c = 0.04, -0.05, 0.02
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+    rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0], [0, 0, 1]])
+    return (k @ rz @ rx @ ry @ np.linalg.inv(k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["degenerate_row", "degenerate_row_sampled", "perspective"])
+def test_warp_banded_twin_matches_pallas_maps(rng, kind):
+    """The maps the fused CUDA kernel computes its positions for: a row
+    inside the image where the pass-1 inversion degenerates (g = -1e9, no
+    coverage from it, its neighbours covered), a map that samples only that
+    row, and a perspective map."""
+    h, w = 32, 128
+    img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    m = {"degenerate_row": _DEGENERATE_ROW, "degenerate_row_sampled": _DEGENERATE_ROW_SAMPLED,
+         "perspective": _perspective(h, w)}[kind]
+    a_p, c_p = pk.projective_warp_banded(jnp.asarray(img), jnp.asarray(m),
+                                         band_x=8, band_y=8, interpret=True)
+    a_t, c_t = ck.projective_warp_banded_twin(_t(img), _t(m), band_x=8, band_y=8)
+    # the tolerances of test_warp_banded_twin_matches_pallas
+    np.testing.assert_allclose(_np(c_t), np.asarray(c_p), atol=1e-5)
+    np.testing.assert_allclose(_np(a_t), np.asarray(a_p), atol=1e-2)
+    covered = _np(c_t) > 0.5
+    if kind == "degenerate_row":
+        den = m[1, 1] - np.arange(h, dtype=np.float32) * m[2, 1]
+        assert (np.abs(den) < 1e-3).nonzero()[0].tolist() == [16]
+        # v = 16 samples row 17 alone; v = 32 would sample the degenerate row
+        assert covered[16].all() and not covered[:8].any() and not covered[26:].any()
+    elif kind == "degenerate_row_sampled":
+        # without g = -1e9 on row 16, rows 8 to 24 would be fully covered
+        assert (_np(c_t) == 0).all() and (np.asarray(c_p) == 0).all()
+    else:
+        assert abs(m[2, 0]) > 5e-4 and abs(m[2, 1]) > 5e-4
+        assert covered.mean() > 0.7
+
+
 def test_warp_banded_twin_band_edge(rng):
     """Shifts beyond the band lose coverage in both; inside it, the banded
     warp equals the exact warp with fp32 weights."""
@@ -205,6 +255,56 @@ def test_wta_twin_matches_pallas(rng, n_parts, dtype):
     assert _np(i_t)[0, 0] == 0.0
 
 
+def _built_wta_rows(d):
+    """Rows that decide what the CUDA kernel's lane groups must get right,
+    as {name: (row of part 0, expected first-minimum index)}; the other
+    parts are constant."""
+    base = np.linspace(10.0, 40.0, d).astype(np.float32)
+    rows = {}
+    for name, at in (("tie_15_16", (15, 16)), ("tie_31_32", (31, 32)),
+                     ("tie_far", (100, 7)), ("first", (0,)), ("last", (d - 1,))):
+        r = base.copy()
+        r[list(at)] = -80.0
+        rows[name] = (r, min(at))
+    rows["plateau"] = (np.full(d, 3.0, np.float32), 0)
+    r = -base
+    r[40:72] = -90.0                                  # a plateau across lanes
+    rows["negative_plateau"] = (r, 40)
+    r = np.full(d, 0.0, np.float32)
+    r[5] = -0.0                                        # -0 == +0: index 0 wins
+    rows["signed_zero"] = (r, 0)
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_parts", [1, 3])
+def test_wta_twin_matches_pallas_built(n_parts, dtype):
+    """Built rows (ties across the positions where the CUDA kernel's lanes
+    and vectors meet, plateaus, the ends, negative values, signed zeros):
+    the twin equals the Pallas kernel exactly. Every multiplication of the
+    parabola is by a power of two, so fused multiply-adds cannot move it."""
+    d = 128
+    rows = _built_wta_rows(d)
+    h, w = 8, 16
+    parts = [np.full((h, w, d), 1.5 * k, np.float32) for k in range(n_parts)]
+    parts[0][:] = np.linspace(20.0, 30.0, d, dtype=np.float32)
+    for i, (row, _) in enumerate(rows.values()):
+        parts[0][i // w, i % w] = row
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    pj = [jnp.asarray(p, jdt) for p in parts]
+    i_p, c_p = pk.wta_pallas(*pj, interpret=True)
+    pt = [_t(np.asarray(p.astype(jnp.float32))).to(tdt) for p in pj]
+    i_t, c_t = ck.wta_twin(*pt)
+    np.testing.assert_array_equal(_np(i_t), np.asarray(i_p))
+    np.testing.assert_array_equal(_np(c_t), np.asarray(c_p))
+    # the parabola moves a discrete minimum by at most half a step (two
+    # adjacent tied minima give first + 0.5 whichever of them is taken; the
+    # far tie and the plateaus tell the first from a later one)
+    for i, (name, (_, first)) in enumerate(rows.items()):
+        assert abs(_np(i_t)[i // w, i % w] - first) <= 0.5, name
+
+
 def test_cpu_dispatch_routes_to_twins(rng):
     ck.reset_launches()
     h, w, d = 8, 16, 32
@@ -229,7 +329,7 @@ def test_cpu_dispatch_routes_to_twins(rng):
     a = _t(rng.integers(0, 2 ** 32, (5, 8), dtype=np.uint32).view(np.int32))
     np.testing.assert_array_equal(_np(ck.hamming_matrix(a, a[:3])),
                                   _np(ck.hamming_matrix_twin(a, a[:3])))
-    st = tdf.init_state(h, w)
+    st = tdf.init_state(h, w, device="cpu")
     x = torch.full((h, w), 0.4)
     valid = torch.ones((h, w), dtype=torch.bool)
     for o, r in zip(ck.depth_filter_update(st, x, 0.01, valid),
@@ -396,6 +496,41 @@ def test_plane_sweep_plan(h, w, d):
     # every output chunk (8 depths) starts 16-byte aligned in both dtypes
     for itemsize in (2, 4):
         assert (d * itemsize) % 16 == 0 and (8 * itemsize) % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_wta_plan(d, dtype):
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    n_vec = d * itemsize // 16
+    for npix in (1, 3, 31, 33, 37 * 53, 480 * 640, 481 * 641):
+        plan = ck.wta_plan(npix, d, dtype)
+        # aligned power-of-two groups inside a warp, whole pixels per warp
+        assert plan.group in (4, 8, 16, 32) and 32 % plan.group == 0
+        # whole 16-byte vectors per lane, 1 or 2 a part; the group's slots
+        # cover the D-row, and no lane is without a vector
+        assert plan.vectors in (1, 2)
+        assert plan.group * plan.vectors >= n_vec > plan.group * (plan.vectors - 1)
+        # the smallest such group: half of it would need more than 2 vectors
+        assert plan.group == 4 or plan.group // 2 * 2 < n_vec
+        # whole warps, whole groups, within a block's limit
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.pixels_per_block * plan.group == plan.threads
+        # the grid covers every pixel and no block is empty
+        assert plan.grid * plan.pixels_per_block >= npix > (plan.grid - 1) * plan.pixels_per_block
+        assert plan.grid <= 2 ** 31 - 1
+        # every row start is 16-byte aligned from an aligned base
+        assert (d * itemsize) % 16 == 0
+    # the main path: 8 lanes a pixel, 2 vectors (16 bf16) a lane and part
+    if d == 128 and dtype == torch.bfloat16:
+        assert plan[:4] == (8, 2, 256, 32)
+
+
+def test_wta_plan_rejects():
+    with pytest.raises(ValueError):
+        ck.wta_plan(8, 48, torch.float32)
+    with pytest.raises(ValueError):
+        ck.wta_plan(8, 64, torch.float16)
 
 
 # hand-computed at 640x480x128 bf16 (and 160x512 Hamming with both masks):

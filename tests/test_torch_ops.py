@@ -416,8 +416,10 @@ def test_pipeline_port_runs_without_jax(tmp_path):
 
 def _device_owners():
     """(name, constructor taking a device) for every entry point of the port
-    that owns device state."""
+    that owns device state, and every helper that makes tensors from nothing
+    or from host data."""
     from cvids_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
+    from cvids_tpu_torch.ops import depth_filter, hamming, ransac
     from cvids_tpu_torch.server import pipeline, posegraph, vocab
 
     tree = vocab.synthesize_tree_vocabulary(k=4, levels=2)
@@ -431,14 +433,21 @@ def _device_owners():
         "TsdfVolume": lambda **kw: TsdfVolume(TsdfConfig(capacity=8), **kw),
         "SparseBowDatabase": lambda **kw: vocab.SparseBowDatabase(tree, capacity=8, **kw),
         "train_vocabulary": lambda **kw: vocab.train_vocabulary(descs, k=2, levels=2, **kw),
+        "init_state": lambda **kw: depth_filter.init_state(4, 6, **kw),
+        "descriptors_to_torch": lambda **kw: hamming.descriptors_to_torch(descs, **kw),
+        "gumbel_noise": lambda **kw: ransac.gumbel_noise(
+            8, 16, torch.Generator().manual_seed(0), **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["default_device", "CollaborativeServer",
                                   "CollaborativePoseGraph", "TsdfVolume",
-                                  "SparseBowDatabase", "train_vocabulary"])
+                                  "SparseBowDatabase", "train_vocabulary",
+                                  "init_state", "descriptors_to_torch",
+                                  "gumbel_noise"])
 def test_default_device_is_the_card(name, monkeypatch):
-    """With no device given, every entry point that owns device state asks
+    """With no device given, every entry point that owns device state, and
+    every helper that makes tensors from nothing or from host data, asks
     for the card: without one it raises and names the remedy (no silent
     CPU); with device="cpu" it builds, on the CPU."""
     import cvids_tpu_torch
@@ -457,7 +466,10 @@ def test_default_device_is_the_card(name, monkeypatch):
              "CollaborativePoseGraph": lambda o: o.db.ids.device,
              "TsdfVolume": lambda o: o.pool.sdf.device,
              "SparseBowDatabase": lambda o: o.ids.device,
-             "train_vocabulary": lambda o: o.weights.device}[name](obj)
+             "train_vocabulary": lambda o: o.weights.device,
+             "init_state": lambda o: o.mu.device,
+             "descriptors_to_torch": lambda o: o.device,
+             "gumbel_noise": lambda o: o.device}[name](obj)
     assert where == torch.device("cpu")
     if hasattr(obj, "close"):
         obj.close()

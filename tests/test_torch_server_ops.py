@@ -48,7 +48,7 @@ def _desc(rng, n):
 
 
 def _td(desc):
-    return tham.descriptors_to_torch(desc)
+    return tham.descriptors_to_torch(desc, device="cpu")
 
 
 # ---------- geometry ----------
