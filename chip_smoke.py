@@ -1,8 +1,9 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the six CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
 hamming_matrix), holds each against its PyTorch twin on the card at its
-path's shapes, then drives the port's three paths at full width and checks
-that every kernel of each path ran:
+path's shapes (beside the launch floor: an empty kernel through the same
+launch path, timed the same way), then drives the port's paths at full width
+and checks that every kernel of each path ran:
 
 - phase 4, the server step of `__graft_entry__.entry()`: dense fusion at
   640x480x128 in bf16 (warp, sweep, SGM, WTA, filter kernels), then the
@@ -17,7 +18,13 @@ that every kernel of each path ran:
   `CollaborativeServer` (pose graph, per-client dense depth at 640x480x128
   bf16, TSDF fusion at 0.1 m with carving, the mesh), scored against the
   rendered depth and the analytic scene; then a short stream through the
-  kernels and through the twins.
+  kernels and through the twins;
+- phase 7, distorted clients: the remap grids that `set_client_camera`
+  builds for a radtan pinhole, an equidistant fisheye and a Mei camera (equal
+  to the CPU's; an image rendered through the distorted camera and remapped
+  equals the undistorted pinhole's rendering), then a radtan and a fisheye
+  agent, images rendered through their cameras and features lifted by the
+  port's `lift`, through the same whole server to phase 6's bounds.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
@@ -44,10 +51,12 @@ initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
 /usr/local/cuda/bin). Imports neither JAX nor any module of `cvids_tpu`,
 and checks so at the end. Exits non-zero on any failed phase. The line before
 the last is the kernel table as JSON (per kernel: launches on the whole
-server's run, launches per dense frame or, for the Hamming kernel, per
-keyframe, max abs err against the twin, kernel and twin ms, the roofline
-bound of the same call from `cuda_kernels.kernel_work` and the H100's
-published peaks, and the share of it reached); the last line is
+server's run and on the distorted clients' run, launches per dense frame or,
+for the Hamming kernel, per keyframe, max abs err against the twin, kernel
+and twin ms, the roofline bound of the same call from
+`cuda_kernels.kernel_work` and the H100's published peaks, the launch floor,
+the share of the bound reached and the reach, max(bound, floor) / time); the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -109,6 +118,7 @@ FILTER_MAX_ULP = 2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -140,7 +150,7 @@ def time_ms(fn, runs: int) -> float:
 # revisions before the fused warp, which `--package` may point at
 KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
                   "plane_sweep_kernel", "sgm_scan_kernel", "wta_kernel",
-                  "depth_filter_kernel", "hamming_kernel")
+                  "depth_filter_kernel", "hamming_kernel", "empty_kernel")
 
 
 def print_ptxas_summary(log: str) -> None:
@@ -182,6 +192,41 @@ def profile_frame(fn) -> tuple[float, list[tuple[str, float, int]]]:
     rows = [(e.key, _self_device_us(e) / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0]
     return wall, sorted(rows, key=lambda r: -r[1])
+
+
+def profiled_kernel_ms(fn, entry: str) -> float:
+    """Device ms of the one device activity, named after `entry`, of one
+    profiled call of fn() (the kernel's own time, without the launch latency
+    that a pair of CUDA events around one small kernel includes). fn() has
+    run once before, so its kernel is loaded; the first profile of a process
+    may start late and come back empty, so the second one that shows device
+    work is read. A call that shows other device work, the kernel twice, or
+    nothing in eight profiles fails."""
+    fn()
+    acts = []
+    for attempt in range(8):
+        _, acts = profile_frame(fn)
+        if acts and attempt >= 1:
+            break
+    check(len(acts) == 1 and acts[0][2] == 1 and entry in acts[0][0],
+          f"{entry}: a call's device activities are {[(a[0], a[2]) for a in acts]}, "
+          f"not one {entry}")
+    return acts[0][1]
+
+
+def host_us_per_launch(fn, n: int = 20_000) -> float:
+    """Host microseconds that one fn() takes to enqueue, over `n` calls on an
+    idle stream (the device keeps up with an empty kernel, so this is the
+    launch path's host cost and not a full queue's back-pressure)."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def check(cond: bool, what: str) -> None:
@@ -244,24 +289,55 @@ def banded_gate(a_mat: np.ndarray, h: int, w: int) -> bool:
 
 def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     """Run each kernel and its twin on the same inputs at the main path's
-    shapes; returns {name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)},
-    the bound being the roofline of the timed call (the SGM row: one
-    frame's two launches)."""
+    shapes; returns ({name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)},
+    extras), the bound being the roofline of the timed call (the SGM row:
+    one frame's two launches). extras holds `floor_ms`, the launch floor (the
+    library's empty kernel timed as the others are), `launch_host_us` (the
+    host's cost of one launch through the wrappers' launch function),
+    `profiler_ms` (the device time of the small kernels under the profiler)
+    and `hamming_2048` (the Hamming kernel where its store is the bound)."""
     from cvids_tpu_torch.ops import costvolume, cuda_kernels as ck
     from cvids_tpu_torch.ops.image import projective_warp_mxu
 
     dev = torch.device(device)
     timed = dev.type == "cuda"
     out = {}
+    extras = {"floor_ms": 0.0, "launch_host_us": float("nan"), "profiler_ms": {}}
+    if timed:
+        # the yardstick first: an empty kernel through the same launch path,
+        # the same events, the same median
+        extras["floor_ms"] = time_ms(lambda: ck.empty_launch(dev), runs)
+        extras["launch_host_us"] = host_us_per_launch(lambda: ck.empty_launch(dev),
+                                                      20_000 if runs > 1 else 500)
     ref, meas, a_mat, b_vec, k = textured_plane(rng, h, w)
     ref_t = torch.from_numpy(ref).to(dev)
     meas_t = torch.from_numpy(meas).to(dev)
+    m_rot = torch.from_numpy(rotation_homography(k, 0.05)).to(dev)
+    st, x, valid = filter_inputs(rng, dev, h, w)
+    ha, hb, hav, hbv = hamming_inputs(rng, dev, 160, 512)
+    ha2, hb2, _, _ = hamming_inputs(rng, dev, 2048, 2048)
+    if timed:
+        # the kernels of microseconds under the profiler, before the volume
+        # kernels and the twins run: each call must be one kernel launch and
+        # nothing else (no position math, no cast of the fp32 map, no memset)
+        extras["profiler_ms"] = {
+            key: profiled_kernel_ms(fn, entry) for key, entry, fn in (
+                ("empty", "empty_kernel", lambda: ck.empty_launch(dev)),
+                ("warp_banded", "warp_banded_kernel",
+                 lambda: ck.projective_warp_banded(meas_t, m_rot, 96, 48)),
+                ("depth_filter_update", "depth_filter_kernel",
+                 lambda: ck.depth_filter_update(st, x, 0.013, valid)),
+                ("hamming_matrix", "hamming_kernel", lambda: ck.hamming_matrix(ha, hb, hav, hbv)),
+                ("hamming_2048", "hamming_kernel", lambda: ck.hamming_matrix(ha2, hb2)))}
+        print(f"  launch floor: an empty kernel through cuda_kernels._launch {extras['floor_ms']:.4f} "
+              f"ms between CUDA events (median of {runs}), "
+              f"{extras['profiler_ms']['empty']:.4f} ms under the profiler; the host "
+              f"spends {extras['launch_host_us']:.2f} us a launch; one device activity a call "
+              f"of the warp, the filter and the Hamming kernel")
 
     # --- banded warp at phase 4's map and a small rotation, bands 96/48
     err = 0.0
-    m_rot = None
-    for name, m in (("phase 4's map", a_mat), ("rotation", rotation_homography(k, 0.05))):
-        m_t = torch.from_numpy(m).to(dev)
+    for name, m_t in (("phase 4's map", torch.from_numpy(a_mat).to(dev)), ("rotation", m_rot)):
         a1, c1 = ck.projective_warp_banded(meas_t, m_t, 96, 48)
         a2, c2 = ck.projective_warp_banded_twin(meas_t, m_t, 96, 48)
         e_val = (a1 - a2).abs().max().item()
@@ -273,17 +349,6 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
         print(f"  warp_banded {name}: max|err| value {e_val:.3g} coverage {e_cov:.3g}"
               f" (tolerance: exact); covered {(c1 > 0.999).float().mean().item():.3f}")
         err = max(err, e_val, e_cov)
-        m_rot = m_t
-    if timed:
-        # a call is one kernel launch and no other device work: no position
-        # math, no cast of the fp32 map, no memset
-        for _ in range(2):      # the first profile of a process may start late
-            _, acts = profile_frame(lambda: ck.projective_warp_banded(meas_t, m_rot, 96, 48))
-        check(len(acts) == 1 and acts[0][2] == 1 and "warp_banded_kernel" in acts[0][0],
-              f"warp_banded: a call's device activities are {[(a[0], a[2]) for a in acts]}, "
-              f"not one warp_banded_kernel")
-        print(f"  warp_banded: one device activity per call ({acts[0][0][:60]}, "
-              f"{acts[0][1]:.4f} ms under the profiler)")
     ms = time_ms(lambda: ck.projective_warp_banded(meas_t, m_rot, 96, 48), runs) if timed else 0.0
     pms = time_ms(lambda: ck.projective_warp_banded_twin(meas_t, m_rot, 96, 48),
                   twin_runs) if timed else 0.0
@@ -352,7 +417,6 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     out["wta"] = (e, ms, pms, *roofline("wta", h=h, w=w, d=d, itemsize=2, parts=2))
 
     # --- depth filter at the dense path's (H, W), scalar tau2 as the estimator passes it
-    st, x, valid = filter_inputs(rng, dev, h, w)
     err = 0.0
     for tau2 in (0.013, torch.from_numpy(rng.uniform(1e-3, 0.05, (h, w)).astype(np.float32)).to(dev)):
         err = max(err, filter_agree(ck.depth_filter_update(st, x, tau2, valid),
@@ -363,34 +427,43 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     out["depth_filter_update"] = (err, ms, pms, *roofline("depth_filter_update", h=h, w=w))
 
     # --- Hamming at the loop verification's shape (160 window x 512 extra), masked
-    a, b, av, bv = hamming_inputs(rng, dev, 160, 512)
-    d1, d2 = ck.hamming_matrix(a, b, av, bv), ck.hamming_matrix_twin(a, b, av, bv)
+    d1, d2 = ck.hamming_matrix(ha, hb, hav, hbv), ck.hamming_matrix_twin(ha, hb, hav, hbv)
     e1 = (d1 - d2).abs().max().item()
     check(torch.equal(d1, d2), f"hamming_matrix 160x512: kernel != twin (max |err| {e1})")
-    ms = time_ms(lambda: ck.hamming_matrix(a, b, av, bv), runs) if timed else 0.0
-    pms = time_ms(lambda: ck.hamming_matrix_twin(a, b, av, bv), runs) if timed else 0.0
-    a2, b2, _, _ = hamming_inputs(rng, dev, 2048, 2048)
-    d1, d2 = ck.hamming_matrix(a2, b2), ck.hamming_matrix_twin(a2, b2)
+    ms = time_ms(lambda: ck.hamming_matrix(ha, hb, hav, hbv), runs) if timed else 0.0
+    pms = time_ms(lambda: ck.hamming_matrix_twin(ha, hb, hav, hbv), runs) if timed else 0.0
+    d1, d2 = ck.hamming_matrix(ha2, hb2), ck.hamming_matrix_twin(ha2, hb2)
     e2 = (d1 - d2).abs().max().item()
     check(torch.equal(d1, d2), f"hamming_matrix 2048x2048: kernel != twin (max |err| {e2})")
     out["hamming_matrix"] = (max(e1, e2), ms, pms, *roofline("hamming_matrix", n=160, m=512))
-    ms2 = time_ms(lambda: ck.hamming_matrix(a2, b2), runs) if timed else 0.0
-    pms2 = time_ms(lambda: ck.hamming_matrix_twin(a2, b2), twin_runs) if timed else 0.0
+    ms2 = time_ms(lambda: ck.hamming_matrix(ha2, hb2), runs) if timed else 0.0
+    pms2 = time_ms(lambda: ck.hamming_matrix_twin(ha2, hb2), twin_runs) if timed else 0.0
+    bound2, by2 = roofline("hamming_matrix", n=2048, m=2048, a_mask=False, b_mask=False)
+    extras["hamming_2048"] = {"max_abs_err": e2, "ms": ms2, "plain_ms": pms2,
+                              "bound_ms": bound2, "bound_by": by2}
     print(f"  hamming_matrix 160x512 masked and 2048x2048: max |err| {e1}, {e2} "
-          f"(tolerance: exact); 2048x2048 kernel {ms2:.4f} ms, twin {pms2:.4f} ms")
-    for name, (_, ms, pms, bound, by) in out.items():
+          f"(tolerance: exact)")
+    floor = extras["floor_ms"]
+    rows = list(out.items()) + [("hamming_matrix at 2048x2048",
+                                 (e2, ms2, pms2, bound2, by2))]
+    for name, (_, ms, pms, bound, by) in rows:
         share = f"{bound / ms:.1%}" if ms > 0 else "not measured"
-        print(f"  time {name}: kernel {ms:.4f} ms, twin {pms:.4f} ms; bound {bound:.4f} ms "
-              f"({by}; {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {PEAK_FP32_PER_S / 1e12:.0f} "
-              f"TFLOP/s fp32), share of bound {share}")
-    return out
+        reach = f"{max(bound, floor) / ms:.1%}" if ms > 0 else "not measured"
+        key = "hamming_2048" if "2048" in name else name
+        prof = extras["profiler_ms"].get(key)
+        prof_txt = "" if prof is None else f", {prof:.4f} ms under the profiler"
+        print(f"  time {name}: kernel {ms:.4f} ms{prof_txt}, twin {pms:.4f} ms; bound {bound:.4f} "
+              f"ms ({by}; {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {PEAK_FP32_PER_S / 1e12:.0f} "
+              f"TFLOP/s fp32), launch floor {floor:.4f} ms; share of bound {share}, of "
+              f"max(bound, floor) {reach}")
+    return out, extras
 
 
 def plan_checks() -> None:
-    """The scan's, the sweep's and the WTA's launch plans as Python restates
-    them (and the CPU tests hold to the card's limits) against what the built
-    library reports for the same shapes: every D and dtype, ragged line
-    counts, tiles and pixel counts."""
+    """The scan's, the sweep's, the WTA's and the Hamming kernel's launch
+    plans as Python restates them (and the CPU tests hold to the card's
+    limits) against what the built library reports for the same shapes:
+    every D and dtype, ragged line counts and tiles."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
 
     n = 0
@@ -410,6 +483,11 @@ def plan_checks() -> None:
                 check(want == got, f"wta plan at {h * w} pixels, D {d}, {dt}: Python {want}, "
                                    f"library {got}")
                 n += 1
+    for hn, hm in ((160, 512), (2048, 2048), (1, 1), (37, 129), (160, 1), (33, 4097),
+                   (1, 4097), (7, 100_000), (131, 128)):
+        want, got = ck.hamming_plan(hn, hm), ck.compiled_hamming_plan(hn, hm)
+        check(want == got, f"hamming plan at {hn}x{hm}: Python {want}, library {got}")
+        n += 1
     print(f"  launch plans: Python's equal the library's at {n} shapes")
 
 
@@ -423,7 +501,7 @@ def filter_inputs(rng, dev, h, w):
 
     st = FilterState(u(0.1, 1.5), u(1e-4, 0.5), u(5.0, 40.0), u(5.0, 40.0))
     x = u(0.05, 2.0)
-    x[0, :2] = torch.tensor([0.001, 500.0], device=dev)
+    x[0, :2] = torch.tensor([0.001, 500.0], device=dev)[:w]
     valid = torch.from_numpy(rng.random((h, w)) > 0.2).to(dev)
     return st, x, valid
 
@@ -469,9 +547,10 @@ def warp_edge_maps(h: int, w: int, band_x: int, band_y: int) -> dict[str, np.nda
     shifts just inside, on and just beyond each band, a perspective map (m20
     and m21 nonzero), a pitch that puts the degenerate row of the pass-1
     inversion (|m11 - r m21| < 1e-3) inside the image, a map with that row at
-    h // 2 whose neighbouring rows keep coverage, and one that sends every
+    h // 2 whose neighbouring rows keep coverage, one that sends every
     output row to it (y_in = h // 2 everywhere: only g = -1e9 on that row
-    keeps the coverage at 0)."""
+    keeps the coverage at 0), and maps with non-finite positions
+    (`nonfinite_warp_maps`)."""
     maps = {}
     for axis, band in ((0, band_x), (1, band_y)):
         for shift in (band - 0.5, band, band + 0.5, band + 1.5, -band + 0.25, -band, -band - 1.0):
@@ -489,6 +568,24 @@ def warp_edge_maps(h: int, w: int, band_x: int, band_y: int) -> dict[str, np.nda
             [[1, 0, 0.25], [0, 1, 1], [0, 1.0 / r0, 0]], np.float32)
         maps["degenerate row, sampled by every row"] = np.array(
             [[1, 0, 0.25], [0, 1, r0], [0, 1.0 / r0, 1]], np.float32)
+    maps.update(nonfinite_warp_maps())
+    return maps
+
+
+def nonfinite_warp_maps() -> dict[str, np.ndarray]:
+    """3x3 maps whose sample positions are not finite: the column-pass
+    position of row 0 is inf * 0 = NaN and that of every other row inf
+    (m11 = inf); the row-pass position of column 0 is NaN and that of every
+    other column inf (m00 = inf); every position NaN (m12 = NaN). A
+    non-finite position is inside no band: value 0 and coverage 0, from the
+    kernel and from the twin, and no index is made from it."""
+    maps = {}
+    for name, (i, j), value in (("non-finite: row 0 NaN, the others inf", (1, 1), np.inf),
+                                ("non-finite: column 0 NaN, the others inf", (0, 0), np.inf),
+                                ("non-finite: every position NaN", (1, 2), np.nan)):
+        m = np.eye(3, dtype=np.float32)
+        m[i, j] = value
+        maps[name] = m
     return maps
 
 
@@ -621,14 +718,27 @@ def edge_checks(device, rng) -> None:
             same(ck.plane_sweep(img, img.flip(1).contiguous(), *pos, out_dtype=dt),
                  ck.plane_sweep_twin(img, img.flip(1).contiguous(), *pos, out_dtype=dt),
                  f"sweep {h}x{w}x{d} {dt}")
-    for n, m in ((1, 1), (37, 129), (160, 1), (33, 4097)):
+    # the Hamming kernel: N and M off the tile (4 rows, 128 columns), one row,
+    # one column
+    for n, m in ((1, 1), (37, 129), (160, 1), (33, 4097), (131, 257), (3, 100),
+                 (267, 1000), (1057, 130)):
         a, b, av, bv = hamming_inputs(rng, dev, n, m)
         for masks in ((None, None), (av, None), (None, bv), (av, bv)):
             same(ck.hamming_matrix(a, b, *masks), ck.hamming_matrix_twin(a, b, *masks),
                  f"hamming {n}x{m}")
+        if n > 1 and m > 1:
+            # slices of whole descriptors start at a 32-byte offset
+            same(ck.hamming_matrix(a[1:], b[1:], av[1:], bv[1:]),
+                 ck.hamming_matrix_twin(a[1:], b[1:], av[1:], bv[1:]), f"hamming {n}x{m} sliced")
     empty = torch.zeros((0, 8), dtype=torch.int32, device=dev)
     check(ck.hamming_matrix(empty, b).shape == (0, b.shape[0]), "hamming with N == 0")
-    for h, w in ((37, 53), (1, 33), (481, 641)):
+    try:
+        ck.hamming_matrix(a.reshape(-1)[1:-7].view(-1, 8), b)
+        check(False, "hamming: descriptors off a 16-byte boundary were taken")
+    except ValueError:
+        pass
+    # the filter: pixel counts off the block's 256, one row, one pixel
+    for h, w in ((37, 53), (1, 33), (481, 641), (1, 1)):
         st, x, valid = filter_inputs(rng, dev, h, w)
         tau2_map = torch.from_numpy(rng.uniform(1e-3, 0.05, (h, w)).astype(np.float32)).to(dev)
         for tau2 in (0.02, tau2_map):
@@ -643,8 +753,9 @@ def edge_checks(device, rng) -> None:
     print("  edge shapes (37x53x32, 16x128x256, 1x33x64; fp32 and bf16; scans of 1, 2, 3, "
           "7, 15, 17 and 33 rows (the ring holds 8) at every D from 32 to 256; sweeps of 9x31, 8x30, 7x29, "
           "17x61 and 25x91 pixels at D 96, 64, 160, 224 and 32; "
-          "1/3/4 WTA parts; Hamming 1x1, 37x129, 160x1, 33x4097 with and without "
-          "masks; filter 37x53, 1x33, 481x641): every kernel agrees with its twin")
+          "1/3/4 WTA parts; Hamming 1x1, 37x129, 160x1, 33x4097, 131x257, 3x100, 267x1000 and "
+          "1057x130 with and without masks and as slices; filter 37x53, 1x33, 481x641 and "
+          "1x1): every kernel agrees with its twin")
 
 
 RED_ZONE = 1 << 16     # bytes of 0xFF on each side of a guarded tensor
@@ -726,7 +837,7 @@ def memory_checks(device, rng, repeats=3) -> int:
         tau2 = torch.from_numpy(rng.uniform(1e-3, 0.05, (h, w)).astype(np.float32)).to(dev)
         cases.append(("depth_filter_update", ck.depth_filter_update, (st, x, 0.013, valid)))
         cases.append(("depth_filter_update", ck.depth_filter_update, (st, x, tau2, valid)))
-    for n, m_ in ((160, 512), (37, 129), (1, 4097)):
+    for n, m_ in ((160, 512), (37, 129), (1, 4097), (131, 257), (267, 1000), (1057, 130)):
         a, b, av, bv = hamming_inputs(rng, dev, n, m_)
         cases.append(("hamming_matrix", ck.hamming_matrix, (a, b, av, bv)))
         cases.append(("hamming_matrix", ck.hamming_matrix, (a, b)))
@@ -1142,25 +1253,37 @@ def scene_distance(pts: np.ndarray) -> np.ndarray:
                                  np.abs(pts[:, 1] - sc["wall_y"])), d_box)
 
 
-def scene_stream(n_agents, n_kf, h=H, w=W, focal=FOCAL, n_landmarks=PIPE_LANDMARKS, seed=5):
+def scene_stream(n_agents, n_kf, h=H, w=W, focal=FOCAL, n_landmarks=PIPE_LANDMARKS, seed=5,
+                 cams=None):
     """Agents on arcs in front of `default_scene()`'s room, each camera
     looking at the box, keyframes at 1 Hz in time order. Each packet's image
     is rendered from the keyframe's ground-truth camera pose; its window and
     extra features are the landmarks (sampled on the scene's surfaces) that
     the camera sees unoccluded, up to 512, in normalized coordinates. Agent
     a's odometry frame is offset by yaw 0.4a and t (2a, -a, 0.1a); agent 0's
-    is the ground-truth frame. Returns (packets, {(agent, kf): true depth},
-    K)."""
+    is the ground-truth frame.
+
+    Without `cams` every agent carries the undistorted pinhole of (focal,
+    w / 2, h / 2). With `cams`, one of the port's cameras an agent (on any
+    device), the image is rendered through the agent's camera, distortion
+    and all, and the features are projected through it and lifted back by its
+    `lift`, as an agent would send them; the true depth is still the
+    undistorted pinhole's, which is what the server estimates after its
+    remap. Returns (packets, {(agent, kf): true depth}, K)."""
+    from cvids_tpu_torch import camera, interop
     from cvids_tpu_torch.io import multiagent, render
     from cvids_tpu_torch.io.msgs import KeyframePacket
     from cvids_tpu_torch.io.synthetic import quat_from_matrix_np
 
     rng = np.random.default_rng(seed)
-    cam = render.Pinhole(focal, focal, w / 2, h / 2, w, h)
-    k = cam.k_matrix.astype(np.float64)
+    pinhole = camera.PinholeCamera.create(focal, focal, w / 2, h / 2, width=w, height=h,
+                                          device="cpu")
+    k32 = pinhole.k_matrix.numpy()
+    k = k32.astype(np.float64)
+    # the renderer reads a camera's fields on the host, once a call
+    host_cams = [interop.camera_to_numpy(c) for c in cams] if cams else None
     landmarks = render.sample_scene_landmarks(n_landmarks, rng)
     descs = multiagent.landmark_descriptors(n_landmarks)
-    r_cb = multiagent.R_CB_DEFAULT.astype(np.float64)
     views = []
     for i in range(n_kf):
         for a in range(n_agents):
@@ -1171,24 +1294,39 @@ def scene_stream(n_agents, n_kf, h=H, w=W, focal=FOCAL, n_landmarks=PIPE_LANDMAR
             target = np.array([1.5 + 0.1 * a, 1.0, 0.5])
             views.append((a, i, look_at(eye, target), eye))
     with ThreadPoolExecutor(8) as ex:
-        images = list(ex.map(lambda v: render.render_textured_scene(cam, v[2], v[3]), views))
+        ideal = list(ex.map(lambda v: render.render_textured_scene(pinhole, v[2], v[3]), views))
+        images = ideal if cams is None else list(ex.map(
+            lambda v: render.render_textured_scene(host_cams[v[0]], v[2], v[3]), views))
     packets, truth = [], {}
-    for (a, i, r_wc, eye), (img, depth) in zip(views, images):
-        truth[(a, i)] = depth
+    for (a, i, r_wc, eye), (img, depth), (_, true_depth) in zip(views, images, ideal):
+        truth[(a, i)] = true_depth
         pts_c = (landmarks - eye) @ r_wc
         z = pts_c[:, 2]
-        px = pts_c @ k.T
-        u = np.round(px[:, 0] / np.maximum(z, 1e-9)).astype(np.int64)
-        v = np.round(px[:, 1] / np.maximum(z, 1e-9)).astype(np.int64)
+        if cams is None:
+            px = pts_c @ k.T
+            px = px[:, :2] / np.maximum(z, 1e-9)[:, None]
+        else:       # through the agent's camera, where the camera lives
+            dev = cams[a].cx.device
+            px_t = cams[a].project(torch.as_tensor(pts_c, dtype=torch.float32, device=dev))
+            # a point behind or beside the camera projects to no pixel (NaN,
+            # or a value beyond any image): outside, whatever its size
+            px = np.clip(np.nan_to_num(px_t.cpu().numpy().astype(np.float64), nan=-1.0),
+                         -1.0, 1e6)
+        u = np.round(px[:, 0]).astype(np.int64)
+        v = np.round(px[:, 1]).astype(np.int64)
         inside = (z > 0.5) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
         seen = np.zeros_like(inside)
         seen[inside] = np.abs(depth[v[inside], u[inside]] - z[inside]) < 0.05 * z[inside]
         idx = np.nonzero(seen)[0][:512]
-        uv = (pts_c[idx, :2] / z[idx, None]).astype(np.float32)
+        if cams is None:
+            uv = (pts_c[idx, :2] / z[idx, None]).astype(np.float32)
+        else:
+            uv = cams[a].lift(px_t[torch.as_tensor(idx, device=dev)]).cpu().numpy()
         yaw_off, t_off = 0.4 * a, np.array([2.0 * a, -1.0 * a, 0.1 * a])
         c, s = np.cos(-yaw_off), np.sin(-yaw_off)
         r_lw = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])   # world -> odometry
         ones = np.ones(len(idx), bool)
+        r_cb = multiagent.R_CB_DEFAULT.astype(np.float64)
         packets.append(KeyframePacket(
             client_id=a, timestamp=float(i), p_wb=(r_lw @ (eye - t_off)).astype(np.float32),
             q_wb=quat_from_matrix_np(r_lw @ r_wc @ r_cb).astype(np.float32),
@@ -1196,7 +1334,7 @@ def scene_stream(n_agents, n_kf, h=H, w=W, focal=FOCAL, n_landmarks=PIPE_LANDMAR
             win_pts3d=((landmarks[idx] - t_off) @ r_lw.T).astype(np.float32), win_uv=uv,
             win_ids=idx.astype(np.int64), win_desc=descs[idx], win_valid=ones,
             ext_uv=uv, ext_desc=descs[idx], ext_valid=ones.copy(), image=img))
-    return packets, truth, cam.k_matrix
+    return packets, truth, k32
 
 
 class IntegrateTimer:
@@ -1244,14 +1382,19 @@ class IntegrateTimer:
         self._restore()
 
 
-def pipeline_run(device, packets, vocabulary, k, cfg):
+def pipeline_run(device, packets, vocabulary, k, cfg, cams=None):
     """Streams the packets through CollaborativeServer; returns the server
-    (its worker stopped), per-keyframe host ms, and the integrate timer."""
+    (its worker stopped), per-keyframe host ms, and the integrate timer.
+    Every client gets the intrinsics `k`, or, with `cams` (a camera a
+    client), its camera through `set_client_camera`."""
     from cvids_tpu_torch.server.pipeline import CollaborativeServer
 
     server = CollaborativeServer(vocabulary, cfg, device=device)
     for cid in sorted({int(p.client_id) for p in packets}):
-        server.set_client_intrinsics(cid, k)
+        if cams is None:
+            server.set_client_intrinsics(cid, k)
+        else:
+            server.set_client_camera(cid, cams[cid])
     timer = IntegrateTimer(server.volume)
     kf_ms = []
     try:
@@ -1301,39 +1444,17 @@ def default_device_check(vocabulary) -> None:
           f"database and TSDF pool on {want}")
 
 
-def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, w=W,
-                   focal=FOCAL, dense=None, short_kf=SHORT_KF):
-    """Phase 6: the whole server at DenseConfig() and TsdfConfig() defaults
-    (640x480x128 bf16, 0.1 m voxels, carving), inline solves; then a short
-    stream through the kernels and through the twins. `dense` replaces
-    DenseConfig() for a smaller rehearsal on the CPU. Returns the main
-    run's launch counts."""
+def pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s, peak) -> dict:
+    """Prints a whole-server run's times and scores and holds it to the
+    bounds of phases 6 and 7: every client aligned, >= 4 depth maps an
+    agent, median inverse-depth RMS < 0.12 against the rendered truth, a mesh
+    of > 1000 triangles with median scene distance < 0.15 m, the TSDF pool on
+    the device, all six kernels launched. Returns the tracer's spans (host ms
+    per sample)."""
     import tempfile
 
-    from cvids_tpu_torch.dense.estimator import DenseConfig
     from cvids_tpu_torch.mapping.mesh import extract_mesh, read_ply
-    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
-    from cvids_tpu_torch.ops import cuda_kernels as ck
-    from cvids_tpu_torch.server.pipeline import PipelineConfig
-    from cvids_tpu_torch.server.posegraph import ServerConfig
 
-    dev = torch.device(device)
-    t0 = time.perf_counter()
-    packets, truth, k = scene_stream(n_agents, n_kf, h, w, focal)
-    cfg = PipelineConfig(server=ServerConfig(), dense=dense or DenseConfig(), tsdf=TsdfConfig())
-    print(f"phase 6 pipeline: {len(packets)} keyframes with {h}x{w} images from {n_agents} "
-          f"agents ({np.median([len(p.win_ids) for p in packets]):.0f} features median), "
-          f"rendered in {time.perf_counter() - t0:.1f} s; dense {cfg.dense.height}x"
-          f"{cfg.dense.width}x{cfg.dense.num_depths} {cfg.dense.dtype}")
-    if dev.type == "cuda":
-        default_device_check(vocabulary)
-        torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()
-    t0 = time.perf_counter()
-    server, kf_ms, timer = pipeline_run(dev, packets, vocabulary, k, cfg)
-    stream_s = time.perf_counter() - t0
-    counts = dict(ck.launches)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
     vol = server.volume
     with tempfile.TemporaryDirectory() as tmp:
         ply = f"{tmp}/scene.ply"
@@ -1378,6 +1499,40 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
           f"TSDF pool on {vol.pool.sdf.device}, not {dev}")
     check(all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS),
           f"a kernel did not run in the pipeline: {counts}")
+    return spans
+
+
+def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, w=W,
+                   focal=FOCAL, dense=None, short_kf=SHORT_KF):
+    """Phase 6: the whole server at DenseConfig() and TsdfConfig() defaults
+    (640x480x128 bf16, 0.1 m voxels, carving), inline solves; then a short
+    stream through the kernels and through the twins. `dense` replaces
+    DenseConfig() for a smaller rehearsal on the CPU. Returns the main
+    run's launch counts."""
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.server.pipeline import PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    packets, truth, k = scene_stream(n_agents, n_kf, h, w, focal)
+    cfg = PipelineConfig(server=ServerConfig(), dense=dense or DenseConfig(), tsdf=TsdfConfig())
+    print(f"phase 6 pipeline: {len(packets)} keyframes with {h}x{w} images from {n_agents} "
+          f"agents ({np.median([len(p.win_ids) for p in packets]):.0f} features median), "
+          f"rendered in {time.perf_counter() - t0:.1f} s; dense {cfg.dense.height}x"
+          f"{cfg.dense.width}x{cfg.dense.num_depths} {cfg.dense.dtype}")
+    if dev.type == "cuda":
+        default_device_check(vocabulary)
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    server, kf_ms, timer = pipeline_run(dev, packets, vocabulary, k, cfg)
+    stream_s = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s, peak)
 
     # the short stream, kernels against twins: the same maps and chunks
     short = [p for p in packets if p.client_id == 0][:short_kf]
@@ -1403,6 +1558,186 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
           f"pixels (tolerance 0.999), the same {len(sk.volume.slot_of)} chunks")
     print("phase 6 pipeline: ok")
     return counts
+
+
+def distorted_cameras(device, h=H, w=W, focal=FOCAL) -> dict:
+    """The port's three distorted models at one image size, on `device`: an
+    EuRoC-like radtan pinhole, an equidistant fisheye (`test_fisheye_e2e`'s
+    coefficients) and a Mei camera (xi 0.9, its focal scaled by 1 + xi so
+    that it sees about the same field)."""
+    from cvids_tpu_torch import camera
+
+    size = dict(width=w, height=h, device=device)
+    return {
+        "radtan": camera.PinholeCamera.create(focal, focal, w / 2, h / 2,
+                                              (-0.28, 0.07, 0.0, 0.0), **size),
+        "equidistant": camera.EquidistantCamera.create(
+            focal, focal, w / 2, h / 2, (-0.01, 0.02, -0.005, 0.001), **size),
+        "mei": camera.MeiCamera.create(0.9, 1.9 * focal, 1.9 * focal, w / 2, h / 2,
+                                       (-0.1, 0.05, 0.0, 0.0), **size),
+    }
+
+
+# check (b) of phase 7, in intensity levels of 255 over the image less a
+# border of a twelfth of its height: a remapped image is within REMAP_MAX_ERR
+# (mean absolute) of the undistorted pinhole's rendering, and the image as it
+# came is at least REMAP_MIN_GAIN times further from it
+REMAP_MAX_ERR = 2.0
+REMAP_MIN_GAIN = 4.0
+
+
+def remap_checks(device, cams: dict, dense, runs=10) -> dict:
+    """Phase 7's two direct checks on every camera of `cams`, through a
+    small server on `device` and one on the CPU: (a) the remap grid built on
+    the device equals the CPU's to 1e-3 px and lives on the device; (b) an
+    image rendered through the distorted camera and remapped by the server
+    equals the rendering through the undistorted pinhole of the same K
+    within REMAP_MAX_ERR away from the border, and is REMAP_MIN_GAIN times
+    further from it without the remap. Returns {name: ms of one
+    `bilinear_sample` of a resident image through the grid}."""
+    from cvids_tpu_torch import camera, interop
+    from cvids_tpu_torch.io import render
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.ops.image import bilinear_sample
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.server.pipeline import CollaborativeServer, PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+
+    dev = torch.device(device)
+    cfg = PipelineConfig(server=ServerConfig(kf_capacity=16, max_win=8, max_ext=8), dense=dense,
+                         tsdf=TsdfConfig(capacity=8))
+    tree = vocab.synthesize_tree_vocabulary(4, 2)
+    on_dev = CollaborativeServer(tree, cfg, device=dev)
+    on_cpu = CollaborativeServer(tree, cfg, device="cpu")
+    h, w = dense.height, dense.width
+    eye = np.array([1.6, -2.2, 1.2])
+    r_wc = look_at(eye, np.array([1.5, 1.0, 0.5]))
+    border = (slice(h // 12, -(h // 12)), slice(h // 12, -(h // 12)))
+    times = {}
+    try:
+        for cid, (name, cam) in enumerate(cams.items()):
+            t0 = time.perf_counter()
+            on_dev.set_client_camera(cid, cam)
+            _sync(dev)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            on_cpu.set_client_camera(cid, cam)
+            grid = on_dev._undistort_grid[cid]
+            check(grid.device == dev and grid.shape == (h, w, 2),
+                  f"{name}: remap grid {tuple(grid.shape)} on {grid.device}")
+            gap = float((grid.cpu() - on_cpu._undistort_grid[cid]).abs().max())
+            check(gap <= 1e-3, f"{name}: remap grid differs from the CPU's by {gap} px > 1e-3")
+            host_cam = interop.camera_to_numpy(cam)
+            pin = camera.PinholeCamera.create(float(cam.fx), float(cam.fy), float(cam.cx),
+                                              float(cam.cy), width=w, height=h, device="cpu")
+            raw, _ = render.render_textured_scene(host_cam, r_wc, eye)
+            ideal, _ = render.render_textured_scene(pin, r_wc, eye)
+            out = on_dev._undistort(cid, raw)
+            check(out.device == dev and out.shape == (h, w), f"{name}: remapped image on {out.device}")
+            err = float(np.abs(out.cpu().numpy() - ideal)[border].mean())
+            err_raw = float(np.abs(raw - ideal)[border].mean())
+            check(err < REMAP_MAX_ERR, f"{name}: remapped image {err} levels from the pinhole's")
+            check(err_raw > REMAP_MIN_GAIN * err,
+                  f"{name}: without the remap {err_raw} levels, with it {err}: no gain")
+            timed = dev.type == "cuda"
+            ms = time_ms(lambda: on_dev._undistort(cid, raw), runs) if timed else 0.0
+            raw_dev = torch.from_numpy(raw).to(dev)
+            ms_dev = time_ms(lambda: bilinear_sample(raw_dev, grid, fill=0.0), runs) if timed else 0.0
+            times[name] = ms_dev
+            print(f"  {name}: remap grid built in {build_ms:.1f} ms on {dev}, max |card - CPU| "
+                  f"{gap:.2e} px (tolerance 1e-3); remapped image {err:.3f} levels from the "
+                  f"undistorted pinhole's (bound {REMAP_MAX_ERR}), {err_raw:.3f} without the "
+                  f"remap; one _undistort (copy in from pageable memory + bilinear_sample) "
+                  f"{ms:.4f} ms between events, bilinear_sample alone on a resident image "
+                  f"{ms_dev:.4f} ms")
+    finally:
+        on_dev.close()
+        on_cpu.close()
+    return times
+
+
+DIST_KF = 36                # keyframes per agent of phase 7
+
+
+def distorted_phase(device, vocabulary, n_kf=DIST_KF, h=H, w=W, focal=FOCAL, dense=None):
+    """Phase 7: distorted clients through the whole server. The remap
+    checks on a radtan, an equidistant and a Mei camera; then two agents,
+    one carrying the radtan pinhole and one the fisheye, whose images are
+    rendered through their cameras and whose features are lifted by the
+    port's `lift`, stream through `CollaborativeServer` at DenseConfig() and
+    TsdfConfig() defaults after `set_client_camera`, and are held to phase
+    6's bounds against the undistorted truth. Returns the run's launch
+    counts."""
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.server.pipeline import PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+
+    dev = torch.device(device)
+    cfg = PipelineConfig(server=ServerConfig(), dense=dense or DenseConfig(), tsdf=TsdfConfig())
+    cams = distorted_cameras(dev, h, w, focal)
+    print(f"phase 7 distorted clients: {', '.join(cams)} cameras at {h}x{w}")
+    remap_checks(dev, cams, cfg.dense)
+    agents = [cams["radtan"], cams["equidistant"]]
+    t0 = time.perf_counter()
+    packets, truth, k = scene_stream(len(agents), n_kf, h, w, focal, cams=agents)
+    print(f"  {len(packets)} keyframes from {len(agents)} agents (radtan, equidistant), "
+          f"{np.median([len(p.win_ids) for p in packets]):.0f} features median, images "
+          f"rendered through the distorted cameras in {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    server, kf_ms, timer = pipeline_run(dev, packets, vocabulary, k, cfg, cams=agents)
+    stream_s = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    check(sorted(server._undistort_grid) == [0, 1]
+          and all(g.device == dev for g in server._undistort_grid.values()),
+          f"remap grids {sorted(server._undistort_grid)} not on {dev}")
+    np.testing.assert_array_equal(server._client_k[0], k)
+    spans = pipeline_score(server, kf_ms, timer, truth, len(agents), counts, dev, stream_s, peak)
+    check(len(spans.get("remap", ())) >= len(packets) - 2 * len(agents),
+          f"{len(spans.get('remap', ()))} remaps for {len(packets)} keyframes")
+    print("phase 7 distorted clients: ok")
+    return counts
+
+
+def splat_check(device, repeats=10) -> None:
+    """`splat_sparse` at the dense path's size with landmarks that share
+    pixels (512 on a 16 x 12 lattice) and rejected ones (invalid or outside
+    the image): the same bits on every one of `repeats` runs, and the CPU's
+    result."""
+    from cvids_tpu_torch.dense import estimator
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(11)
+    cfg = estimator.DenseConfig()
+    n = 512
+    uv = np.stack([rng.integers(-1, 18, n) * (cfg.width / 16.0) + rng.uniform(-0.4, 0.4, n),
+                   rng.integers(-1, 14, n) * (cfg.height / 12.0) + rng.uniform(-0.4, 0.4, n)],
+                  -1).astype(np.float32)
+    inv = rng.uniform(0.1, 1.2, n).astype(np.float32)
+    valid = rng.random(n) > 0.25
+    pix = np.round(uv).astype(np.int64)
+    ok = valid & (pix[:, 0] >= 0) & (pix[:, 0] < cfg.width) & (pix[:, 1] >= 0) & (pix[:, 1] < cfg.height)
+    shared = ok.sum() - len({tuple(p) for p in pix[ok]})
+    check(shared >= 50 and (~ok).sum() >= 50,
+          f"splat check: {shared} landmarks share a pixel, {(~ok).sum()} are rejected")
+
+    def run(d):
+        return estimator.splat_sparse(cfg, *(torch.from_numpy(a).to(d) for a in (uv, inv, valid)))
+
+    first = run(dev)
+    for i in range(1, repeats):
+        check(torch.equal(run(dev), first), f"splat_sparse: run {i} differs from run 0 on {dev}")
+    ref = run("cpu")
+    gap = float((first.cpu().float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    check(gap <= 1e-5 * scale, f"splat_sparse on {dev} differs from the CPU's by {gap} (max {scale})")
+    print(f"  splat_sparse with {shared} landmarks on shared pixels and {(~ok).sum()} rejected: "
+          f"{repeats} runs bit-identical on {dev}, max |card - CPU| {gap:.3g} of {scale:.3g} "
+          f"(tolerance 1e-5 relative)")
 
 
 def main() -> int:
@@ -1443,7 +1778,8 @@ def main() -> int:
     # phase 3: each kernel against its twin at the main path's shapes
     kernels_only = "--kernels-only" in sys.argv[1:]
     runs = (1, 1) if kernels_only else (10, 3)
-    checks = kernel_checks(dev, np.random.default_rng(1), runs=runs[0], twin_runs=runs[1])
+    checks, extras = kernel_checks(dev, np.random.default_rng(1), runs=runs[0],
+                                   twin_runs=runs[1])
     edge_checks(dev, np.random.default_rng(2))
     plan_checks()
     memory_checks(dev, np.random.default_rng(3))
@@ -1491,6 +1827,7 @@ def main() -> int:
     check(frac <= 1e-3, f"filt.mu differs from the twin chain at {frac:.4%} of pixels")
     print(f"  filt.mu vs the twin chain: max|diff| {diff.max().item():.3g}, "
           f"{frac:.4%} of pixels beyond 1e-5 (tolerance 0.1 %)")
+    splat_check(dev)
     profile_slice(dev)
     print("phase 4 slice: ok")
 
@@ -1500,24 +1837,43 @@ def main() -> int:
     # phase 6: the whole server, packets with images -> depth -> TSDF -> mesh
     pipe_counts = pipeline_phase(dev, tree)
 
+    # phase 7: distorted, fisheye and Mei clients through the whole server
+    dist_counts = distorted_phase(dev, tree)
+
     # launches: the whole server's run (phase 6), which drives all six;
+    # launches_phase7: the distorted clients' run, which drives them again;
     # launches_per_frame: per fuse_measurement of phase 4's chain; the
     # Hamming kernel's launches_per_keyframe: of phase 6's stream.
+    # floor_ms: the empty kernel through the same launch path, timed the same
+    # way; share = bound / time, reach = max(bound, floor) / time;
+    # profiler_ms: the device time of a kernel of microseconds in one profiled
+    # call (null for the volume kernels: phase 4's profiled frame prints theirs).
     # library_ms: null, no single PyTorch call computes any of the six
     rate = {k: {"launches_per_frame": v} for k, v in per_frame.items()}
     rate["hamming_matrix"] = {"launches_per_keyframe":
                               pipe_counts["hamming_matrix"] / (PIPE_AGENTS * PIPE_KF)}
+    floor = extras["floor_ms"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1], "launches": pipe_counts[name], **rate[name],
+                "replaces": SOURCES[name][1], "launches": pipe_counts[name],
+                "launches_phase7": dist_counts[name], **rate[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2], "bound_ms": checks[name][3],
-                "bound_by": checks[name][4], "share": checks[name][3] / checks[name][1],
-                "library_ms": None}
+                "bound_by": checks[name][4], "floor_ms": floor,
+                "share": checks[name][3] / checks[name][1],
+                "reach": max(checks[name][3], floor) / checks[name][1],
+                "profiler_ms": extras["profiler_ms"].get(name), "library_ms": None}
                for name in SOURCES]
+    big = extras["hamming_2048"]
+    next(k for k in kernels if k["name"] == "hamming_matrix")["at_2048x2048"] = {
+        **big, "share": big["bound_ms"] / big["ms"],
+        "reach": max(big["bound_ms"], floor) / big["ms"],
+        "profiler_ms": extras["profiler_ms"].get("hamming_2048")}
     # the port ran without JAX and without the JAX package
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cvids_tpu"))
     check(not ref_mods, f"JAX or JAX-package modules loaded: {ref_mods}")
     print("imports: no module of jax or cvids_tpu loaded")
+    print(json.dumps({"launch_floor": {"ms": floor, "host_us": extras["launch_host_us"],
+                                       "profiler_ms": extras["profiler_ms"].get("empty")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

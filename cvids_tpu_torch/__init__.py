@@ -9,15 +9,21 @@ Hopper (``csrc/``), built at first use by ``_build.py`` and bound in
 
 Ported so far:
 
-- ``ops``:      image gradients and warps, plane-sweep cost, SGM + WTA,
+- ``ops``:      image blur, gradients, pyramids and warps, plane-sweep cost,
+                SGM + WTA,
                 Gaussian×Beta depth filter, Hamming matching, PnP and
                 fundamental-matrix RANSAC, and the six CUDA kernels of
                 ``ops/cuda_kernels.py``: ``projective_warp_banded``,
                 ``plane_sweep``, ``sgm_scan_bidir`` (both orientations),
                 ``wta``, ``depth_filter_update``, ``hamming_matrix``
 - ``dense``:    multi-view depth estimation (``fuse_measurement``)
-- ``geometry``: rotations and quaternions, SE(3) poses, float64 numpy
-                helpers for the server's host-side bookkeeping
+- ``geometry``: rotations and quaternions, SE(3) poses, the 4-DoF (yaw +
+                translation) algebra, float64 numpy helpers for the
+                server's host-side bookkeeping
+- ``camera``:   pinhole + radtan, equidistant (fisheye), Mei and Scaramuzza
+                models with ``project``/``lift``, ``make_camera``, intrinsic
+                calibration and the chessboard detector; the server's
+                ``set_client_camera`` builds a client's remap grid from them
 - ``server``:   the whole collaborative server (``pipeline``: packets
                 with images -> pose graph -> per-client dense depth ->
                 TSDF -> mesh), the pose graph (``posegraph``: ingestion,
@@ -28,15 +34,16 @@ Ported so far:
 - ``mapping``:  the chunked TSDF volume on the device (``tsdf``) and its
                 meshing by marching tetrahedra with PLY export (``mesh``,
                 ``ops/marching_cubes.py``)
-- ``utils``:    stage tracing and server/TSDF checkpoints (the JAX
-                package's npz layout, so either package loads the other's)
+- ``utils``:    stage tracing, server/TSDF checkpoints (the JAX package's
+                npz layout, so either package loads the other's) and
+                ``config.CameraConfig``
 - ``io``:       the keyframe packet, the synthetic multi-agent streams and
                 the textured-room renderer (numpy, copied from
                 ``cvids_tpu.io``)
 - ``native``:   the C++ max clique for PCM (``fmc.cpp``, built with the
                 host's compiler at first use)
-- ``interop``:  carry the JAX package's states, vocabularies, configs and
-                TSDF volumes (as numpy) to the port and back
+- ``interop``:  carry the JAX package's states, vocabularies, configs,
+                TSDF volumes and cameras (as numpy) to the port and back
 
 The package imports ``torch`` and never ``jax``, nor any module of
 ``cvids_tpu``: it runs without the JAX package.
@@ -45,7 +52,8 @@ Entry points that own device state (``CollaborativeServer``,
 ``CollaborativePoseGraph``, ``TsdfVolume``, ``SparseBowDatabase``,
 ``train_vocabulary``) and the helpers that make tensors from nothing or
 from host data (``ops.depth_filter.init_state``,
-``ops.hamming.descriptors_to_torch``, ``ops.ransac.gumbel_noise``) run on
+``ops.hamming.descriptors_to_torch``, ``ops.ransac.gumbel_noise``, the
+cameras' ``create``, ``camera.make_camera`` and the chessboard tools) run on
 the card unless the caller names a device: ``device=None`` means
 `default_device()`, which raises where there is no card rather than falling
 back to the CPU. Pass ``device="cpu"`` to run the

@@ -52,8 +52,10 @@ SIGNATURES = {
     "cvids_wta": [_P, _P, _P, _P, _I, _P, _P, ctypes.c_long, _I, _I, _F, _P],
     "cvids_wta_plan": [ctypes.c_long, _I, _I, ctypes.POINTER(_I)],
     "cvids_hamming": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "cvids_hamming_plan": [_I, _I, ctypes.POINTER(_I)],
     "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _F, _P, _F, _F, _F,
                            _P, _P, _P, _P, ctypes.c_long, _P],
+    "cvids_empty": [_P],
 }
 
 _lib: ctypes.CDLL | None = None

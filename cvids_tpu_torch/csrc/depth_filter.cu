@@ -7,9 +7,25 @@
 // (x outside [mu_lo, mu_hi] or an invalid pixel keeps the old state) and
 // b + 1 on valid out-of-range measurements.
 //
-// Bound on the card: memory. 7 loads and 4 stores per pixel (13.5 MB at
-// 640x480 with a scalar tau2), against ~60 flops. One thread per pixel, fp32
-// throughout. The expression is written in the plain PyTorch version's
+// Bound on the card: memory. 5 fp32 maps and a byte map in, 4 fp32 maps out
+// (11.4 MB at 640x480 with a scalar tau2), each read or written once. The
+// arithmetic is ~240 instructions a pixel (18 IEEE divisions, expf, sqrtf),
+// which only a full set of resident warps hides behind the memory system.
+// The design, chosen by timed variants (dev/torch_probe_hamming_variants.py,
+// NVIDIA H100 80GB HBM3, 700 W, kernel time under the profiler):
+// - one pixel a thread, 256 threads a block: 0.0055 ms at 640x480, which is
+//   2.5 TB/s once the 0.0009 ms of an empty kernel are taken off, and 0.0280
+//   ms at 1920x1080 (76.7 MB: 2.7 TB/s). A thread that owns two or four
+//   neighbouring pixels and moves them as 8- or 16-byte vectors (the probe
+//   carries that kernel) issues a quarter of the memory instructions but
+//   leaves an SM a quarter of the warps, and the divisions' slow-path
+//   branches keep the compiler from interleaving a thread's pixels:
+//   0.0059-0.0068 and 0.0065-0.0077 ms at 640x480, 0.0281 and 0.0300 ms at
+//   1920x1080. So the memory instructions were never the limit;
+// - streaming accesses (__ldcs / __stcs): nothing is read twice, so the lines
+//   are marked evict-first and leave the L2 to the volumes around this step.
+//   Alone they time like plain accesses (0.0055-0.0057 ms).
+// The per-pixel expression is written in the plain PyTorch version's
 // operation order with its clamps (1e-12, 1e-10); the library is built with
 // -fmad=false, so no multiply-add is contracted and the two round at the same
 // points. tau2 is a scalar passed by value or an (H, W) map: a scalar is
@@ -21,24 +37,17 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int FILTER_THREADS = 256;
 
 __device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
 
-__global__ void __launch_bounds__(THREADS)
-depth_filter_kernel(const float* __restrict__ mu_in, const float* __restrict__ s2_in,
-                    const float* __restrict__ a_in, const float* __restrict__ b_in,
-                    const float* __restrict__ x_in, const float* __restrict__ tau2_in,
-                    float tau2_value, const uint8_t* __restrict__ valid_in,
-                    float mu_lo, float mu_hi, float uniform, float* __restrict__ mu_out,
-                    float* __restrict__ s2_out, float* __restrict__ a_out,
-                    float* __restrict__ b_out, long npix) {
-  const long i = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= npix) return;
-  const float mu = mu_in[i], s2 = s2_in[i], a = a_in[i], b = b_in[i], x = x_in[i];
-  const float tau2 = tau2_in != nullptr ? tau2_in[i] : tau2_value;
-  const bool valid = valid_in[i] != 0;
+struct FilterOut {
+  float mu, s2, a, b;
+};
 
+__device__ __forceinline__ FilterOut filter_pixel(float mu, float s2, float a, float b,
+                                                  float x, float tau2, bool valid,
+                                                  float mu_lo, float mu_hi, float uniform) {
   const float norm_scale2 = s2 + tau2;
   const float s2c = clamp_min(s2, 1e-12f);
   const float tau2c = clamp_min(tau2, 1e-12f);
@@ -65,10 +74,32 @@ depth_filter_kernel(const float* __restrict__ mu_in, const float* __restrict__ s
   const float b_new = a_new * (1.0f - f) / fc;
 
   const bool hard_out = (x < mu_lo) || (x > mu_hi) || !valid;
-  mu_out[i] = hard_out ? mu : mu_new;
-  s2_out[i] = clamp_min(hard_out ? s2 : s2_new, 1e-10f);
-  a_out[i] = hard_out ? a : a_new;
-  b_out[i] = hard_out ? (valid ? b + 1.0f : b) : b_new;
+  FilterOut o;
+  o.mu = hard_out ? mu : mu_new;
+  o.s2 = clamp_min(hard_out ? s2 : s2_new, 1e-10f);
+  o.a = hard_out ? a : a_new;
+  o.b = hard_out ? (valid ? b + 1.0f : b) : b_new;
+  return o;
+}
+
+__global__ void __launch_bounds__(FILTER_THREADS)
+depth_filter_kernel(const float* __restrict__ mu_in, const float* __restrict__ s2_in,
+                    const float* __restrict__ a_in, const float* __restrict__ b_in,
+                    const float* __restrict__ x_in, const float* __restrict__ tau2_in,
+                    float tau2_value, const uint8_t* __restrict__ valid_in,
+                    float mu_lo, float mu_hi, float uniform, float* __restrict__ mu_out,
+                    float* __restrict__ s2_out, float* __restrict__ a_out,
+                    float* __restrict__ b_out, long npix) {
+  const long i = static_cast<long>(blockIdx.x) * FILTER_THREADS + threadIdx.x;
+  if (i >= npix) return;
+  const float tau2 = tau2_in != nullptr ? __ldcs(tau2_in + i) : tau2_value;
+  const FilterOut o = filter_pixel(__ldcs(mu_in + i), __ldcs(s2_in + i), __ldcs(a_in + i),
+                                   __ldcs(b_in + i), __ldcs(x_in + i), tau2,
+                                   __ldcs(valid_in + i) != 0, mu_lo, mu_hi, uniform);
+  __stcs(mu_out + i, o.mu);
+  __stcs(s2_out + i, o.s2);
+  __stcs(a_out + i, o.a);
+  __stcs(b_out + i, o.b);
 }
 
 }  // namespace
@@ -83,8 +114,8 @@ extern "C" int cvids_depth_filter(const void* mu, const void* s2, const void* a,
                                   void* s2_out, void* a_out, void* b_out, long npix,
                                   void* stream) {
   if (npix < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>((npix + THREADS - 1) / THREADS);
-  depth_filter_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = static_cast<unsigned>((npix + FILTER_THREADS - 1) / FILTER_THREADS);
+  depth_filter_kernel<<<grid, FILTER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mu), static_cast<const float*>(s2),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(x), static_cast<const float*>(tau2), tau2_value,

@@ -121,13 +121,21 @@ def splat_sparse(cfg: DenseConfig, uv: torch.Tensor, inv_depth: torch.Tensor,
     py = torch.round(uv[:, 1]).to(torch.int64)
     ok = valid & (px >= 0) & (px < w) & (py >= 0) & (py < h)
     flat = torch.where(ok, py * w + px, n)
+    # where several landmarks round to one pixel the last one wins, as in
+    # the reference's scatter on the CPU: an indexed assignment with
+    # duplicate indices keeps whichever write lands last on a card, so the
+    # winner is found first (the largest landmark index per pixel, an
+    # order-free reduction) and its depth gathered. Rejected landmarks all
+    # go to the spare slot n
+    p = uv.shape[0]
+    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, flat, torch.arange(p, device=dev), "amax")
+    winner = winner[:n]
+    hit_b = winner >= 0
+    padded = torch.cat([inv_depth.to(torch.float32), torch.zeros(1, device=dev)])
+    depth_map = padded[torch.where(hit_b, winner, p)].reshape(h, w)
+    hit = hit_b.to(torch.float32).reshape(h, w)
     zero = torch.zeros((), device=dev)
-    depth_map = torch.zeros(n + 1, device=dev)
-    depth_map[flat] = torch.where(ok, inv_depth.to(torch.float32), zero)
-    hit = torch.zeros(n + 1, device=dev)
-    hit[flat] = torch.where(ok, torch.ones((), device=dev), zero)
-    depth_map = depth_map[:n].reshape(h, w)
-    hit = hit[:n].reshape(h, w)
     # dilate the splat over a (2r+1)² window with inverse-distance weights
     acc_d = torch.zeros((h, w), device=dev)
     acc_w = torch.zeros((h, w), device=dev)

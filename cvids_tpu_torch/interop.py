@@ -10,7 +10,9 @@ as float32 (exact). The server's inputs cross the same way: a `Vocabulary`
 (its uint32 words become int32 tensors of the same bits), a `TreeVocabulary`
 (numpy in both packages), a `ServerConfig` and a `PipelineConfig` (field by
 field, the nested configs included). A TSDF volume crosses whole: its pool
-arrays and its host tables. Nothing here imports JAX.
+arrays and its host tables. A camera crosses by its fields: any object that
+carries a JAX camera's field values (numpy or numbers) and its class name
+becomes the port's camera of that name, and back. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import types
 import numpy as np
 import torch
 
+from . import camera as _camera
 from .dense.estimator import DenseConfig, DenseState
 from .mapping.tsdf import ChunkPool, TsdfConfig, TsdfVolume
 from .ops.depth_filter import FilterState
@@ -36,7 +39,8 @@ __all__ = ["array_to_torch", "tensor_to_numpy",
            "nodes_to_torch", "nodes_to_numpy", "edges_to_torch", "edges_to_numpy",
            "vocabulary_to_torch", "tree_vocabulary_to_torch",
            "server_config_to_torch", "pipeline_config_to_torch",
-           "tsdf_volume_to_torch", "tsdf_volume_to_numpy"]
+           "tsdf_volume_to_torch", "tsdf_volume_to_numpy",
+           "camera_to_torch", "camera_to_numpy"]
 
 
 def array_to_torch(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -135,6 +139,28 @@ def tree_vocabulary_to_torch(t) -> TreeVocabulary:
     numpy and moves it to a device in `SparseBowDatabase`)."""
     return TreeVocabulary(*(np.array(x, copy=True) if isinstance(x, np.ndarray) else x
                             for x in (getattr(t, f) for f in TreeVocabulary._fields)))
+
+
+_CAMERAS = {c.__name__: c for c in (_camera.PinholeCamera, _camera.EquidistantCamera,
+                                    _camera.MeiCamera, _camera.ScaramuzzaCamera)}
+
+
+def camera_to_torch(cam, device, kind: str | None = None):
+    """A JAX camera with numpy leaves (any object with the model's fields:
+    `fx, fy, cx, cy` and `dist` or `k`, `xi`, or `poly, inv_poly, c, d, e`,
+    with `width` and `height`) -> the port's camera of the same class name on
+    `device`. `kind` names the class where `type(cam).__name__` does not."""
+    cls = _CAMERAS[kind or type(cam).__name__]
+    vals = [getattr(cam, f) for f in cls._fields]
+    return cls(*(int(v) if f in ("width", "height")
+                 else array_to_torch(np.asarray(v, np.float32), device)
+                 for f, v in zip(cls._fields, vals)))
+
+
+def camera_to_numpy(cam):
+    """The port's camera with numpy leaves, in field order: the JAX package's
+    class of the same name takes them after ``jnp.asarray``."""
+    return type(cam)(*(tensor_to_numpy(v) if isinstance(v, torch.Tensor) else v for v in cam))
 
 
 def _copy_config(cls, cfg):

@@ -4,37 +4,26 @@
 `default_scene`, and `sample_scene_landmarks` samples points on its
 surfaces. numpy only, duck-typed on the camera: anything with `fx`, `fy`,
 `cx`, `cy`, `dist` (radtan k1, k2, p1, p2), `width` and `height` renders as
-a pinhole camera (`Pinhole` is the smallest such object); the equidistant and
-Mei models are selected by their class names, as in the original.
+a pinhole camera (``camera.PinholeCamera`` is one); the equidistant and Mei
+models are selected by their class names, as in the original. A camera's
+fields may be numbers, numpy arrays or tensors on any device: they are read
+once a camera, on the host.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["Pinhole", "render_textured_scene", "default_scene",
-           "sample_scene_landmarks"]
+__all__ = ["render_textured_scene", "default_scene", "sample_scene_landmarks"]
 
 
-@dataclass(frozen=True)
-class Pinhole:
-    """An undistorted pinhole camera for the renderer."""
-
-    fx: float
-    fy: float
-    cx: float
-    cy: float
-    width: int
-    height: int
-    dist: tuple = (0.0, 0.0, 0.0, 0.0)
-
-    @property
-    def k_matrix(self) -> np.ndarray:
-        return np.array([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
-                         [0.0, 0.0, 1.0]], np.float32)
+def _host(x) -> np.ndarray:
+    """A camera field as float64 numpy (a tensor comes off its device)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
 
 
 def _project_np(cam, pts_c: np.ndarray) -> np.ndarray:
@@ -45,7 +34,7 @@ def _project_np(cam, pts_c: np.ndarray) -> np.ndarray:
     fx, fy = float(cam.fx), float(cam.fy)
     cx, cy = float(cam.cx), float(cam.cy)
     if kind == "EquidistantCamera":
-        k = np.asarray(cam.k, np.float64)
+        k = _host(cam.k)
         x, y, z = pts_c[:, 0], pts_c[:, 1], pts_c[:, 2]
         r = np.hypot(x, y)
         theta = np.arctan2(r, z)
@@ -56,7 +45,7 @@ def _project_np(cam, pts_c: np.ndarray) -> np.ndarray:
         return np.stack([fx * x * scale + cx, fy * y * scale + cy], -1)
     if kind == "MeiCamera":
         xi = float(cam.xi)
-        k1, k2, p1, p2 = [float(d) for d in np.asarray(cam.dist)]
+        k1, k2, p1, p2 = [float(d) for d in _host(cam.dist)]
         p = pts_c / np.linalg.norm(pts_c, axis=-1, keepdims=True)
         zs = np.maximum(p[:, 2] + xi, 1e-9)
         x, y = p[:, 0] / zs, p[:, 1] / zs
@@ -68,7 +57,7 @@ def _project_np(cam, pts_c: np.ndarray) -> np.ndarray:
     # pinhole + radtan (`ServerCamera::Project`)
     z = np.where(np.abs(pts_c[:, 2:3]) > 1e-9, pts_c[:, 2:3], 1e-9)
     x, y = pts_c[:, 0] / z[:, 0], pts_c[:, 1] / z[:, 0]
-    k1, k2, p1, p2 = [float(d) for d in np.asarray(cam.dist)]
+    k1, k2, p1, p2 = [float(d) for d in _host(cam.dist)]
     r2 = x * x + y * y
     rad = k1 * r2 + k2 * r2 * r2
     dx = x * rad + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
@@ -125,8 +114,7 @@ def _ray_grid_cached(key) -> np.ndarray:
 
 def _cam_key(cam):
     kind = type(cam).__name__
-    d = np.asarray(cam.k if kind == "EquidistantCamera" else cam.dist,
-                   np.float64)
+    d = _host(cam.k if kind == "EquidistantCamera" else cam.dist)
     xi = float(getattr(cam, "xi", 0.0)) if kind == "MeiCamera" else 0.0
     return (kind, float(cam.fx), float(cam.fy), float(cam.cx),
             float(cam.cy), float(d[0]), float(d[1]), float(d[2]),

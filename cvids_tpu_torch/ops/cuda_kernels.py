@@ -24,10 +24,10 @@ through. Callers reach the wrappers as attributes of this module
 
 The volume kernels need D a multiple of 32 with D <= 256; the twins take any
 D. The scan's, the sweep's and the WTA's launches (lane groups, ring depth,
-tile, grid, dynamic shared memory) are decided in their ``.cu`` files;
-`sgm_scan_plan`, `plane_sweep_plan` and `wta_plan` restate them as pure
-functions, and `compiled_sgm_scan_plan`, `compiled_plane_sweep_plan` and
-`compiled_wta_plan` read them from the built library. `kernel_work` gives
+tile, grid, dynamic shared memory) are decided in their ``.cu`` files, as is
+the Hamming kernel's tile; `sgm_scan_plan`, `plane_sweep_plan`, `wta_plan`
+and `hamming_plan` restate them as pure functions, and the
+``compiled_*_plan`` functions read them from the built library. `kernel_work` gives
 the bytes and operations a call must at least move and do, for a roofline
 bound. Descriptors are (N, 8) int32 tensors: the uint32 words of the
 packets, viewed as int32 (XOR and popcount ignore the sign).
@@ -49,8 +49,9 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "depth_filter_update_twin", "popcount32", "launches",
            "reset_launches", "sgm_scan_plan", "plane_sweep_plan", "wta_plan",
            "compiled_sgm_scan_plan", "compiled_plane_sweep_plan",
-           "compiled_wta_plan", "kernel_work", "SgmScanPlan", "PlaneSweepPlan",
-           "WtaPlan", "MAX_DYNAMIC_SMEM"]
+           "compiled_wta_plan", "hamming_plan", "compiled_hamming_plan",
+           "kernel_work", "SgmScanPlan", "PlaneSweepPlan", "WtaPlan",
+           "HammingPlan", "MAX_DYNAMIC_SMEM", "empty_launch"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
             "hamming_matrix": 0, "depth_filter_update": 0}
@@ -98,16 +99,37 @@ def _require_aligned(t: torch.Tensor, name: str) -> None:
                          f"kernel's vector accesses (offset {t.data_ptr() % 16})")
 
 
-def _launch(name: str, fn_name: str, device: torch.device, *args) -> None:
+def _launch(name: str | None, fn_name: str, device: torch.device, *args) -> None:
+    """Call the library's `fn_name` with `args` and PyTorch's current stream
+    on `device`, raise on a CUDA error, and count the launch under `name`
+    (None: not counted). The stream is read as a raw handle and the device
+    is switched only for a tensor on another card than the current one: a
+    `torch.cuda.device` context and a `Stream` object per call cost the host
+    more than the call itself (``dev/torch_probe_launch_path.py``). The raw
+    handle comes from the private `torch._C._cuda_getCurrentRawStream` (the
+    call torch's own compiler uses to launch Triton kernels; run with torch
+    2.11; the repo pins no torch version)."""
     from .. import _build
     lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = getattr(lib, fn_name)(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = getattr(lib, fn_name)(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         msg = lib.cvids_error_string(err).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
-    launches[name] += 1
+    if name is not None:
+        launches[name] += 1
+
+
+def empty_launch(device: torch.device | str) -> None:
+    """Launch the library's empty kernel (``csrc/empty.cu``) on `device`
+    through `_launch`, uncounted: timed like any kernel of this module, it
+    is the launch floor of this launch path on the card."""
+    _launch(None, "cvids_empty", torch.device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +155,10 @@ def _banded_pass(vals: torch.Tensor, pos: torch.Tensor, band: int,
         wk = torch.clamp(1.0 - torch.abs(delta - k), min=0.0)
         x = u + k
         use = (torch.abs(k) <= band) & (x >= 0) & (x <= length - 1)
-        xi = x.clamp(0, length - 1).to(torch.int64)
+        # index only through taps that count: a non-finite position (NaN
+        # survives a clamp) fails `use` and reads index 0, so it gives
+        # value 0 and coverage 0, as the kernel's band test does
+        xi = torch.where(use, x, zero).to(torch.int64)
         tap = torch.gather(vals, 2, xi.expand(vals.shape[0], -1, -1))
         acc = acc + torch.where(use, wk * tap, zero)
         if with_coverage:
@@ -588,13 +613,45 @@ def hamming_matrix_twin(a: torch.Tensor, b: torch.Tensor,
     return d
 
 
+class HammingPlan(NamedTuple):
+    """The Hamming kernel's launch: a block of `threads` owns `tile_m`
+    columns (one a thread) and walks `tile_n` rows of `a`."""
+    tile_m: int
+    tile_n: int
+    threads: int
+    grid: tuple[int, int]
+
+
+def hamming_plan(n: int, m: int) -> HammingPlan:
+    """Tile and grid of one `hamming_matrix` launch at (n, m), as
+    ``csrc/hamming.cu`` compiles them, restated here so that they can be
+    held without the card. The kernel owns the values, and
+    `compiled_hamming_plan` reads the built library's own for comparison.
+
+    128 columns a block and 4 rows: the loop verification's 160 x 512 is
+    160 blocks, more than an H100's 132 SMs. The row tiles lie along the
+    grid's first extent, the column tiles along its second."""
+    if n < 1 or m < 1:
+        raise ValueError(f"the Hamming kernel takes n, m >= 1, got {n}, {m}")
+    tile_m, tile_n = 128, 4
+    return HammingPlan(tile_m, tile_n, tile_m, (-(-n // tile_n), -(-m // tile_m)))
+
+
+def compiled_hamming_plan(n: int, m: int) -> HammingPlan:
+    """`hamming_plan` as the built library reports it."""
+    v = _compiled_plan("cvids_hamming_plan", 5, n, m)
+    return HammingPlan(v[0], v[1], v[2], (v[3], v[4]))
+
+
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor,
                    a_valid: torch.Tensor | None = None,
                    b_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Pairwise Hamming distances: a (N, 8) and b (M, 8) int32 descriptor
     words -> (N, M) int32, 512 where a row (`a_valid`, (N,) bool) or a
     column (`b_valid`, (M,) bool) is invalid. The contract of
-    `ops.hamming.hamming_distance_matrix`."""
+    `ops.hamming.hamming_distance_matrix`. On the card `a` and `b` must
+    start at a 16-byte boundary (a descriptor is read as two 16-byte
+    vectors): any whole tensor and any slice of whole descriptors does."""
     masks = [v for v in (a_valid, b_valid) if v is not None]
     if not _on_cuda(a, b, *masks):
         return hamming_matrix_twin(a, b, a_valid, b_valid)
@@ -611,6 +668,8 @@ def hamming_matrix(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((n, m), dtype=torch.int32, device=a.device)
     if n == 0 or m == 0:
         return out
+    _require_aligned(a, "a")
+    _require_aligned(b, "b")
     _launch("hamming_matrix", "cvids_hamming", a.device, a.data_ptr(), b.data_ptr(),
             0 if a_valid is None else a_valid.data_ptr(),
             0 if b_valid is None else b_valid.data_ptr(), out.data_ptr(), n, m)

@@ -1,5 +1,6 @@
-"""Image ops of the dense step: Sobel gradients, bilinear sampling and the
-exact two-pass projective warp (port of ``cvids_tpu/ops/image.py``).
+"""Basic image ops: separable Gaussian blur, Sobel gradients, bilinear
+sampling, pyramid construction and the exact two-pass projective warp (port
+of ``cvids_tpu/ops/image.py``). Convolutions replicate the edge.
 
 All functions take and return tensors and allocate on their inputs' device.
 """
@@ -8,8 +9,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sobel", "image_gradients", "bilinear_sample",
+__all__ = ["gaussian_kernel1d", "gaussian_blur", "sobel", "image_gradients",
+           "bilinear_sample", "downsample2x", "build_pyramid",
            "warp_pass_positions", "projective_warp_mxu"]
+
+
+def gaussian_kernel1d(sigma: float, radius: int | None = None,
+                      dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    if radius is None:
+        radius = max(1, int(3.0 * sigma + 0.5))
+    x = torch.arange(-radius, radius + 1, dtype=dtype, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / torch.sum(k)
 
 
 def _conv1d(img: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
@@ -22,6 +33,14 @@ def _conv1d(img: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
         tap = torch.index_select(img, axis, (idx + i - r).clamp(0, n - 1))
         out = out + k[i] * tap
     return out.to(img.dtype)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) -> torch.Tensor:
+    """Gaussian blur of (..., H, W) images, edge-replicated (sigma 2, radius 4
+    is the BRIEF pre-blur)."""
+    k = gaussian_kernel1d(sigma, radius, device=img.device)
+    out = _conv1d(img.to(torch.float32), k, img.ndim - 2)
+    return _conv1d(out, k, img.ndim - 1)
 
 
 def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -152,3 +171,19 @@ def projective_warp_mxu(img: torch.Tensor, m: torch.Tensor, eps: float = 1e-3,
     tmp_t = tmp.to(wdt).to(f32).transpose(1, 2).contiguous()          # (2, W, H)
     out = _resample_rows(tmp_t, y_in.T.contiguous(), wdt)              # (2, W, H)
     return out[0].T, out[1].T
+
+
+def downsample2x(img: torch.Tensor) -> torch.Tensor:
+    """2×2 average-pool downsample of (..., H, W); H, W must be even."""
+    h, w = img.shape[-2] // 2, img.shape[-1] // 2
+    x = img[..., : h * 2, : w * 2]
+    x = x.reshape(x.shape[:-2] + (h, 2, w, 2))
+    return torch.mean(x.to(torch.float32), dim=(-3, -1))
+
+
+def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """Gaussian-ish pyramid: level 0 = input, each next = blur + 2x downsample."""
+    pyr = [img.to(torch.float32)]
+    for _ in range(levels - 1):
+        pyr.append(downsample2x(gaussian_blur(pyr[-1], 1.0, 1)))
+    return pyr

@@ -170,24 +170,47 @@ class CollaborativeServer:
         self._client_k[cid] = np.asarray(k, np.float32)
 
     def set_client_camera(self, cid: int, cam):
-        """Dense-path camera of a client: an undistorted pinhole (`fx`, `fy`,
-        `cx`, `cy` and a zero `dist`) installs its K and needs no remap grid.
-        Distorted and non-pinhole models need the camera models, which are
-        not ported yet (ROADMAP queue 1 item 6)."""
-        if (type(cam).__name__ not in ("PinholeCamera", "Pinhole")
-                or np.any(np.asarray(cam.dist))):
-            raise NotImplementedError(
-                f"set_client_camera: only an undistorted pinhole is ported; "
-                f"{type(cam).__name__} needs the camera models (ROADMAP queue 1 item 6)")
-        self._client_k[cid] = np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+        """Dense-path undistortion: the reference and match frames are
+        undistorted onto the pinhole K before the cost kernel
+        (`sgm_stereo_mapper.cpp:55-123,155-175`). Builds the remap grid ONCE
+        per client (each dense-image pixel -> its distorted source pixel), on
+        the server's device, where it stays; per-frame undistortion is then
+        a single bilinear gather there. `cam` is one of
+        `cvids_tpu_torch.camera`'s models (picked by class name), on any
+        device; an undistorted pinhole needs no grid."""
+        cfg = self.cfg.dense
+        fx, fy, cx, cy = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+        self._client_k[cid] = np.array([[fx, 0.0, cx], [0.0, fy, cy],
                                         [0.0, 0.0, 1.0]], np.float32)
+        is_pinhole = type(cam).__name__ == "PinholeCamera"
+        if is_pinhole and not bool(torch.as_tensor(cam.dist).any()):
+            return  # already pinhole; no remap needed
+        dev = self.device
+        cam = type(cam)(*(f.to(dev) if isinstance(f, torch.Tensor) else f for f in cam))
+        uu, vv = torch.meshgrid(torch.arange(cfg.width, dtype=torch.float32, device=dev),
+                                torch.arange(cfg.height, dtype=torch.float32, device=dev),
+                                indexing="xy")
+        norm = torch.stack([(uu - cx) / fx, (vv - cy) / fy], dim=-1)
+        if is_pinhole:
+            px = cam.project_normalized(norm.reshape(-1, 2))
+        else:
+            # polymorphic path (equidistant/Mei): each virtual-pinhole
+            # pixel's ray projected through the real model gives its
+            # distorted source pixel
+            rays = torch.cat([norm.reshape(-1, 2),
+                              torch.ones((cfg.height * cfg.width, 1), device=dev)], -1)
+            px = cam.project(rays)
+        self._undistort_grid[cid] = px.reshape(cfg.height, cfg.width, 2).contiguous()
 
     def _undistort(self, cid: int, img: np.ndarray) -> torch.Tensor:
         """The image on the device, resampled through the client's remap
         grid when it has one (each dense-image pixel -> its source pixel)."""
         img_t = torch.from_numpy(np.asarray(img, np.float32)).to(self.device)
         grid = self._undistort_grid.get(cid)
-        return img_t if grid is None else bilinear_sample(img_t, grid, fill=0.0)
+        if grid is None:
+            return img_t
+        with self.tracer.span("remap"):
+            return bilinear_sample(img_t, grid, fill=0.0)
 
     def _sparse_from_packet(self, pkt: KeyframePacket, k: np.ndarray):
         """Window VIO landmarks -> (pixel uv, inverse depth, valid) in the

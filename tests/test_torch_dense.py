@@ -177,6 +177,41 @@ def test_splat_sparse_matches_jax(rng):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+def test_splat_sparse_duplicates_match_jax(rng, order):
+    """Several valid landmarks on one pixel, and rejected ones (invalid or
+    out of the image, all sent to the spare slot): the port keeps the
+    landmark the reference's scatter keeps on the CPU, the last one, in
+    either order, and equals it exactly; ten runs give the same bits."""
+    jc, tc = je.DenseConfig(**_cfg_kw()), te.DenseConfig(**_cfg_kw())
+    n = 40
+    uv = np.stack([rng.uniform(-2, W + 1, n), rng.uniform(-2, H + 1, n)], -1).astype(np.float32)
+    uv[5:9] = [[7.2, 5.1], [6.9, 4.8], [7.4, 5.3], [6.6, 4.6]]     # all round to (7, 5)
+    uv[20:23] = [[11.0, 3.0], [11.3, 2.8], [10.8, 3.2]]            # (11, 3), one invalid
+    inv = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.2
+    valid[5:9] = True
+    valid[20:23] = [True, True, False]
+    if order == "reversed":
+        uv, inv, valid = uv[::-1].copy(), inv[::-1].copy(), valid[::-1].copy()
+    ref = np.asarray(je.splat_sparse(jc, jnp.asarray(uv), jnp.asarray(inv), jnp.asarray(valid)))
+    outs = [te.splat_sparse(tc, _t(uv), _t(inv), _t(valid)).numpy() for _ in range(10)]
+    np.testing.assert_allclose(outs[0], ref, rtol=1e-5, atol=1e-4)
+    assert all(np.array_equal(o, outs[0]) for o in outs[1:])
+    # the pixel's mean depth is the last landmark's: radius 0 shows the splat
+    last = inv[np.nonzero(valid & (np.round(uv) == [7, 5]).all(1))[0][-1]]
+    ref0 = np.asarray(je.splat_sparse(jc, jnp.asarray(uv), jnp.asarray(inv),
+                                      jnp.asarray(valid), radius=0))
+    out0 = te.splat_sparse(tc, _t(uv), _t(inv), _t(valid), radius=0).numpy()
+    np.testing.assert_array_equal(out0, ref0)
+    want = np.abs(np.asarray(tc.inv_depths) - last) / tc.dep_sample * tc.sparse_ratio
+    np.testing.assert_allclose(out0[5, 7], want, rtol=1e-6)
+    # no landmark at all
+    empty = te.splat_sparse(tc, torch.zeros((0, 2)), torch.zeros(0),
+                            torch.zeros(0, dtype=torch.bool))
+    assert empty.shape == (H, W, D) and not empty.any()
+
+
 def test_interop_round_trip_bf16(rng):
     jc = je.DenseConfig(**_cfg_kw("bfloat16"))
     ref, _, _ = _views(rng)

@@ -8,10 +8,15 @@ The CUDA kernels themselves run only on the card, where `chip_smoke.py`
 holds each against its twin.
 """
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))   # chip_smoke.py
 
 from cvids_tpu.ops import costvolume as jcv
 from cvids_tpu.ops import depth_filter as jdf
@@ -20,6 +25,7 @@ from cvids_tpu.ops import pallas_kernels as pk
 from cvids_tpu.ops.image import projective_warp_mxu as jax_warp_mxu
 from cvids_tpu_torch.ops import cuda_kernels as ck
 from cvids_tpu_torch.ops import depth_filter as tdf
+from cvids_tpu_torch.ops.image import warp_pass_positions
 
 
 def _t(a):
@@ -577,3 +583,70 @@ def test_kernel_work(name):
         assert ck.kernel_work(name, a_mask=False, b_mask=False, **shape)[0] == want_bytes - 672
     with pytest.raises(KeyError):
         ck.kernel_work("no_such_kernel")
+
+
+@pytest.mark.parametrize("n,m", [(160, 512), (2048, 2048), (1, 1), (37, 129),
+                                 (160, 1), (33, 4097), (1, 4097), (7, 100_000),
+                                 (262_140, 1), (262_141, 3), (2_000_000, 130)])
+def test_hamming_plan(n, m):
+    plan = ck.hamming_plan(n, m)
+    assert (plan.tile_m, plan.tile_n, plan.threads) == (128, 4, 128)
+    # a thread owns one column, a warp stores 128 contiguous bytes of a row
+    gx, gy = plan.grid
+    assert gx * plan.tile_n >= n > (gx - 1) * plan.tile_n
+    assert gy * plan.tile_m >= m > (gy - 1) * plan.tile_m
+    # the first 2 * tile_n threads load the A tile as 16-byte vectors
+    assert 2 * plan.tile_n <= plan.threads
+    # the row tiles lie along the grid's first extent (CUDA allows 2^31 - 1
+    # there), the column tiles along its second (65,535)
+    assert gx <= 2 ** 31 - 1 and gy <= 65535
+    if (n, m) == (160, 512):        # the loop verification: 160 blocks for 132 SMs
+        assert plan.grid == (40, 4)
+    if (n, m) == (2048, 2048):
+        assert plan.grid == (512, 16)
+    with pytest.raises(ValueError):
+        ck.hamming_plan(0, m)
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (37, 53), (1, 33), (1, 3), (1, 4), (2, 3),
+                                 (3, 5), (5, 7), (16, 32), (127, 5)])
+def test_depth_filter_update_on_cpu_any_shape(rng, h, w):
+    """The wrapper takes any (H, W), a single short row and the dense path's map
+    included: on CPU tensors it gives the bits of `ops.depth_filter.update`
+    with a scalar or a map tau2, and the reference's values within
+    `test_depth_filter_twin_matches_pallas`'s bounds."""
+    st, x, tau2, valid = _filter_inputs(rng, h, w, "map")
+    state = tdf.FilterState(*map(_t, st))
+    out = ck.depth_filter_update(state, _t(x), _t(tau2), _t(valid))
+    want = tdf.update(state, _t(x), _t(tau2), _t(valid))
+    scalar = ck.depth_filter_update(state, _t(x), 0.01, _t(valid))
+    want_scalar = tdf.update(state, _t(x), torch.tensor(0.01), _t(valid))
+    ref = jdf.update(jdf.FilterState(*map(jnp.asarray, st)), jnp.asarray(x),
+                     jnp.asarray(tau2), jnp.asarray(valid))
+    rtol = {"mu": 1e-6, "sigma2": 1e-3, "a": 1e-4, "b": 1e-4}
+    for name, o, w_, s_, ws, r in zip(tdf.FilterState._fields, out, want, scalar,
+                                      want_scalar, ref):
+        assert o.shape == (h, w) and o.dtype == torch.float32
+        assert torch.equal(o, w_) and torch.equal(s_, ws), name
+        np.testing.assert_allclose(_np(o), np.asarray(r), rtol=rtol[name], atol=1e-7,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_warp_banded_twin_nonfinite_positions(rng, which):
+    """A map whose positions are NaN or infinite (a NaN survives a clamp and
+    would index wildly) gives value 0 and coverage 0 and no error: a
+    non-finite position lies in no band. The same maps are in
+    `chip_smoke.warp_edge_maps`, where the kernel is held to the twin."""
+    import chip_smoke
+    name, m = sorted(chip_smoke.nonfinite_warp_maps().items())[which]
+    h, w = 9, 13
+    g, y_in = warp_pass_positions(_t(m), h, w)
+    assert not (torch.isfinite(g).all() and torch.isfinite(y_in).all()), name
+    img = _t(rng.uniform(1, 255, (h, w)).astype(np.float32))
+    out, cov = ck.projective_warp_banded_twin(img, _t(m), band_x=8, band_y=4)
+    assert out.shape == cov.shape == (h, w)
+    assert (_np(out) == 0).all() and (_np(cov) == 0).all(), name
+    # a finite map through the same code keeps its coverage
+    _, cov_id = ck.projective_warp_banded_twin(img, torch.eye(3), band_x=8, band_y=4)
+    assert (_np(cov_id) == 1).all()

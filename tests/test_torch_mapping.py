@@ -390,9 +390,8 @@ def test_render_copy_matches_jax(distorted):
     dist = (-0.28, 0.07, 1e-4, -2e-4) if distorted else (0.0, 0.0, 0.0, 0.0)
     jcam = PinholeCamera.create(100.0, 100.0, 80.0, 60.0, dist, 160, 120)
     # the JAX camera keeps its coefficients in float32
-    tcam = render.Pinhole(100.0, 100.0, 80.0, 60.0, 160, 120,
-                          tuple(float(d) for d in np.asarray(jcam.dist)))
-    np.testing.assert_array_equal(tcam.k_matrix, np.asarray(jcam.k_matrix))
+    tcam = interop.camera_to_torch(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
+    np.testing.assert_array_equal(tcam.k_matrix.numpy(), np.asarray(jcam.k_matrix))
     target = np.array([1.5, 1.0, 0.5])
     for ang in (-0.6, 0.0, 0.5):
         eye = np.array([1.5 + 1.5 * np.sin(ang), -2.2, 1.2])

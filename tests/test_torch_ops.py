@@ -15,12 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from cvids_tpu.geometry import fourdof as jfourdof
 from cvids_tpu.geometry import rotations as jrot
+from cvids_tpu.geometry import se3 as jse3
 from cvids_tpu.ops import costvolume as jcv
 from cvids_tpu.ops import depth_filter as jdf
 from cvids_tpu.ops import image as jim
 from cvids_tpu.ops import sgm as jsgm
+from cvids_tpu_torch.geometry import fourdof as tfourdof
 from cvids_tpu_torch.geometry import rotations as trot
+from cvids_tpu_torch.geometry import se3 as tse3
 from cvids_tpu_torch.ops import costvolume as tcv
 from cvids_tpu_torch.ops import depth_filter as tdf
 from cvids_tpu_torch.ops import image as tim
@@ -313,6 +317,234 @@ def test_rotations(rng):
                                   np.asarray(jrot.wrap_angle(jnp.asarray(yaw))))
 
 
+def _quats(rng, n):
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def _angles_close(a, b, atol):
+    """Angles compared modulo 2 pi."""
+    d = (np.asarray(a, np.float64) - np.asarray(b, np.float64) + np.pi) % (2 * np.pi) - np.pi
+    np.testing.assert_allclose(d, 0.0, atol=atol)
+
+
+def _quats_close(a, b, atol):
+    """Quaternions compared up to sign."""
+    a, b = np.asarray(a), np.asarray(b)
+    sign = np.where(np.sum(a * b, -1, keepdims=True) < 0, -1.0, 1.0)
+    np.testing.assert_allclose(a * sign, b, atol=atol)
+
+
+ROTATION_CASES = ["quat_from_axis_angle", "so3_log", "so3_log_small", "r_to_ypr",
+                  "r_to_ypr_deg", "ypr_deg_to_r", "yaw_of_quat", "yaw_of_matrix",
+                  "quat_slerp", "quat_slerp_same", "g2r", "g2r_aligned"]
+
+
+@pytest.mark.parametrize("case", ROTATION_CASES)
+def test_rotations_rest(rng, case):
+    """The rest of `geometry.rotations` against the JAX functions on the
+    same float32 inputs, to 1e-5 (angles modulo 2 pi, quaternions up to
+    sign), with the small-angle branches and their gradients at 0."""
+    tol = 1e-5
+    q = _quats(rng, 9)
+    if case == "quat_from_axis_angle":
+        axis = rng.normal(size=(9, 3)).astype(np.float32)
+        ang = rng.uniform(-3, 3, 9).astype(np.float32)
+        _quats_close(_np(trot.quat_from_axis_angle(_t(axis), _t(ang))),
+                     jrot.quat_from_axis_angle(jnp.asarray(axis), jnp.asarray(ang)), tol)
+    elif case == "so3_log":
+        np.testing.assert_allclose(_np(trot.so3_log(_t(q))),
+                                   np.asarray(jrot.so3_log(jnp.asarray(q))), atol=tol)
+        w = rng.normal(0, 0.8, (9, 3)).astype(np.float32)
+        np.testing.assert_allclose(_np(trot.so3_log(trot.so3_exp(_t(w)))), w, atol=tol)
+    elif case == "so3_log_small":
+        tiny = np.array([[1.0, 0, 0, 0], [1.0, 1e-9, -2e-9, 0], [-1.0, 0, 0, 1e-8]], np.float32)
+        np.testing.assert_allclose(_np(trot.so3_log(_t(tiny))),
+                                   np.asarray(jrot.so3_log(jnp.asarray(tiny))), atol=1e-12)
+        qt = _t(tiny[:1]).requires_grad_()
+        trot.so3_log(qt).sum().backward()
+        assert torch.isfinite(qt.grad).all()
+    elif case in ("r_to_ypr", "r_to_ypr_deg"):
+        m = np.asarray(jrot.quat_to_matrix(jnp.asarray(q)))
+        if case == "r_to_ypr":
+            _angles_close(_np(trot.r_to_ypr(_t(m))), jrot.r_to_ypr(jnp.asarray(m)), tol)
+        else:
+            d = _np(trot.r_to_ypr_deg(_t(m))) - np.asarray(jrot.r_to_ypr_deg(jnp.asarray(m)))
+            np.testing.assert_allclose((d + 180.0) % 360.0 - 180.0, 0.0, atol=1e-3)   # degrees
+    elif case == "ypr_deg_to_r":
+        ypr = rng.uniform(-170, 170, (9, 3)).astype(np.float32)
+        np.testing.assert_allclose(_np(trot.ypr_deg_to_r(_t(ypr))),
+                                   np.asarray(jrot.ypr_deg_to_r(jnp.asarray(ypr))), atol=tol)
+    elif case == "yaw_of_quat":
+        _angles_close(_np(trot.yaw_of(_t(q))), jrot.yaw_of(jnp.asarray(q)), tol)
+    elif case == "yaw_of_matrix":
+        m = np.asarray(jrot.quat_to_matrix(jnp.asarray(q)))
+        _angles_close(_np(trot.yaw_of(_t(m))), jrot.yaw_of(jnp.asarray(m)), tol)
+        _angles_close(_np(trot.yaw_of(_t(m))), _np(trot.yaw_of(_t(q))), tol)
+    elif case == "quat_slerp":
+        q1 = _quats(rng, 9)
+        t = rng.uniform(0, 1, 9).astype(np.float32)
+        _quats_close(_np(trot.quat_slerp(_t(q), _t(q1), _t(t))),
+                     jrot.quat_slerp(jnp.asarray(q), jnp.asarray(q1), jnp.asarray(t)), tol)
+        _quats_close(_np(trot.quat_slerp(_t(q), _t(q1), 0.25)),
+                     jrot.quat_slerp(jnp.asarray(q), jnp.asarray(q1), 0.25), tol)
+    elif case == "quat_slerp_same":
+        q0 = _t(q).requires_grad_()
+        out = trot.quat_slerp(q0, _t(q), 0.3)
+        _quats_close(_np(out.detach()), jrot.quat_slerp(jnp.asarray(q), jnp.asarray(q), 0.3), tol)
+        _quats_close(_np(out.detach()), q, tol)
+        out.sum().backward()
+        assert torch.isfinite(q0.grad).all()
+    elif case == "g2r":
+        g = rng.normal(size=(9, 3)).astype(np.float32) * 9.8
+        out = _np(trot.g2r(_t(g)))
+        np.testing.assert_allclose(out, np.asarray(jrot.g2r(jnp.asarray(g))), atol=tol)
+        up = np.einsum("nij,nj->ni", out, g / np.linalg.norm(g, axis=-1, keepdims=True))
+        np.testing.assert_allclose(up, np.tile([0.0, 0.0, 1.0], (9, 1)), atol=tol)
+    else:
+        g = np.array([[0.0, 0.0, 9.8], [0.0, 0.0, -9.8]], np.float32)
+        np.testing.assert_allclose(_np(trot.g2r(_t(g))),
+                                   np.asarray(jrot.g2r(jnp.asarray(g))), atol=tol)
+
+
+def _poses(rng, n):
+    return _quats(rng, n), rng.normal(0, 2, (n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["pose_identity", "transform_points", "pose_to_matrix",
+                                  "pose_from_matrix", "se3_exp", "se3_exp_small", "se3_log",
+                                  "se3_log_small"])
+def test_se3_rest(rng, case):
+    """The rest of `geometry.se3` against the JAX functions to 1e-5
+    (quaternions up to sign)."""
+    tol = 1e-5
+    q, t = _poses(rng, 7)
+    pj, pt = jse3.Pose(jnp.asarray(q), jnp.asarray(t)), tse3.Pose(_t(q), _t(t))
+    if case == "pose_identity":
+        ij, it = jse3.pose_identity((2, 3)), tse3.pose_identity((2, 3), device="cpu")
+        np.testing.assert_array_equal(_np(it.q), np.asarray(ij.q))
+        np.testing.assert_array_equal(_np(it.t), np.asarray(ij.t))
+        assert tse3.pose_identity().q.shape == (4,)
+    elif case == "transform_points":
+        pts = rng.normal(0, 3, (7, 5, 3)).astype(np.float32)
+        np.testing.assert_allclose(_np(tse3.transform_points(pt, _t(pts))),
+                                   np.asarray(jse3.transform_points(pj, jnp.asarray(pts))),
+                                   atol=tol)
+    elif case == "pose_to_matrix":
+        np.testing.assert_allclose(_np(tse3.pose_to_matrix(pt)),
+                                   np.asarray(jse3.pose_to_matrix(pj)), atol=tol)
+        np.testing.assert_allclose(_np(pt.matrix), np.asarray(pj.matrix), atol=tol)
+    elif case == "pose_from_matrix":
+        m = np.asarray(jse3.pose_to_matrix(pj))
+        oj, ot = jse3.pose_from_matrix(jnp.asarray(m)), tse3.pose_from_matrix(_t(m))
+        _quats_close(_np(ot.q), oj.q, tol)
+        np.testing.assert_allclose(_np(ot.t), np.asarray(oj.t), atol=tol)
+    elif case in ("se3_exp", "se3_exp_small"):
+        xi = rng.normal(0, 0.7, (7, 6)).astype(np.float32)
+        if case == "se3_exp_small":
+            xi[:, 3:] *= 1e-7
+            xi[0] = 0.0
+        oj, ot = jse3.se3_exp(jnp.asarray(xi)), tse3.se3_exp(_t(xi))
+        _quats_close(_np(ot.q), oj.q, tol)
+        np.testing.assert_allclose(_np(ot.t), np.asarray(oj.t), atol=tol)
+        x = _t(xi).requires_grad_()
+        out = tse3.se3_exp(x)
+        (out.q.sum() + out.t.sum()).backward()
+        assert torch.isfinite(x.grad).all()
+    else:
+        if case == "se3_log_small":
+            q = np.tile(np.array([1.0, 0, 0, 0], np.float32), (7, 1))
+            q[1:, 1:] = rng.normal(0, 1e-7, (6, 3))
+            pj, pt = jse3.Pose(jnp.asarray(q), jnp.asarray(t)), tse3.Pose(_t(q), _t(t))
+        np.testing.assert_allclose(_np(tse3.se3_log(pt)), np.asarray(jse3.se3_log(pj)), atol=tol)
+        xi = rng.normal(0, 0.5, (7, 6)).astype(np.float32)
+        np.testing.assert_allclose(_np(tse3.se3_log(tse3.se3_exp(_t(xi)))), xi, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["fourdof_rotation", "relative_edge", "edge_residual",
+                                  "apply_drift"])
+def test_fourdof(rng, name):
+    """`geometry.fourdof` against the JAX functions to 1e-5 (yaw modulo
+    2 pi)."""
+    n = 8
+    f32 = np.float32
+    yaw_i, yaw_j = rng.uniform(-3, 3, (2, n)).astype(f32)
+    pr = rng.uniform(-0.3, 0.3, (n, 2)).astype(f32)
+    t_i, t_j = rng.normal(0, 3, (2, n, 3)).astype(f32)
+    if name == "fourdof_rotation":
+        args = (yaw_i, pr[:, 0], pr[:, 1])
+    elif name == "relative_edge":
+        args = (yaw_i, pr, t_i, yaw_j, t_j)
+    elif name == "edge_residual":
+        args = (yaw_i, pr, t_i, yaw_j, t_j, rng.normal(0, 1, (n, 3)).astype(f32),
+                rng.uniform(-3, 3, n).astype(f32), 2.0, 0.5)
+    else:
+        args = (yaw_i, t_i, yaw_j, t_j)
+    to = lambda f: [f(a) if isinstance(a, np.ndarray) else a for a in args]   # noqa: E731
+    out_j = getattr(jfourdof, name)(*to(jnp.asarray))
+    out_t = getattr(tfourdof, name)(*to(_t))
+    assert sorted(tfourdof.__all__) == sorted(jfourdof.__all__)
+    if name == "fourdof_rotation":
+        np.testing.assert_allclose(_np(out_t), np.asarray(out_j), atol=1e-5)
+    elif name == "relative_edge":
+        np.testing.assert_allclose(_np(out_t[0]), np.asarray(out_j[0]), atol=1e-5)
+        _angles_close(_np(out_t[1]), out_j[1], 1e-5)
+    elif name == "edge_residual":
+        np.testing.assert_allclose(_np(out_t)[:, :3], np.asarray(out_j)[:, :3], atol=2e-5)
+        _angles_close(_np(out_t)[:, 3] / 0.5, np.asarray(out_j)[:, 3] / 0.5, 1e-5)
+    else:
+        _angles_close(_np(out_t[0]), out_j[0], 1e-5)
+        np.testing.assert_allclose(_np(out_t[1]), np.asarray(out_j[1]), atol=1e-5)
+
+
+def test_geometry_exports():
+    """`geometry` exports what the JAX package's `geometry` exports."""
+    import cvids_tpu.geometry as jgeo
+    import cvids_tpu_torch.geometry as tgeo
+    names = set(jgeo.rotations.__all__) | set(jgeo.se3.__all__) | {"fourdof", "hostmath"}
+    assert not [n for n in names if not hasattr(tgeo, n)]
+    assert sorted(tgeo.rotations.__all__) == sorted(jgeo.rotations.__all__)
+    assert sorted(tgeo.se3.__all__) == sorted(jgeo.se3.__all__)
+
+
+@pytest.mark.parametrize("case", ["kernel", "blur", "blur_batch", "downsample", "pyramid"])
+def test_gaussian_blur_and_pyramid(rng, case):
+    """`gaussian_kernel1d`, `gaussian_blur`, `downsample2x` and
+    `build_pyramid` against the JAX functions to 1e-5 relative (1e-3 of 255
+    absolute), edge replication included: a constant image stays constant up
+    to its border."""
+    img = _image(rng, 26, 38)
+    if case == "kernel":
+        for sigma, radius in ((1.0, None), (2.0, 4), (0.7, 1)):
+            np.testing.assert_allclose(_np(tim.gaussian_kernel1d(sigma, radius)),
+                                       np.asarray(jim.gaussian_kernel1d(sigma, radius)),
+                                       rtol=1e-6)
+    elif case == "blur":
+        for sigma, radius in ((1.0, None), (2.0, 4)):
+            np.testing.assert_allclose(
+                _np(tim.gaussian_blur(_t(img), sigma, radius)),
+                np.asarray(jim.gaussian_blur(jnp.asarray(img), sigma, radius)),
+                rtol=1e-5, atol=1e-3)
+        flat = np.full((9, 11), 37.0, np.float32)
+        np.testing.assert_allclose(_np(tim.gaussian_blur(_t(flat), 2.0, 4)), flat, rtol=1e-6)
+    elif case == "blur_batch":
+        batch = np.stack([img, img[::-1].copy()])
+        np.testing.assert_allclose(_np(tim.gaussian_blur(_t(batch), 1.5)),
+                                   np.asarray(jim.gaussian_blur(jnp.asarray(batch), 1.5)),
+                                   rtol=1e-5, atol=1e-3)
+    elif case == "downsample":
+        np.testing.assert_allclose(_np(tim.downsample2x(_t(img))),
+                                   np.asarray(jim.downsample2x(jnp.asarray(img))),
+                                   rtol=1e-6, atol=1e-4)
+    else:
+        img = _image(rng, 32, 48)
+        pj, pt = jim.build_pyramid(jnp.asarray(img), 3), tim.build_pyramid(_t(img), 3)
+        assert [tuple(x.shape) for x in pt] == [tuple(x.shape) for x in pj] \
+            == [(32, 48), (16, 24), (8, 12)]
+        for a, b in zip(pt, pj):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5, atol=1e-3)
+
+
 def test_port_imports_without_jax():
     code = ("import sys, cvids_tpu_torch, cvids_tpu_torch.interop, "
             "cvids_tpu_torch.dense.estimator, cvids_tpu_torch.server.optimizer, "
@@ -320,7 +552,10 @@ def test_port_imports_without_jax():
             "cvids_tpu_torch.server.pipeline, cvids_tpu_torch.server.smooth_optimizer, "
             "cvids_tpu_torch.mapping.tsdf, cvids_tpu_torch.mapping.mesh, "
             "cvids_tpu_torch.ops.marching_cubes, cvids_tpu_torch.utils.checkpoint, "
-            "cvids_tpu_torch.utils.tracing, cvids_tpu_torch.io.render; "
+            "cvids_tpu_torch.utils.tracing, cvids_tpu_torch.io.render, "
+            "cvids_tpu_torch.camera, cvids_tpu_torch.camera.models, "
+            "cvids_tpu_torch.camera.chessboard, cvids_tpu_torch.geometry.fourdof, "
+            "cvids_tpu_torch.utils.config; "
             "print('jax' in sys.modules, 'cvids_tpu' in sys.modules)")
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
                          capture_output=True, text=True, timeout=120)
@@ -364,6 +599,7 @@ def test_pipeline_port_runs_without_jax(tmp_path):
     code = (
         "import sys\n"
         "import numpy as np\n"
+        "from cvids_tpu_torch.camera import PinholeCamera\n"
         "from cvids_tpu_torch.dense.estimator import DenseConfig\n"
         "from cvids_tpu_torch.io import multiagent, render\n"
         "from cvids_tpu_torch.io.msgs import KeyframePacket\n"
@@ -373,7 +609,7 @@ def test_pipeline_port_runs_without_jax(tmp_path):
         "from cvids_tpu_torch.server import pipeline, posegraph, vocab\n"
         "from cvids_tpu_torch.utils import checkpoint\n"
         "h, w = 48, 64\n"
-        "cam = render.Pinhole(40.0, 40.0, w / 2, h / 2, w, h)\n"
+        "cam = PinholeCamera.create(40.0, 40.0, w / 2, h / 2, width=w, height=h, device='cpu')\n"
         "lm = render.sample_scene_landmarks(300, np.random.default_rng(0))\n"
         "desc = multiagent.landmark_descriptors(300)\n"
         "cfg = pipeline.PipelineConfig(\n"
@@ -382,7 +618,7 @@ def test_pipeline_port_runs_without_jax(tmp_path):
         "    tsdf=TsdfConfig(voxel_size=0.2, capacity=64), ref_advance=2)\n"
         "s = pipeline.CollaborativeServer(vocab.synthesize_tree_vocabulary(k=4, levels=3), cfg,\n"
         "                                 device='cpu')\n"
-        "s.set_client_intrinsics(0, cam.k_matrix)\n"
+        "s.set_client_camera(0, cam)\n"
         "r_cb = multiagent.R_CB_DEFAULT\n"
         "for i in range(6):\n"
         "    eye = np.array([1.2 + 0.1 * i, -2.2, 1.2])\n"
