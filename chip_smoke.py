@@ -24,7 +24,18 @@ and checks that every kernel of each path ran:
   to the CPU's; an image rendered through the distorted camera and remapped
   equals the undistorted pinhole's rendering), then a radtan and a fisheye
   agent, images rendered through their cameras and features lifted by the
-  port's `lift`, through the same whole server to phase 6's bounds.
+  port's `lift`, through the same whole server to phase 6's bounds;
+- phase 8, the agents: two `AgentFrontend`s (FAST/BRIEF/KLT, IMU
+  preintegration, the VI bootstrap, the sliding-window BA) on every 20 Hz
+  frame of ~10 s of 752x480 radtan imagery with 200 Hz IMU, rendered in
+  test_full_system.py's room with its photometric nuisances, their packets
+  through `CollaborativeServer` with the held-out `generic_vocabulary(10,
+  4)`, held to test_full_system.py's bounds (VI-initialized, >= 8 packets an
+  agent, aligned, a loop, ATE < 10 cm, depth RMS < 0.12, mesh < 0.15 m),
+  with the front-end's times per frame and keyframe, its host syncs and its
+  device activities per frame; four calls of each kernel of that server run
+  (480x752x128 volumes) are kept and held against the twins on the same
+  inputs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
@@ -51,7 +62,8 @@ initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
 /usr/local/cuda/bin). Imports neither JAX nor any module of `cvids_tpu`,
 and checks so at the end. Exits non-zero on any failed phase. The line before
 the last is the kernel table as JSON (per kernel: launches on the whole
-server's run and on the distorted clients' run, launches per dense frame or,
+server's run, on the distorted clients' run and on the agents' server run,
+launches per dense frame or,
 for the Hamming kernel, per keyframe, max abs err against the twin, kernel
 and twin ms, the roofline bound of the same call from
 `cuda_kernels.kernel_work` and the H100's published peaks, the launch floor,
@@ -64,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -95,6 +108,10 @@ SOURCES = {
     "hamming_matrix": ("cvids_tpu_torch/csrc/hamming.cu",
                        "cvids_tpu/ops/pallas_kernels.py:65"),
 }
+# each kernel's wrapper in cuda_kernels (its twin: the same name + "_twin")
+WRAPPERS = {"warp_banded": "projective_warp_banded", "plane_sweep": "plane_sweep",
+            "sgm_scan": "sgm_scan_bidir", "wta": "wta",
+            "depth_filter_update": "depth_filter_update", "hamming_matrix": "hamming_matrix"}
 DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
 SERVER_KERNELS = ("hamming_matrix",)
 # the server slice: run_synthetic.py's circles for 4 agents, 1 Hz keyframes
@@ -1004,12 +1021,82 @@ def twin_patches():
     """Context that routes the slice's kernel calls to the twins (used only
     for the comparison chain)."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
-    return [mock.patch.object(ck, "projective_warp_banded", ck.projective_warp_banded_twin),
-            mock.patch.object(ck, "plane_sweep", ck.plane_sweep_twin),
-            mock.patch.object(ck, "sgm_scan_bidir", ck.sgm_scan_bidir_twin),
-            mock.patch.object(ck, "wta", ck.wta_twin),
-            mock.patch.object(ck, "depth_filter_update", ck.depth_filter_update_twin),
-            mock.patch.object(ck, "hamming_matrix", ck.hamming_matrix_twin)]
+    return [mock.patch.object(ck, fn, getattr(ck, fn + "_twin")) for fn in WRAPPERS.values()]
+
+
+def _same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN equal to NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b).all())
+
+
+class KernelRecorder:
+    """Keeps the inputs and outputs of the calls numbered CALLS of each
+    kernel wrapper during a run (device clones), then holds each kept output
+    against the twin on the same inputs: the run's own data at the run's
+    shapes. The recording launches none of the kernels; the comparison runs
+    only the twins. A context manager around the run."""
+
+    CALLS = (0, 1, 30, 31)   # for the SGM (two calls a frame): frames 1 and 16
+
+    def __init__(self):
+        from cvids_tpu_torch.ops import cuda_kernels as ck
+
+        self.calls = {name: 0 for name in WRAPPERS}
+        self.kept = []
+        self._patches = [mock.patch.object(ck, fn, self._recording(name, getattr(ck, fn)))
+                         for name, fn in WRAPPERS.items()]
+
+    def _recording(self, name, fn):
+        from torch.utils import _pytree as pytree
+
+        def clone(tree):
+            return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+        def call(*args, **kwargs):
+            i = self.calls[name]
+            self.calls[name] += 1
+            keep = i in self.CALLS
+            inputs = clone((args, kwargs)) if keep else None
+            out = fn(*args, **kwargs)
+            if keep:
+                self.kept.append((name, i, inputs, clone(out)))
+            return out
+        return call
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+    def compare(self) -> dict:
+        """Each kept call against the twin: exact (NaN equal to NaN), the
+        filter within FILTER_MAX_ULP per field. Returns the number of calls
+        compared per kernel."""
+        from torch.utils import _pytree as pytree
+
+        from cvids_tpu_torch.ops import cuda_kernels as ck
+
+        seen = {}
+        for name, i, (args, kwargs), out in self.kept:
+            ref = getattr(ck, WRAPPERS[name] + "_twin")(*args, **kwargs)
+            shape = tuple(args[0].shape) if torch.is_tensor(args[0]) else tuple(args[0][0].shape)
+            what = f"{name} call {i} at {shape}"
+            if name == "depth_filter_update":
+                filter_agree(out, ref, what)
+            else:
+                outs, refs = pytree.tree_leaves(out), pytree.tree_leaves(ref)
+                check(len(outs) == len(refs) and all(_same_values(o, r) for o, r in zip(outs, refs)),
+                      f"{what}: the kernel's output differs from the twin's")
+            seen.setdefault(name, []).append(f"#{i} {shape}")
+        print("  the run's own kernel calls against the twins on the same inputs (tolerance: "
+              f"exact, the filter {FILTER_MAX_ULP} ulp): "
+              + "; ".join(f"{n} {', '.join(v)}" for n, v in seen.items()))
+        return {n: len(v) for n, v in seen.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1242,11 +1329,11 @@ def look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
     return np.stack([x, np.cross(z, x), z], 1)
 
 
-def scene_distance(pts: np.ndarray) -> np.ndarray:
-    """Unsigned distance of (N, 3) points to `default_scene()`'s surfaces
-    (floor, wall, box)."""
+def scene_distance(pts: np.ndarray, sc: dict | None = None) -> np.ndarray:
+    """Unsigned distance of (N, 3) points to the surfaces (floor, wall, box)
+    of a room (`default_scene()` unless `sc` is given)."""
     from cvids_tpu_torch.io.render import default_scene
-    sc = default_scene()
+    sc = sc or default_scene()
     q = np.maximum(sc["box_lo"][None] - pts, pts - sc["box_hi"][None])
     d_box = np.abs(np.linalg.norm(np.maximum(q, 0.0), axis=1) + np.minimum(q.max(1), 0.0))
     return np.minimum(np.minimum(np.abs(pts[:, 2] - sc["floor_z"]),
@@ -1740,6 +1827,456 @@ def splat_check(device, repeats=10) -> None:
           f"(tolerance 1e-5 relative)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the agents' VIO front-ends on rendered pixels and IMU -> the server
+# ---------------------------------------------------------------------------
+
+AGENTS = 2
+AGENT_DURATION = 10.0       # s per agent
+CAM_RATE, IMU_RATE = 20.0, 200.0
+AGENT_LANDMARKS = 1400      # on the room's surfaces
+AGENT_WORLD_SEED = 7
+# test_full_system.py's room (its box is not default_scene()'s)
+AGENT_SCENE = dict(floor_z=0.0, wall_y=3.0, box_lo=np.array([1.9, 0.6, 0.0]),
+                   box_hi=np.array([2.9, 1.6, 0.9]))
+AGENT_PHOTOMETRIC = dict(flicker=0.15, vignette=0.3, noise_std=1.5, shot_noise=0.3,
+                         exposure_time=0.008)
+AGENT_SYNC_WINDOW = (40, 80)     # agent 0's frames whose host syncs are counted
+AGENT_PROFILE_WINDOW = (80, 90)  # agent 0's frames whose device activities are counted
+
+
+def agent_config(camera=None, defaults=False):
+    """The front-end's `AgentConfig()` defaults (150 features, min_dist 30,
+    window 10, 8 solver iterations, 512 loop features) with `equalize` on,
+    test_full_system.py's tuning for this rendered world (FAST threshold 12,
+    keyframes at up to 2.5 Hz; `defaults` keeps AgentConfig()'s 20 and 10
+    Hz) and its IMU noise densities; the EuRoC rig's radtan camera
+    `CameraConfig()` unless `camera` is given. With the defaults' threshold
+    and keyframe rate the depth maps miss test_full_system.py's RMS bound at
+    752x480 (0.28 against 0.12), in the JAX package on the CPU as in the
+    port on the card (`PERF.md` §6)."""
+    from cvids_tpu_torch.utils.config import AgentConfig, CameraConfig
+    from cvids_tpu_torch.vio.imu import ImuNoise
+
+    tuning = {} if defaults else dict(fast_threshold=12.0, keyframe_freq=2.5)
+    return AgentConfig(camera=camera or CameraConfig(), equalize=True,
+                       imu=ImuNoise(acc_n=0.005, gyr_n=2e-4, acc_w=4e-4, gyr_w=4e-6), **tuning)
+
+
+def agent_dense(camera) -> "DenseConfig":
+    """The dense step at the camera's size with test_full_system.py's
+    tuning carried from its 200 px focal to the camera's: the same angular
+    step a depth (0.015 x 200 / fx in inverse depth), 128 depths (down to
+    ~1.2 m at 461.6 px), measurement variance 0.5 step². With
+    `AgentConfig()`'s tuning and `DenseConfig()`'s step (1 / (0.11 x 461))
+    the median depth RMS was 0.28, in
+    the port on the card and in the JAX package on the CPU on the same
+    frames: VIO poses are noisier than phase 6's."""
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+
+    return DenseConfig(height=camera.height, width=camera.width, num_depths=128,
+                       dep_sample=0.015 * 200.0 / camera.fx, tau2_scale=0.5)
+
+
+def agent_pipeline_config(camera, dense) -> "PipelineConfig":
+    """test_full_system.py's server behind the agents: a 256-keyframe
+    store, a solve every 20 keyframes, the PnP gate at 10 px, 0.1 m voxels
+    without carving, a map from 2 fused frames, the reference advancing
+    every 3; `dense` the dense step."""
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.server.pipeline import PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+
+    return PipelineConfig(server=ServerConfig(kf_capacity=256, optimize_every=20,
+                                              pnp_thresh=10.0 / float(camera.fx)),
+                          dense=dense, tsdf=TsdfConfig(voxel_size=0.1, capacity=2048,
+                                                       carving=False),
+                          min_fused_frames=2, ref_advance=3)
+
+
+_RENDER = {}     # a render worker's world: camera, landmarks, intensities, extrinsics
+
+
+def _render_init(camera, landmarks, intens, r_cb, p_bc) -> None:
+    from cvids_tpu_torch.camera import make_camera
+
+    torch.set_num_threads(1)
+    _RENDER.update(cam=make_camera(camera, device="cpu"), landmarks=landmarks,
+                   intens=intens, r_cb=r_cb, p_bc=p_bc)
+
+
+def _render_frame(pose) -> np.ndarray:
+    """One agent frame before its photometric nuisances: the room ray-traced
+    through the camera with each landmark's texture splatted on."""
+    from cvids_tpu_torch.io import render
+
+    r_wb, p_wb = pose
+    w = _RENDER
+    base, _ = render.render_textured_scene(w["cam"], r_wb @ w["r_cb"].T, p_wb + r_wb @ w["p_bc"],
+                                           AGENT_SCENE)
+    return render.render_blobs(w["cam"], w["landmarks"], w["intens"], r_wb, p_wb, w["r_cb"],
+                               w["p_bc"], base=base)
+
+
+def _agent_nuisances(raw, seq, seed, r_cb, fx) -> list[np.ndarray]:
+    """One agent's photometric nuisances, frame after frame from one
+    generator (auto-exposure flicker with a random walk, vignette, shot and
+    read noise, rotational motion blur from the gyro), then the 8-bit
+    quantization of a PNG."""
+    from cvids_tpu_torch.io import render
+
+    pm, pm_rng, walk, images = AGENT_PHOTOMETRIC, np.random.default_rng(seed + 3301), 0.0, []
+    for i, t in enumerate(seq.times_kf):
+        walk = 0.9 * walk + pm_rng.normal(0.0, 0.3 * pm["flicker"])
+        exposure = 1.0 + pm["flicker"] * np.sin(2.6 * t + 0.7) + walk
+        w_c = r_cb @ seq.gyr[int(np.argmin(np.abs(seq.imu_t - t)))]
+        img = render.apply_photometric(
+            raw[i], pm_rng, exposure=float(np.clip(exposure, 0.3, 3.0)),
+            vignette=pm["vignette"], noise_std=pm["noise_std"], shot_noise=pm["shot_noise"],
+            blur_px=float(np.hypot(w_c[0], w_c[1]) * pm["exposure_time"] * fx),
+            blur_dir=(-w_c[1], w_c[0]))
+        images.append(np.clip(img, 0, 255).astype(np.uint8).astype(np.float32))
+    return images
+
+
+_ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+def agent_sequences(cfg, n_agents=AGENTS, duration=AGENT_DURATION, n_landmarks=AGENT_LANDMARKS,
+                    seed=0, workers=8):
+    """Each agent's sequence as `io/euroc_synth.write_euroc_sequence` renders
+    it for test_full_system.py, in memory: a speed-modulated circle (radius
+    1.5 m, phases 0 and 0.45), exact IMU at IMU_RATE with noise and bias,
+    frames at CAM_RATE ray-traced in the room through the agent's camera
+    (distortion and all) with each landmark's texture splatted on, the
+    photometric nuisances (flicker, vignette, noise, rotational blur), and
+    the 8-bit quantization of a PNG. `seed` moves every draw (the world,
+    the IMU noise and biases' walk, the nuisances; 0 is phase 8's), and
+    `workers` render processes share the frames. Returns per agent a dict
+    of cam_t, images, imu_t, gyr, acc and the ground truth gt_t, gt_p,
+    gt_q."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from cvids_tpu_torch.geometry.hostmath import quat_to_matrix_np
+    from cvids_tpu_torch.io import render, synthetic
+
+    r_cb = np.asarray(cfg.r_cb, np.float64)
+    p_bc = np.asarray(cfg.p_bc, np.float64)
+    rng = np.random.default_rng(AGENT_WORLD_SEED + 77 + 1000 * seed)
+    landmarks = render.sample_scene_landmarks(n_landmarks, rng, AGENT_SCENE)
+    intens = rng.uniform(80, 200, n_landmarks)
+    seqs, poses = [], []
+    for cid in range(n_agents):
+        traj = synthetic.Trajectory.circle(radius=1.5, omega=0.5, height_amp=0.15,
+                                           phase=(0.0, 0.45)[cid % 2] + 0.9 * (cid // 2),
+                                           center=(0.0, 0.0, 1.3), speed_mod=0.3,
+                                           speed_mod_freq=0.9)
+        seq = synthetic.generate_sequence(traj, duration=duration, kf_rate=CAM_RATE,
+                                          imu_rate=IMU_RATE, num_landmarks=0, seed=21 + cid + 1000 * seed,
+                                          gyr_noise=2e-4, acc_noise=0.005,
+                                          bg=(0.001, -0.001, 0.0005), ba=(0.005, -0.01, 0.02))
+        seqs.append(seq)
+        poses += [(quat_to_matrix_np(q.astype(np.float32)).astype(np.float32), p)
+                  for q, p in zip(seq.q_gt, seq.p_gt)]
+    # the frames in worker processes (spawned: this process holds a CUDA
+    # context; one BLAS thread each), then each agent's photometric
+    # nuisances in order, one worker an agent
+    saved = {k: os.environ.get(k) for k in _ONE_THREAD}
+    os.environ.update(_ONE_THREAD)
+    try:
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                 initializer=_render_init,
+                                 initargs=(cfg.camera, landmarks, intens, r_cb, p_bc)) as ex:
+            raw = list(ex.map(_render_frame, poses, chunksize=8))
+            starts = np.cumsum([0] + [len(s.times_kf) for s in seqs])
+            jobs = [ex.submit(_agent_nuisances, raw[starts[c]:starts[c + 1]], seqs[c],
+                              21 + c + 1000 * seed,
+                              r_cb, float(cfg.camera.fx)) for c in range(n_agents)]
+            images = [j.result() for j in jobs]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return [dict(cam_t=s.times_kf, images=im, imu_t=s.imu_t, gyr=s.gyr, acc=s.acc,
+                 gt_t=s.times_kf, gt_p=s.p_gt, gt_q=s.q_gt) for s, im in zip(seqs, images)]
+
+
+def agents_run(device, seqs, cfg):
+    """Every frame of every agent through its own `AgentFrontend` on
+    `device`, agent after agent, as test_full_system.py feeds them (the IMU
+    since the previous frame; the first frame the accelerometer of the 0.1 s
+    before it). Returns (front-ends, packets per agent, per-frame rows
+    (agent, frame, keyframe?, host ms with the device synced), the tracer,
+    host syncs per frame over AGENT_SYNC_WINDOW, and agent 0's profiled
+    frames: (device activities, device ms, wall ms) each)."""
+    from cvids_tpu_torch.utils.tracing import Tracer
+    from cvids_tpu_torch.vio.frontend import AgentFrontend
+
+    dev = torch.device(device)
+    tracer = Tracer()
+    fes = [AgentFrontend(cfg, cid, device=dev, tracer=tracer) for cid in range(len(seqs))]
+    packets, rows, syncs, profiled = [[] for _ in seqs], [], float("nan"), []
+    on_card = dev.type == "cuda"
+    for cid, (seq, fe) in enumerate(zip(seqs, fes)):
+        prev_t, counter = None, None
+        for fi, t in enumerate(seq["cam_t"]):
+            if prev_t is None:
+                sel = (seq["imu_t"] >= t - 0.1) & (seq["imu_t"] < t)
+                args = (np.zeros((0, 3)), seq["acc"][sel], np.zeros(0))
+            else:
+                sel = (seq["imu_t"] >= prev_t) & (seq["imu_t"] < t)
+                ts = seq["imu_t"][sel]
+                args = (seq["gyr"][sel], seq["acc"][sel], np.diff(np.append(ts, t)))
+            prev_t = t
+            if on_card and cid == 0 and fi == AGENT_SYNC_WINDOW[0]:
+                counter = SyncCounter().__enter__()
+            kf0 = fe.kf_count
+            call = lambda: fe.process_frame(t, seq["images"][fi], *args)   # noqa: E731
+            if on_card and cid == 0 and AGENT_PROFILE_WINDOW[0] <= fi < AGENT_PROFILE_WINDOW[1]:
+                out = []
+                wall, acts = profile_frame(lambda: out.append(call()))
+                pkt = out[0]
+                profiled.append((sum(a[2] for a in acts), sum(a[1] for a in acts), wall))
+                ms = wall
+            else:
+                t0 = time.perf_counter()
+                pkt = call()
+                _sync(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+            if counter is not None and fi == AGENT_SYNC_WINDOW[1] - 1:
+                counter.__exit__(None, None, None)
+                syncs, counter = counter.count / (AGENT_SYNC_WINDOW[1] - AGENT_SYNC_WINDOW[0]), None
+            rows.append((cid, fi, fe.kf_count > kf0, ms))
+            if pkt is not None:
+                packets[cid].append(pkt)
+        if counter is not None:
+            counter.__exit__(None, None, None)
+    return fes, packets, rows, tracer, syncs, profiled
+
+
+def graph_checks(fe, seq) -> None:
+    """The front-end's CUDA graphs against the eager calls on the same
+    inputs: one KLT call on the agent's last two frames, one window solve on
+    its final window. The same kernels in the same order: the same bits
+    (checked to 1e-6 relative, and the largest difference printed)."""
+    from cvids_tpu_torch.vio import frontend, window_ba
+
+    img0, img1 = (fe._t(fe._preprocess(seq["images"][i])) for i in (-2, -1))
+    args = (img0, img1, fe._t(fe.feat_xy), fe._t(fe.feat_valid, torch.bool), fe._t(fe.feat_xy), 1.5)
+    graphed, eager = fe._track(*args), frontend._track_points(*args)
+    meas = fe._build_meas()
+    iters = fe.cfg.max_solver_iterations
+    (s_g, c_g), (s_e, c_e) = (fe._solve_fast(fe.state, meas, iters),
+                              window_ba.solve_window_fast(fe.state, meas, iters=iters))
+    diffs = {}
+    for name, a, b in ([("klt " + f, x, y) for f, x, y in zip(graphed._fields, graphed, eager)]
+                       + [("solve " + f, x, y) for f, x, y in zip(s_g._fields, s_g, s_e)]
+                       + [("solve cost", c_g, c_e)]):
+        a, b = a.float(), b.float()
+        diffs[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    worst = max(diffs, key=diffs.get)
+    check(all(call.graphs and call.replays for call in (fe._track, fe._solve_fast)),
+          "a front-end call was not replayed as a CUDA graph")
+    check(diffs[worst] <= 1e-6, f"graph replay differs from the eager call: {diffs}")
+    print(f"  CUDA graphs: {len(fe._track.graphs)} KLT and {len(fe._solve_fast.graphs)} solve "
+          f"graph(s) captured, {fe._track.replays} and {fe._solve_fast.replays} replays; one "
+          f"KLT call and one solve replayed against the eager calls: largest relative "
+          f"difference {diffs[worst]:.3g} ({worst}; tolerance 1e-6)")
+
+
+def agents_score(server, seqs, cfg, dense_h, dense_w, n_agents):
+    """Scores the server fed by the agents as test_full_system.py does:
+    (ATE sim3 per agent in m, inverse-depth RMS per scored map, overlaps,
+    mesh median scene distance in m, triangles)."""
+    import tempfile
+
+    from cvids_tpu_torch.camera import PinholeCamera
+    from cvids_tpu_torch.geometry.hostmath import quat_to_matrix_np
+    from cvids_tpu_torch.io import render
+    from cvids_tpu_torch.mapping.mesh import read_ply
+    from cvids_tpu_torch.utils.metrics import ate_rmse, umeyama
+
+    ates = []
+    for cid in range(n_agents):
+        tr = server.trajectory(cid)
+        gt_p = np.stack([np.interp(tr[:, 0], seqs[cid]["gt_t"], seqs[cid]["gt_p"][:, k])
+                         for k in range(3)], -1)
+        ates.append(ate_rmse(tr[:, 1:4], gt_p, "sim3"))
+    c = cfg.camera
+    pin = PinholeCamera.create(c.fx, c.fy, c.cx, c.cy, (0, 0, 0, 0), dense_w, dense_h,
+                               device="cpu")
+    r_cb = np.asarray(cfg.r_cb, np.float64)
+    p_bc = np.asarray(cfg.p_bc, np.float64)
+    st = server.graph.store
+    rmses, overlaps = [], []
+    for rec in server.depth_records:
+        seq = seqs[rec["client"]]
+        gi = int(np.argmin(np.abs(seq["gt_t"] - float(st.timestamp[rec["ref_index"]]))))
+        r_wb = quat_to_matrix_np(seq["gt_q"][gi])
+        _, depth_gt = render.render_textured_scene(pin, r_wb @ r_cb.T, seq["gt_p"][gi] + r_wb @ p_bc,
+                                                   AGENT_SCENE)
+        est = rec["depth"]
+        both = (est > 0) & (depth_gt > 0.2) & (depth_gt < 6.0)
+        overlaps.append(float(both.mean()))
+        if both.mean() >= 0.02:
+            rmses.append(float(np.sqrt(np.mean((1.0 / est[both] - 1.0 / depth_gt[both]) ** 2))))
+    with tempfile.TemporaryDirectory() as tmp:
+        n_tri = server.save_mesh(f"{tmp}/scene.ply")
+        verts, _, _ = read_ply(f"{tmp}/scene.ply")
+    verts = np.asarray(verts, np.float64).reshape(-1, 3)
+    tr0 = server.trajectory(0)
+    gt0 = np.stack([np.interp(tr0[:, 0], seqs[0]["gt_t"], seqs[0]["gt_p"][:, k])
+                    for k in range(3)], -1)
+    _, r_al, t_al = umeyama(tr0[:, 1:4], gt0)
+    dist = (float(np.median(scene_distance(verts @ r_al.T + t_al, AGENT_SCENE)))
+            if len(verts) else float("inf"))
+    return ates, rmses, overlaps, dist, n_tri
+
+
+def _ms_stats(v) -> str:
+    v = np.asarray(v, np.float64)
+    return (f"median {np.median(v):.3f} p90 {np.percentile(v, 90):.3f} (n {len(v)})"
+            if len(v) else "none")
+
+
+def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
+                 dense=None, vocab_shape=(10, 4)):
+    """Phase 8: two agents' front-ends on rendered pixels and IMU into the
+    whole server. Each agent (EuRoC rig: 752x480 radtan, `agent_config()`)
+    tracks every 20 Hz frame of its ~10 s sequence on `device` (KLT and the
+    window solve replayed as CUDA graphs on the card, held to the eager
+    calls by `graph_checks`); the packets,
+    in time order, go through `CollaborativeServer` with the held-out
+    `generic_vocabulary(10, 4)`, each client's radtan camera through
+    `set_client_camera`, dense depth at the image size (`agent_dense`) and
+    test_full_system.py's TSDF settings. Checks test_full_system.py's bounds:
+    both agents VI-initialized with >= 8 packets, both clients aligned, >= 1
+    loop, ATE sim3 < 10 cm, median inverse-depth RMS < 0.12, mesh median
+    scene distance < 0.15 m; every kernel launched but the banded warp,
+    whose host gate these keyframes' rotations exceed, and four of each
+    kernel's calls equal to the twin's on their inputs (`KernelRecorder`,
+    on the card); an `AgentFrontend`
+    built with no device on the card. `camera` and `dense` replace the
+    EuRoC camera and the dense size for a rehearsal on the CPU. Returns the
+    server run's launch counts."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.server.pipeline import CollaborativeServer
+    from cvids_tpu_torch.vio.frontend import AgentFrontend
+
+    dev = torch.device(device)
+    cfg = agent_config(camera)
+    c = cfg.camera
+    t0 = time.perf_counter()
+    seqs = agent_sequences(cfg, n_agents, duration)
+    print(f"phase 8 agents: {n_agents} agents x {len(seqs[0]['cam_t'])} frames of "
+          f"{c.width}x{c.height} ({c.model}, k1 {c.k1}) at {CAM_RATE:.0f} Hz, IMU at "
+          f"{IMU_RATE:.0f} Hz, rendered in {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        fe = AgentFrontend(cfg)
+        check(fe.device == dev and fe.state.lm.device == dev and fe.cam.fx.device == dev,
+              f"an AgentFrontend built with no device is on {fe.device}, not {dev}")
+        print(f"  an AgentFrontend built with no device argument: state and camera on {fe.device}")
+        torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    fes, packets, rows, tracer, syncs, profiled = agents_run(dev, seqs, cfg)
+    fe_s = time.perf_counter() - t0
+    peak_fe = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    frame_ms = [r[3] for r in rows if not r[2]]
+    kf_ms = [r[3] for r in rows if r[2]]
+    n_pk = [len(p) for p in packets]
+    print(f"  front-ends: {len(rows)} frames in {fe_s:.1f} s ({sum(frame_ms) / 1e3:.1f} s in "
+          f"plain frames, {sum(kf_ms) / 1e3:.1f} s in keyframes); host ms per frame (device "
+          f"synced after each) {_ms_stats(frame_ms)}; per keyframe {_ms_stats(kf_ms)}; "
+          f"keyframes {[f.kf_count for f in fes]}, packets {n_pk}; peak device memory "
+          f"{peak_fe:.2f} GiB")
+    print("  front-end spans, host ms: " + "; ".join(
+        f"{name} {_ms_stats(np.asarray(v) * 1e3)}" for name, v in tracer.samples.items()))
+    if profiled:
+        acts = [p[0] for p in profiled]
+        busy = [p[1] for p in profiled]
+        wall = [p[2] for p in profiled]
+        print(f"  agent 0 frames {AGENT_PROFILE_WINDOW[0]}-{AGENT_PROFILE_WINDOW[1] - 1} "
+              f"profiled: device activities per frame {acts}; device busy ms "
+              f"{[round(b, 3) for b in busy]}; wall ms {[round(w, 1) for w in wall]}; busy "
+              f"share {sum(busy) / sum(wall):.3f}")
+    print(f"  host syncs per frame (agent 0 frames {AGENT_SYNC_WINDOW[0]}-"
+          f"{AGENT_SYNC_WINDOW[1] - 1}): {syncs:.1f}; track stats {fes[0].track_stats}")
+    if dev.type == "cuda":
+        graph_checks(fes[0], seqs[0])
+    check(all(f.vi_initialized for f in fes), "an agent never VI-initialized")
+    check(min(n_pk) >= 8, f"packets per agent {n_pk}: fewer than 8")
+
+    dense = dense or agent_dense(c)
+    pcfg = agent_pipeline_config(c, dense)
+    t0 = time.perf_counter()
+    tree = vocab.generic_vocabulary(*vocab_shape, device=dev)
+    voc_s = time.perf_counter() - t0
+    server = CollaborativeServer(tree, pcfg, device=dev)
+    for cid, fe in enumerate(fes):
+        server.set_client_camera(cid, fe.cam)
+    merged = sorted([p for pk in packets for p in pk], key=lambda p: p.timestamp)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    kf_ms_srv = []
+    recorder = KernelRecorder() if dev.type == "cuda" else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    try:
+        with recorder:
+            for p in merged:
+                t1 = time.perf_counter()
+                server.submit(p)
+                server.process()
+                kf_ms_srv.append((time.perf_counter() - t1) * 1e3)
+            server.optimize()
+            _sync(dev)
+    finally:
+        server.close()
+    srv_s = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    if dev.type == "cuda":
+        compared = recorder.compare()
+        check(all(compared.get(n, 0) == len(KernelRecorder.CALLS) for n in counts
+                  if counts[n] > max(KernelRecorder.CALLS)),
+              f"kernel calls held against the twins {compared}, launches {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    ates, rmses, overlaps, dist, n_tri = agents_score(server, seqs, cfg, dense.height,
+                                                      dense.width, n_agents)
+    med_rms = float(np.median(rmses)) if rmses else float("inf")
+    g = server.graph
+    spans = {name: np.asarray(v) * 1e3 for name, v in server.tracer.samples.items()}
+    print(f"  server: generic_vocabulary{vocab_shape} in {voc_s:.1f} s; {len(merged)} "
+          f"packets in {srv_s:.2f} s, host ms per keyframe {_ms_stats(kf_ms_srv)}; peak "
+          f"device memory {peak:.2f} GiB")
+    print("  server spans, host ms: " + "; ".join(f"{n} {_ms_stats(v)}" for n, v in spans.items()))
+    print(f"  aligned {[cl.aligned for cl in g.clients[:n_agents]]}; loops {g.loop_count}; "
+          f"ATE sim3 cm {[round(a * 100, 2) for a in ates]}; depth maps "
+          f"{server.depth_maps_published}, inverse-depth RMS median {med_rms:.4f} over "
+          f"{len(rmses)} maps (overlap max {max(overlaps, default=0):.3f}); mesh {n_tri} "
+          f"triangles, median scene distance {dist:.4f} m; launches {counts}")
+    check(g.loop_count >= 1, "no loop closure between the agents")
+    check(all(cl.aligned for cl in g.clients[:n_agents]), "a client never aligned")
+    check(all(a < 0.10 for a in ates), f"ATE sim3 {ates} m: not all < 0.10")
+    check(len(rmses) >= 2 and med_rms < 0.12, f"median inverse-depth RMS {med_rms} ({rmses})")
+    check(dist < 0.15, f"mesh median scene distance {dist} m >= 0.15")
+    if dev.type == "cuda":
+        # the banded warp runs only where the host gate passes: keyframes
+        # 0.4 s apart on this circle rotate by ~11 degrees, ~90 px at 461.6
+        # px, beyond the band (88 px), so the exact warp takes every frame
+        gated = ("warp_banded",)
+        check(all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS if n not in gated),
+              f"a kernel did not run in phase 8: {counts}")
+        print(f"  launches: every kernel of the path ran; the banded warp {counts['warp_banded']} "
+              f"times (its host gate)")
+    print("phase 8 agents: ok")
+    return counts
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1840,8 +2377,12 @@ def main() -> int:
     # phase 7: distorted, fisheye and Mei clients through the whole server
     dist_counts = distorted_phase(dev, tree)
 
+    # phase 8: two agents' front-ends on rendered pixels and IMU -> the server
+    agent_counts = agents_phase(dev)
+
     # launches: the whole server's run (phase 6), which drives all six;
     # launches_phase7: the distorted clients' run, which drives them again;
+    # launches_phase8: the server fed by the agents' front-ends;
     # launches_per_frame: per fuse_measurement of phase 4's chain; the
     # Hamming kernel's launches_per_keyframe: of phase 6's stream.
     # floor_ms: the empty kernel through the same launch path, timed the same
@@ -1855,7 +2396,8 @@ def main() -> int:
     floor = extras["floor_ms"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],
-                "launches_phase7": dist_counts[name], **rate[name],
+                "launches_phase7": dist_counts[name],
+                "launches_phase8": agent_counts[name], **rate[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2], "bound_ms": checks[name][3],
                 "bound_by": checks[name][4], "floor_ms": floor,

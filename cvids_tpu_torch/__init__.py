@@ -11,8 +11,9 @@ Ported so far:
 
 - ``ops``:      image blur, gradients, pyramids and warps, plane-sweep cost,
                 SGM + WTA,
-                Gaussian×Beta depth filter, Hamming matching, PnP and
-                fundamental-matrix RANSAC, and the six CUDA kernels of
+                Gaussian×Beta depth filter, Hamming matching, PnP,
+                fundamental-matrix and essential-matrix RANSAC, FAST, BRIEF
+                and pyramidal KLT, and the six CUDA kernels of
                 ``ops/cuda_kernels.py``: ``projective_warp_banded``,
                 ``plane_sweep``, ``sgm_scan_bidir`` (both orientations),
                 ``wta``, ``depth_filter_update``, ``hamming_matrix``
@@ -34,11 +35,15 @@ Ported so far:
 - ``mapping``:  the chunked TSDF volume on the device (``tsdf``) and its
                 meshing by marching tetrahedra with PLY export (``mesh``,
                 ``ops/marching_cubes.py``)
+- ``vio``:      the agent: IMU preintegration, the visual-inertial
+                bootstrap, the sliding-window BA and ``AgentFrontend``
+                (pixels and IMU in, keyframe packets out)
 - ``utils``:    stage tracing, server/TSDF checkpoints (the JAX package's
-                npz layout, so either package loads the other's) and
-                ``config.CameraConfig``
-- ``io``:       the keyframe packet, the synthetic multi-agent streams and
-                the textured-room renderer (numpy, copied from
+                npz layout, so either package loads the other's), the typed
+                configs (``config``), trajectory metrics and the CUDA-graph
+                replay of fixed-shape calls (``cuda_graph``)
+- ``io``:       the keyframe packet, the synthetic sequences and
+                multi-agent streams, and the renderers (numpy, copied from
                 ``cvids_tpu.io``)
 - ``native``:   the C++ max clique for PCM (``fmc.cpp``, built with the
                 host's compiler at first use)
@@ -50,7 +55,7 @@ The package imports ``torch`` and never ``jax``, nor any module of
 
 Entry points that own device state (``CollaborativeServer``,
 ``CollaborativePoseGraph``, ``TsdfVolume``, ``SparseBowDatabase``,
-``train_vocabulary``) and the helpers that make tensors from nothing or
+``train_vocabulary``, ``generic_vocabulary``, ``AgentFrontend``) and the helpers that make tensors from nothing or
 from host data (``ops.depth_filter.init_state``,
 ``ops.hamming.descriptors_to_torch``, ``ops.ransac.gumbel_noise``, the
 cameras' ``create``, ``camera.make_camera`` and the chessboard tools) run on

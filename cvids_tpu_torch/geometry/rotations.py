@@ -74,7 +74,8 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    # no host-built constant: capturable in a CUDA graph
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:

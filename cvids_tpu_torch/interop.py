@@ -12,7 +12,11 @@ as float32 (exact). The server's inputs cross the same way: a `Vocabulary`
 field, the nested configs included). A TSDF volume crosses whole: its pool
 arrays and its host tables. A camera crosses by its fields: any object that
 carries a JAX camera's field values (numpy or numbers) and its class name
-becomes the port's camera of that name, and back. Nothing here imports JAX.
+becomes the port's camera of that name, and back. The front-end's state
+crosses by its fields too: a `WindowState`, a `Preintegrated` (stacked or
+not), a `CamPriorFactor`, FAST `Keypoints`, a BRIEF pattern, and an
+`AgentConfig` with its `CameraConfig` and `ImuNoise` (to the port's
+dataclasses, and back as a dict of plain fields). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ from .server.optimizer import PoseGraphEdges, PoseGraphNodes
 from .server.pipeline import PipelineConfig
 from .server.posegraph import ServerConfig
 from .server.vocab import TreeVocabulary, Vocabulary
+from .ops.fast import Keypoints
+from .utils.config import AgentConfig, CameraConfig
+from .vio.imu import ImuNoise, Preintegrated
+from .vio.window_ba import CamPriorFactor, WindowState
 
 __all__ = ["array_to_torch", "tensor_to_numpy",
            "dense_state_to_torch", "dense_state_to_numpy",
@@ -40,7 +48,13 @@ __all__ = ["array_to_torch", "tensor_to_numpy",
            "vocabulary_to_torch", "tree_vocabulary_to_torch",
            "server_config_to_torch", "pipeline_config_to_torch",
            "tsdf_volume_to_torch", "tsdf_volume_to_numpy",
-           "camera_to_torch", "camera_to_numpy"]
+           "camera_to_torch", "camera_to_numpy",
+           "window_state_to_torch", "window_state_to_numpy",
+           "preintegrated_to_torch", "preintegrated_to_numpy",
+           "cam_prior_to_torch", "cam_prior_to_numpy",
+           "keypoints_to_torch", "keypoints_to_numpy",
+           "brief_pattern_to_torch", "brief_pattern_to_numpy",
+           "agent_config_to_torch", "agent_config_to_dict"]
 
 
 def array_to_torch(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -218,3 +232,83 @@ def _copy_table(v):
     if isinstance(v, (list, set)):
         return type(v)(int(x) for x in v)
     return v
+
+
+_BOOL_FIELDS = ("kf_valid", "lm_valid", "valid")
+
+
+def _fields_to_torch(cls, s, device):
+    return cls(*(array_to_torch(getattr(s, f), device,
+                                torch.bool if f in _BOOL_FIELDS else torch.float32)
+                 for f in cls._fields))
+
+
+def _fields_to_numpy(s):
+    return type(s)(*(tensor_to_numpy(x) for x in s))
+
+
+def window_state_to_torch(s, device) -> WindowState:
+    """A JAX `WindowState` with numpy leaves (float32 states, bool masks)."""
+    return _fields_to_torch(WindowState, s, device)
+
+
+def window_state_to_numpy(s: WindowState) -> WindowState:
+    return _fields_to_numpy(s)
+
+
+def preintegrated_to_torch(p, device) -> Preintegrated:
+    """A JAX `Preintegrated` (one interval or stacked) with numpy leaves."""
+    return _fields_to_torch(Preintegrated, p, device)
+
+
+def preintegrated_to_numpy(p: Preintegrated) -> Preintegrated:
+    return _fields_to_numpy(p)
+
+
+def cam_prior_to_torch(p, device) -> CamPriorFactor:
+    """A JAX `CamPriorFactor` with numpy leaves."""
+    return _fields_to_torch(CamPriorFactor, p, device)
+
+
+def cam_prior_to_numpy(p: CamPriorFactor) -> CamPriorFactor:
+    return _fields_to_numpy(p)
+
+
+def keypoints_to_torch(k, device) -> Keypoints:
+    """JAX FAST `Keypoints` with numpy leaves."""
+    return _fields_to_torch(Keypoints, k, device)
+
+
+def keypoints_to_numpy(k: Keypoints) -> Keypoints:
+    return _fields_to_numpy(k)
+
+
+def brief_pattern_to_torch(pattern, device) -> torch.Tensor:
+    """A (bits, 4) BRIEF test pattern as the int32 tensor the port's
+    `compute_brief` accepts as `pattern`."""
+    return array_to_torch(np.asarray(pattern, np.int32), device)
+
+
+def brief_pattern_to_numpy(pattern: torch.Tensor) -> np.ndarray:
+    """A pattern tensor back as the (bits, 4) int32 array both packages'
+    `compute_brief` and `save_brief_pattern_yaml` take."""
+    return tensor_to_numpy(pattern).astype(np.int32)
+
+
+def agent_config_to_torch(cfg) -> AgentConfig:
+    """A JAX `AgentConfig` (any object with its fields, its `camera` and
+    `imu` included) as the port's, field by field."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(AgentConfig)}
+    fields["camera"] = _copy_config(CameraConfig, cfg.camera)
+    fields["imu"] = ImuNoise(*(getattr(cfg.imu, f) for f in ImuNoise._fields))
+    return AgentConfig(**fields)
+
+
+def agent_config_to_dict(cfg: AgentConfig) -> dict:
+    """The port's `AgentConfig` as plain fields: a dict whose `camera` and
+    `imu` are dicts too. The JAX package's config is
+    ``AgentConfig(camera=CameraConfig(**d["camera"]), imu=ImuNoise(**d["imu"]), **rest)``."""
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(AgentConfig)}
+    d["camera"] = dataclasses.asdict(cfg.camera)
+    d["imu"] = dict(cfg.imu._asdict())
+    return d

@@ -1,10 +1,11 @@
-"""Closed-form trajectories for synthetic worlds (the part of
-``cvids_tpu/io/synthetic.py`` that the server's multi-agent streams use,
-copied so that the port runs without the JAX package).
+"""Synthetic visual-inertial worlds (copy of ``cvids_tpu/io/synthetic.py``,
+numpy, so that the port runs without the JAX package).
 
-Smooth closed-form paths with a velocity-following heading: the ground truth
-of the synthetic multi-agent streams (`io.multiagent`). The IMU sequences of
-the JAX module belong to the VIO front-end, which is not ported yet.
+Smooth closed-form paths with a velocity-following heading (the ground truth
+of the synthetic multi-agent streams, `io.multiagent`), and one agent's
+sequence on such a path: exact IMU (gyro/accel) measurements derived by
+finite differences at the IMU rate with noise and bias, a landmark cloud and
+its projected feature tracks (`generate_sequence`, `imu_slices`).
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import Callable
 
 import numpy as np
 
-__all__ = ["Trajectory", "quat_from_matrix_np"]
+__all__ = ["Trajectory", "quat_from_matrix_np", "SyntheticSequence",
+           "generate_sequence", "imu_slices", "GRAVITY_W"]
+
+GRAVITY_W = np.array([0.0, 0.0, -9.81])
 
 
 def _normalize(v):
@@ -80,3 +84,124 @@ class Trajectory:
             ], axis=-1)
 
         return Trajectory(f)
+
+
+@dataclass
+class SyntheticSequence:
+    """One agent's ground truth + measurements."""
+
+    times_kf: np.ndarray          # (K,) keyframe timestamps
+    p_gt: np.ndarray              # (K, 3) body position (world)
+    q_gt: np.ndarray              # (K, 4) body orientation (world<-body)
+    v_gt: np.ndarray              # (K, 3)
+    imu_t: np.ndarray             # (M,) imu timestamps (full sequence)
+    gyr: np.ndarray               # (M, 3) measured (with noise+bias)
+    acc: np.ndarray               # (M, 3)
+    bg_true: np.ndarray           # (3,)
+    ba_true: np.ndarray           # (3,)
+    landmarks: np.ndarray         # (L, 3) world points
+    obs: np.ndarray               # (K, L, 2) normalized image coords (NaN if unseen)
+    vis: np.ndarray               # (K, L) bool visibility
+
+
+def generate_sequence(
+    traj: Trajectory,
+    duration: float = 20.0,
+    kf_rate: float = 2.0,
+    imu_rate: float = 200.0,
+    num_landmarks: int = 150,
+    seed: int = 0,
+    gyr_noise: float = 0.004,
+    acc_noise: float = 0.08,
+    bg: tuple = (0.003, -0.002, 0.004),
+    ba: tuple = (0.02, -0.03, 0.05),
+    pix_noise_norm: float = 0.5 / 460.0,
+    fov_cos: float = 0.45,
+    max_range: float = 18.0,
+    landmark_box: float = 12.0,
+) -> SyntheticSequence:
+    rng = np.random.default_rng(seed)
+    k = int(duration * kf_rate) + 1
+    times_kf = np.arange(k) / kf_rate
+    p_kf, r_kf, v_kf = traj.pose(times_kf)
+    q_kf = np.stack([quat_from_matrix_np(r) for r in r_kf])
+
+    # IMU: exact kinematics by central differences at imu rate
+    m = int(duration * imu_rate) + 1
+    imu_t = np.arange(m) / imu_rate
+    eps = 1e-4
+    p0, r0, v0 = traj.pose(imu_t)
+    _, r_plus, v_plus = traj.pose(imu_t + eps)
+    _, r_minus, v_minus = traj.pose(imu_t - eps)
+    a_w = (v_plus - v_minus) / (2 * eps)
+    # gyro: Log(R(t)^T R(t+eps))/eps (body rates)
+    gyr_true = np.empty((m, 3))
+    for i in range(m):
+        dr = r_minus[i].T @ r_plus[i]
+        # rotation vector of dr
+        ang = np.arccos(np.clip((np.trace(dr) - 1) / 2, -1, 1))
+        if ang < 1e-12:
+            w = np.zeros(3)
+        else:
+            w = ang / (2 * np.sin(ang)) * np.array(
+                [dr[2, 1] - dr[1, 2], dr[0, 2] - dr[2, 0], dr[1, 0] - dr[0, 1]])
+        gyr_true[i] = w / (2 * eps)
+    acc_true = np.einsum("nij,nj->ni", r0.transpose(0, 2, 1), a_w - GRAVITY_W)
+
+    bg = np.asarray(bg)
+    ba = np.asarray(ba)
+    gyr = gyr_true + bg + rng.normal(0, gyr_noise * np.sqrt(imu_rate), (m, 3))
+    acc = acc_true + ba + rng.normal(0, acc_noise * np.sqrt(imu_rate), (m, 3))
+
+    # landmarks around the trajectory volume
+    center = p_kf.mean(axis=0)
+    landmarks = center + rng.uniform(-landmark_box, landmark_box, (num_landmarks, 3))
+    landmarks[:, 2] = np.abs(landmarks[:, 2]) * 0.3 + 0.2
+
+    # observations: body x-axis is forward (camera optical axis = body x here;
+    # we use an ideal normalized camera looking along +x with y left, z up ->
+    # standard camera frame: z_cam = x_body, x_cam = -y_body, y_cam = -z_body)
+    r_bc = np.array([[0.0, -1.0, 0.0],
+                     [0.0, 0.0, -1.0],
+                     [1.0, 0.0, 0.0]]).T  # body->cam rotation: x_cam = R_cb x_body
+    obs = np.full((k, num_landmarks, 2), np.nan)
+    vis = np.zeros((k, num_landmarks), bool)
+    for i in range(k):
+        pc_body = (landmarks - p_kf[i]) @ r_kf[i]  # world->body
+        pc_cam = pc_body @ r_bc  # body->cam (note: transposed convention folded in)
+        z = pc_cam[:, 2]
+        rng_ok = (z > 0.3) & (np.linalg.norm(pc_cam, axis=1) < max_range)
+        dir_cos = z / np.maximum(np.linalg.norm(pc_cam, axis=1), 1e-9)
+        in_fov = dir_cos > fov_cos
+        good = rng_ok & in_fov
+        proj = pc_cam[:, :2] / np.maximum(z[:, None], 1e-9)
+        proj += rng.normal(0, pix_noise_norm, proj.shape)
+        obs[i, good] = proj[good]
+        vis[i] = good
+
+    return SyntheticSequence(times_kf, p_kf, q_kf, v_kf, imu_t, gyr, acc,
+                             bg, ba, landmarks, obs, vis)
+
+
+def imu_slices(seq: SyntheticSequence, max_samples: int = 128):
+    """Per-keyframe-interval IMU sample blocks, padded to `max_samples`.
+
+    Returns (gyr (K-1, S, 3), acc (K-1, S, 3), dts (K-1, S), valid (K-1, S)).
+    """
+    k = len(seq.times_kf)
+    out_g = np.zeros((k - 1, max_samples, 3))
+    out_a = np.zeros((k - 1, max_samples, 3))
+    out_dt = np.zeros((k - 1, max_samples))
+    out_v = np.zeros((k - 1, max_samples), bool)
+    for i in range(k - 1):
+        t0, t1 = seq.times_kf[i], seq.times_kf[i + 1]
+        sel = (seq.imu_t >= t0) & (seq.imu_t < t1)
+        idx = np.nonzero(sel)[0]
+        n = min(len(idx), max_samples)
+        out_g[i, :n] = seq.gyr[idx[:n]]
+        out_a[i, :n] = seq.acc[idx[:n]]
+        ts = seq.imu_t[idx[:n]]
+        ts_next = np.append(ts[1:], t1)
+        out_dt[i, :n] = ts_next - ts
+        out_v[i, :n] = True
+    return out_g, out_a, out_dt, out_v

@@ -1,5 +1,5 @@
-"""Batched-hypothesis RANSAC: PnP and fundamental matrix (port of the loop
-cascade's functions in ``cvids_tpu/ops/ransac.py``).
+"""Batched-hypothesis RANSAC: PnP, fundamental matrix and the essential-matrix
+pose (port of ``cvids_tpu/ops/ransac.py``).
 
 Fixed-shape hypothesis sweeps: all minimal sets are sampled up front, solved
 in one batched linear-algebra pass, and scored against all points with one
@@ -27,8 +27,8 @@ import torch
 from .. import resolve_device
 from ..geometry import matrix_to_quat, quat_to_matrix, so3_exp, so3_hat
 
-__all__ = ["pnp_ransac", "fundamental_ransac", "refine_pose_gn", "PnPResult",
-           "FResult", "gumbel_noise"]
+__all__ = ["pnp_ransac", "fundamental_ransac", "essential_pose", "refine_pose_gn",
+           "PnPResult", "FResult", "EPoseResult", "gumbel_noise"]
 
 
 class PnPResult(NamedTuple):
@@ -44,6 +44,14 @@ class FResult(NamedTuple):
     f: torch.Tensor            # (3, 3)
     inliers: torch.Tensor      # (N,) bool
     num_inliers: torch.Tensor
+
+
+class EPoseResult(NamedTuple):
+    r: torch.Tensor            # (3, 3) R_c1<-c0
+    t: torch.Tensor            # (3,) unit translation, cam1 frame
+    inliers: torch.Tensor      # (N,) bool (epipolar inliers)
+    num_pos: torch.Tensor      # cheirality votes of the winning decomposition
+    ok: torch.Tensor
 
 
 def gumbel_noise(num_hyp: int, n: int, generator: torch.Generator,
@@ -230,3 +238,51 @@ def fundamental_ransac(p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor,
     counts = torch.sum(inl, dim=1)
     best = torch.argmax(counts).reshape(1)                  # a tensor index: no host read
     return FResult(fs[best][0], inl[best][0], counts[best][0])
+
+
+def _two_view_depths(r: torch.Tensor, t: torch.Tensor, p0: torch.Tensor,
+                     p1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-point depths (z0, z1) for cam0 rays p0 and cam1 rays p1 (N, 2)
+    under x1 z1 = R x0 z0 + t, 2-unknown least squares per correspondence;
+    r (..., 3, 3), t (..., 3) -> (..., N) each."""
+    x0 = torch.cat([p0, torch.ones_like(p0[:, :1])], dim=1)        # (N, 3)
+    x1 = torch.cat([p1, torch.ones_like(p1[:, :1])], dim=1)
+    a0 = x0 @ r.transpose(-1, -2)                                  # (..., N, 3) = R x0
+    aa = torch.sum(a0 * a0, -1)
+    bb = torch.sum(x1 * x1, -1)
+    ab = torch.sum(a0 * x1, -1)
+    a_t = torch.sum(a0 * t[..., None, :], -1)
+    b_t = torch.sum(x1 * t[..., None, :], -1)
+    det = aa * bb - ab * ab
+    safe = torch.where(torch.abs(det) > 1e-12, det, torch.full((), 1e-12, device=det.device))
+    z0 = (-a_t * bb + ab * b_t) / safe
+    z1 = (-a_t * ab + aa * b_t) / safe
+    return z0, z1
+
+
+def essential_pose(p0: torch.Tensor, p1: torch.Tensor, valid: torch.Tensor,
+                   gumbel: torch.Tensor) -> EPoseResult:
+    """Relative camera pose from 2-view normalized correspondences: RANSAC
+    essential matrix (normalized coordinates make F = E, a 1.5 px threshold
+    at the virtual focal), one hypothesis per row of `gumbel` (num_hyp, N),
+    then the four-fold decomposition with a cheirality vote (the
+    `cv::recoverPose` role: the pre-VI-init visual pose bootstrap). U and V
+    are taken with det +1, so the candidate set is the same whatever signs
+    the SVD picks; the first candidate with the most votes wins."""
+    fres = fundamental_ransac(p0, p1, valid, gumbel, inlier_thresh=(1.5 / 460.0) ** 2)
+    u, _, vt = torch.linalg.svd(fres.f)
+    u = u * torch.sign(torch.linalg.det(u))
+    vt = vt * torch.sign(torch.linalg.det(vt))
+    w = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], device=u.device)
+    r_a, r_b = u @ w @ vt, u @ w.T @ vt
+    t_a = u[:, 2]
+    cand_r = torch.stack([r_a, r_a, r_b, r_b])
+    cand_t = torch.stack([t_a, -t_a, t_a, -t_a])
+    mask = fres.inliers & valid
+    z0, z1 = _two_view_depths(cand_r, cand_t, p0, p1)                # (4, N)
+    votes = torch.sum((z0 > 0) & (z1 > 0) & mask, dim=1)
+    best = torch.argmax(votes).reshape(1)                   # a tensor index: no host read
+    n_in = torch.sum(mask)
+    v_best = votes[best][0]
+    ok = (v_best >= 0.7 * torch.clamp(n_in, min=1)) & (n_in >= 8)
+    return EPoseResult(cand_r[best][0], cand_t[best][0], fres.inliers, v_best, ok)

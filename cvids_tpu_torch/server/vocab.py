@@ -31,7 +31,59 @@ __all__ = ["Vocabulary", "train_vocabulary", "quantize", "bow_vector",
            "score_database", "BowDatabase", "TreeVocabulary",
            "load_dbow_binary", "save_dbow_binary", "tree_from_trained",
            "quantize_tree", "sparse_bow", "SparseBowDatabase",
-           "synthesize_tree_vocabulary"]
+           "synthesize_tree_vocabulary", "generic_vocabulary"]
+
+
+_GENERIC_CACHE: dict = {}
+
+
+def generic_vocabulary(k: int = 10, levels: int = 4, seed: int = 20240,
+                       device=None) -> "TreeVocabulary":
+    """A held-out generic BRIEF vocabulary, the `brief_k10L6.bin` posture
+    (`collaborative_server_node.cpp:76-91`: the reference ships a pretrained
+    vocabulary and never trains on the evaluation sequence).
+
+    Descriptors come from 8 procedurally rendered worlds (2 views each)
+    whose seeds are disjoint from every test world, through FAST and BRIEF
+    on `device` (None: the card); the tree is trained on the host. The same
+    worlds, draws and features as the JAX package's, so the two trees are
+    equal. Deterministic and cached per (k, levels, seed)."""
+    device = resolve_device(device)
+    key = (k, levels, seed)
+    if key in _GENERIC_CACHE:
+        return _GENERIC_CACHE[key]
+    from ..camera.pinhole import PinholeCamera
+    from ..io import render
+    from ..ops import brief, fast
+    from ..ops.image import gaussian_blur
+
+    rng = np.random.default_rng(seed)
+    cam = PinholeCamera.create(220.0, 220.0, 160.0, 120.0, (0, 0, 0, 0), 320, 240,
+                               device="cpu")
+    descs = []
+    for w in range(8):          # 8 disjoint landmark worlds, 2 views each
+        n_lm = 400
+        lms = np.stack([rng.uniform(-6, 6, n_lm), rng.uniform(-6, 6, n_lm),
+                        rng.uniform(2.0, 9.0, n_lm)], -1)
+        inten = rng.uniform(60, 180, n_lm)
+        for _ in range(2):
+            yaw = rng.uniform(-0.4, 0.4)
+            r_wb = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                             [np.sin(yaw), np.cos(yaw), 0],
+                             [0, 0, 1.0]])
+            p_wb = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1), 0.0])
+            img = render.render_blobs(cam, lms, inten, r_wb, p_wb, np.eye(3), np.zeros(3),
+                                      idx_offset=10_000 * (w + 1))
+            img_t = torch.from_numpy(img).to(device)
+            blurred = gaussian_blur(img_t, 2.0, radius=4)
+            kps = fast.select_keypoints(fast.fast_score_map(img_t, 12.0), max_num=256, cell=8)
+            d = brief.compute_brief(blurred, kps.xy, pre_blurred=True)
+            descs.append(d[kps.valid].cpu().numpy().view(np.uint32))
+    all_desc = np.concatenate(descs)
+    voc = train_vocabulary(all_desc[:6000], k=k, levels=levels, seed=seed, device=device)
+    tree = tree_from_trained(voc)
+    _GENERIC_CACHE[key] = tree
+    return tree
 
 
 def _top_k(s: torch.Tensor, k: int):

@@ -1,1 +1,1 @@
-from . import checkpoint, config, tracing  # noqa: F401
+from . import checkpoint, config, metrics, tracing  # noqa: F401

@@ -1,4 +1,5 @@
-"""The six CUDA kernels against their PyTorch twins, on a CUDA card.
+"""The six CUDA kernels against their PyTorch twins, and the front-end's
+CUDA graphs against its eager calls, on a CUDA card.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
 
@@ -125,3 +126,71 @@ def test_launch_takes_a_device_without_an_index(dev):
     ck.empty_launch(dev)
     torch.cuda.synchronize()
     assert ck.launches == before        # the empty kernel is not counted
+
+
+def _klt_inputs(dev):
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:96, 0:128].astype(np.float32)
+    img0 = 120 + 40 * np.sin(0.31 * xx + 0.2 * yy) + 30 * np.cos(0.17 * xx - 0.41 * yy)
+    img1 = 120 + 40 * np.sin(0.31 * (xx - 1.5) + 0.2 * yy) + 30 * np.cos(0.17 * (xx - 1.5) - 0.41 * yy)
+    xy = rng.uniform(20, 76, (32, 2)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)   # noqa: E731
+    return t(img0), t(img1), t(xy), torch.ones(32, dtype=torch.bool, device=dev), t(xy), 1.5
+
+
+def test_graphed_klt_equals_eager(dev):
+    """The front-end's KLT call replayed as a CUDA graph gives the eager
+    call's bits, on fresh inputs after the capture too."""
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall
+    from cvids_tpu_torch.vio import frontend
+
+    call = GraphedCall(frontend._track_points)
+    args = _klt_inputs(dev)
+    for shift in (0.0, 0.7):
+        moved = (args[0], args[1], args[2] + shift, args[3], args[4] + shift, args[5])
+        _same(tuple(call(*moved)), tuple(frontend._track_points(*moved)))
+    assert len(call.graphs) == 1 and call.replays == 2
+
+
+def _window_problem(dev):
+    """test_vio.py's window problem (K=11, L=40), made by the port alone."""
+    from cvids_tpu_torch.geometry import yaw_of
+    from cvids_tpu_torch.io import synthetic
+    from cvids_tpu_torch.vio import imu, window_ba
+
+    seq = synthetic.generate_sequence(synthetic.Trajectory.circle(radius=5.0, omega=0.5),
+                                      duration=5.0, kf_rate=2.0, num_landmarks=40, seed=3)
+    rng = np.random.default_rng(0)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)    # noqa: E731
+    g, a, dt, v = synthetic.imu_slices(seq)
+    zero = torch.zeros(3, device=dev)
+    pre = imu.preintegrate(f(g), f(a), f(dt), zero, zero, sample_valid=torch.as_tensor(v, device=dev))
+    k, n = len(seq.times_kf), seq.landmarks.shape[0]
+    st = window_ba.WindowState(
+        p=f(seq.p_gt + rng.normal(0, 0.1, (k, 3))), q=f(seq.q_gt), v=f(seq.v_gt),
+        bg=torch.zeros((k, 3), device=dev), ba=torch.zeros((k, 3), device=dev),
+        lm=f(seq.landmarks + rng.normal(0, 0.1, (n, 3))),
+        kf_valid=torch.ones(k, dtype=torch.bool, device=dev),
+        lm_valid=torch.as_tensor(seq.vis.sum(0) >= 2, device=dev))
+    meas = window_ba.WindowMeasurements(
+        obs=f(np.nan_to_num(seq.obs)), vis=torch.as_tensor(seq.vis, device=dev), pre=pre,
+        pre_valid=torch.ones(k - 1, dtype=torch.bool, device=dev),
+        r_cb=f([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]]), p_bc=zero,
+        pix_weight=460.0, huber_delta=5.0, bias_weight=10.0, prior=None,
+        anchor_p=f(seq.p_gt[0]), anchor_yaw=yaw_of(f(seq.q_gt[0])))
+    return st, meas
+
+
+def test_graphed_solve_equals_eager(dev):
+    """The window solve replayed as a CUDA graph gives the eager call's
+    bits, on a second state after the capture too."""
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall
+    from cvids_tpu_torch.vio import window_ba as tba
+
+    st, m = _window_problem(dev)
+    call = GraphedCall(lambda s, mm: tba.solve_window_fast(s, mm, iters=4))
+    for shift in (0.0, 0.05):
+        s = st._replace(p=st.p + shift)
+        got, want = call(s, m), tba.solve_window_fast(s, m, iters=4)
+        _same(tuple(got[0]) + (got[1],), tuple(want[0]) + (want[1],))
+    assert len(call.graphs) == 1 and call.replays == 2

@@ -555,7 +555,11 @@ def test_port_imports_without_jax():
             "cvids_tpu_torch.utils.tracing, cvids_tpu_torch.io.render, "
             "cvids_tpu_torch.camera, cvids_tpu_torch.camera.models, "
             "cvids_tpu_torch.camera.chessboard, cvids_tpu_torch.geometry.fourdof, "
-            "cvids_tpu_torch.utils.config; "
+            "cvids_tpu_torch.utils.config, cvids_tpu_torch.utils.metrics, "
+            "cvids_tpu_torch.vio.imu, cvids_tpu_torch.vio.initializer, "
+            "cvids_tpu_torch.vio.window_ba, cvids_tpu_torch.vio.frontend, "
+            "cvids_tpu_torch.ops.fast, cvids_tpu_torch.ops.brief, cvids_tpu_torch.ops.klt, "
+            "cvids_tpu_torch.ops.ransac, cvids_tpu_torch.io.synthetic, cvids_tpu_torch.server.vocab; "
             "print('jax' in sys.modules, 'cvids_tpu' in sys.modules)")
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
                          capture_output=True, text=True, timeout=120)
@@ -650,6 +654,18 @@ def test_pipeline_port_runs_without_jax(tmp_path):
     assert res.stdout.split() == ["False", "False", "2"], res.stdout
 
 
+def _one_thread(fn, **kw):
+    """fn(**kw) on one intra-op thread (16 small renders and their FAST and
+    BRIEF: many threads slow them several times over when xdist workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(**kw)
+    finally:
+        torch.set_num_threads(n)
+
+
 def _device_owners():
     """(name, constructor taking a device) for every entry point of the port
     that owns device state, and every helper that makes tensors from nothing
@@ -657,8 +673,11 @@ def _device_owners():
     from cvids_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
     from cvids_tpu_torch.ops import depth_filter, hamming, ransac
     from cvids_tpu_torch.server import pipeline, posegraph, vocab
+    from cvids_tpu_torch.utils.config import AgentConfig, CameraConfig
+    from cvids_tpu_torch.vio.frontend import AgentFrontend
 
     tree = vocab.synthesize_tree_vocabulary(k=4, levels=2)
+    cam = CameraConfig(fx=60.0, fy=60.0, cx=32.0, cy=24.0, width=64, height=48)
     descs = np.random.default_rng(0).integers(0, 2 ** 32, (64, 8), dtype=np.uint32)
     small = posegraph.ServerConfig(kf_capacity=16, max_win=8, max_ext=8)
     pcfg = pipeline.PipelineConfig(server=small, tsdf=TsdfConfig(capacity=8),
@@ -673,6 +692,9 @@ def _device_owners():
         "descriptors_to_torch": lambda **kw: hamming.descriptors_to_torch(descs, **kw),
         "gumbel_noise": lambda **kw: ransac.gumbel_noise(
             8, 16, torch.Generator().manual_seed(0), **kw),
+        "AgentFrontend": lambda **kw: AgentFrontend(AgentConfig(camera=cam, max_features=8), **kw),
+        "generic_vocabulary": lambda **kw: _one_thread(vocab.generic_vocabulary, k=2, levels=2,
+                                                       seed=1, **kw),
     }
 
 
@@ -680,7 +702,7 @@ def _device_owners():
                                   "CollaborativePoseGraph", "TsdfVolume",
                                   "SparseBowDatabase", "train_vocabulary",
                                   "init_state", "descriptors_to_torch",
-                                  "gumbel_noise"])
+                                  "gumbel_noise", "AgentFrontend", "generic_vocabulary"])
 def test_default_device_is_the_card(name, monkeypatch):
     """With no device given, every entry point that owns device state, and
     every helper that makes tensors from nothing or from host data, asks
@@ -697,6 +719,20 @@ def test_default_device_is_the_card(name, monkeypatch):
     build = _device_owners()[name]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()
+    ran_on = []     # generic_vocabulary's FAST and BRIEF inputs' devices
+    if name == "generic_vocabulary":
+        from cvids_tpu_torch.ops import brief, fast
+        from cvids_tpu_torch.server import vocab
+
+        def recording(fn):
+            def call(img, *args, **kwargs):
+                ran_on.append(img.device)
+                return fn(img, *args, **kwargs)
+            return call
+
+        monkeypatch.setattr(vocab, "_GENERIC_CACHE", {})
+        monkeypatch.setattr(fast, "fast_score_map", recording(fast.fast_score_map))
+        monkeypatch.setattr(brief, "compute_brief", recording(brief.compute_brief))
     obj = build(device="cpu")
     where = {"CollaborativeServer": lambda o: o.volume.pool.sdf.device,
              "CollaborativePoseGraph": lambda o: o.db.ids.device,
@@ -705,7 +741,12 @@ def test_default_device_is_the_card(name, monkeypatch):
              "train_vocabulary": lambda o: o.weights.device,
              "init_state": lambda o: o.mu.device,
              "descriptors_to_torch": lambda o: o.device,
-             "gumbel_noise": lambda o: o.device}[name](obj)
+             "gumbel_noise": lambda o: o.device,
+             "AgentFrontend": lambda o: o.state.lm.device,
+             # a host tree: FAST and BRIEF on 8 worlds x 2 views, each call
+             # on the device asked for
+             "generic_vocabulary": lambda o: ran_on[0] if len(set(ran_on)) == 1 else ran_on}[name](obj)
     assert where == torch.device("cpu")
+    assert name != "generic_vocabulary" or len(ran_on) == 32
     if hasattr(obj, "close"):
         obj.close()
