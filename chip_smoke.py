@@ -35,7 +35,19 @@ and checks that every kernel of each path ran:
   with the front-end's times per frame and keyframe, its host syncs and its
   device activities per frame; four calls of each kernel of that server run
   (480x752x128 volumes) are kept and held against the twins on the same
-  inputs.
+  inputs;
+- phase 9, the reference's deployment topology (test_full_topology.py):
+  phase 8's frames written as two EuRoC-format sequences (PNG, CSV with the
+  IMU at 17 significant digits, sensor.yaml) and read back bit-equal, two
+  spawned agent processes
+  (`apps.agent_process`) streaming AgentMsg and image frames over TCP into
+  `CollaborativeSocketServer` -> `CollaborativeServer` with background
+  solves; every packet received equal to what was sent, the topology
+  test's bounds, four calls of each kernel held against the twins;
+- phase 10, the apps and the viewers: `apps.run_synthetic` at its
+  defaults, `apps.run_euroc` on phase 9's sequences, one call of
+  `entry()`'s step, and phase 9's server's `export_viewer`,
+  `save_loop_overlay` and `live_viewer`.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
@@ -62,7 +74,8 @@ initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
 /usr/local/cuda/bin). Imports neither JAX nor any module of `cvids_tpu`,
 and checks so at the end. Exits non-zero on any failed phase. The line before
 the last is the kernel table as JSON (per kernel: launches on the whole
-server's run, on the distorted clients' run and on the agents' server run,
+server's run, on the distorted clients' run, on the agents' server run and
+on the topology's,
 launches per dense frame or,
 for the Hamming kernel, per keyframe, max abs err against the twin, kernel
 and twin ms, the roofline bound of the same call from
@@ -1878,17 +1891,19 @@ def agent_dense(camera) -> "DenseConfig":
                        dep_sample=0.015 * 200.0 / camera.fx, tau2_scale=0.5)
 
 
-def agent_pipeline_config(camera, dense) -> "PipelineConfig":
+def agent_pipeline_config(camera, dense, async_optimize=False) -> "PipelineConfig":
     """test_full_system.py's server behind the agents: a 256-keyframe
     store, a solve every 20 keyframes, the PnP gate at 10 px, 0.1 m voxels
     without carving, a map from 2 fused frames, the reference advancing
-    every 3; `dense` the dense step."""
+    every 3; `dense` the dense step; with `async_optimize` the solves run
+    in the background (test_full_topology.py's server)."""
     from cvids_tpu_torch.mapping.tsdf import TsdfConfig
     from cvids_tpu_torch.server.pipeline import PipelineConfig
     from cvids_tpu_torch.server.posegraph import ServerConfig
 
     return PipelineConfig(server=ServerConfig(kf_capacity=256, optimize_every=20,
-                                              pnp_thresh=10.0 / float(camera.fx)),
+                                              pnp_thresh=10.0 / float(camera.fx),
+                                              async_optimize=async_optimize),
                           dense=dense, tsdf=TsdfConfig(voxel_size=0.1, capacity=2048,
                                                        carving=False),
                           min_fused_frames=2, ref_advance=3)
@@ -1954,7 +1969,7 @@ def agent_sequences(cfg, n_agents=AGENTS, duration=AGENT_DURATION, n_landmarks=A
     the IMU noise and biases' walk, the nuisances; 0 is phase 8's), and
     `workers` render processes share the frames. Returns per agent a dict
     of cam_t, images, imu_t, gyr, acc and the ground truth gt_t, gt_p,
-    gt_q."""
+    gt_q, gt_v and the true biases bg, ba."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2001,7 +2016,8 @@ def agent_sequences(cfg, n_agents=AGENTS, duration=AGENT_DURATION, n_landmarks=A
             else:
                 os.environ[k] = v
     return [dict(cam_t=s.times_kf, images=im, imu_t=s.imu_t, gyr=s.gyr, acc=s.acc,
-                 gt_t=s.times_kf, gt_p=s.p_gt, gt_q=s.q_gt) for s, im in zip(seqs, images)]
+                 gt_t=s.times_kf, gt_p=s.p_gt, gt_q=s.q_gt, gt_v=s.v_gt, bg=s.bg_true,
+                 ba=s.ba_true) for s, im in zip(seqs, images)]
 
 
 def agents_run(device, seqs, cfg):
@@ -2161,7 +2177,8 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     on the card); an `AgentFrontend`
     built with no device on the card. `camera` and `dense` replace the
     EuRoC camera and the dense size for a rehearsal on the CPU. Returns the
-    server run's launch counts."""
+    server run's launch counts, the sequences and the scores (ATE cm per
+    agent, median inverse-depth RMS, mesh distance m)."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
     from cvids_tpu_torch.server import vocab
     from cvids_tpu_torch.server.pipeline import CollaborativeServer
@@ -2274,7 +2291,373 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
         print(f"  launches: every kernel of the path ran; the banded warp {counts['warp_banded']} "
               f"times (its host gate)")
     print("phase 8 agents: ok")
-    return counts
+    return counts, seqs, {"ate_cm": [a * 100 for a in ates], "rms": med_rms, "mesh_m": dist}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the deployment topology: agent processes -> sockets -> the server
+# ---------------------------------------------------------------------------
+
+TOPOLOGY_DRAIN_S = 600.0    # the longest wait for the agents' streams to drain
+
+
+def write_sequences(seqs, cfg, root, exact=True) -> list[str]:
+    """Phase 8's sequences as EuRoC-format directories through the port's
+    writer (8-bit PNG frames, nanosecond CSVs, sensor.yaml with `cfg`'s
+    calibration and tuning), each read back through `load_euroc` and
+    `load_image`: the frames equal phase 8's bit for bit, and with `exact`
+    (IMU values with 17 significant digits, as EuRoC's own files carry
+    them) the IMU too. Returns the roots."""
+    from cvids_tpu_torch.io import euroc, euroc_synth
+
+    roots = []
+    for cid, seq in enumerate(seqs):
+        r = euroc_synth.write_sequence_files(
+            os.path.join(root, f"agent{cid}"), cfg, [im.astype(np.uint8) for im in seq["images"]],
+            seq["cam_t"], seq["imu_t"], seq["gyr"], seq["acc"],
+            dict(p=seq["gt_p"], q=seq["gt_q"], v=seq["gt_v"], bg=seq["bg"], ba=seq["ba"]),
+            CAM_RATE, IMU_RATE, gyr_noise=2e-4, acc_noise=0.005, exact=exact)
+        back = euroc.load_euroc(r)
+        check(len(back.cam_t) == len(seq["images"])
+              and all(np.array_equal(back.load_image(i), im) for i, im in enumerate(seq["images"])),
+              f"agent {cid}: the frames read back from the PNGs differ from phase 8's")
+        check(not exact or (np.array_equal(back.gyr, seq["gyr"])
+                            and np.array_equal(back.acc, seq["acc"])),
+              f"agent {cid}: the IMU read back differs from phase 8's")
+        roots.append(r)
+    return roots
+
+
+def config_differences(loaded, cfg) -> dict:
+    """The fields of two `AgentConfig`s that differ, as {name: (a, b)}."""
+    import dataclasses
+
+    a, b = dataclasses.asdict(loaded), dataclasses.asdict(cfg)
+    out = {}
+    for k in a:
+        if isinstance(a[k], dict):
+            out.update({f"{k}.{f}": (a[k][f], b[k][f]) for f in a[k] if a[k][f] != b[k][f]})
+        elif a[k] != b[k]:
+            out[k] = (a[k], b[k])
+    return out
+
+
+def same_codec_dicts(a: dict, b: dict) -> bool:
+    """Two codec dicts with the same fields, dtypes, shapes and bytes."""
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+        and np.asarray(a[k]).shape == np.asarray(b[k]).shape
+        and np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a)
+
+
+def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
+    """One run of the deployment graph on the sequences at `roots`: a
+    `CollaborativeServer` with background solves (`agent_pipeline_config(
+    async_optimize=True)`, `cfg`'s camera for every client) behind
+    `CollaborativeSocketServer(match_tol=1e-3)`, and one spawned agent
+    process a root (`apps.agent_process`; on the card with no device
+    argument, so the default device). Waits for the stream to drain, and
+    fails at once if an agent process dies or the ingest thread raises; then
+    a final solve (`flush`). On the card `KernelRecorder` keeps four of each
+    kernel's calls. Returns a dict: server, transport, sent / frame_ms /
+    keyframe per agent (what each saved), received (the codec dicts the
+    server was given, per client), order (the client of each ingested
+    packet), process_ms, stream_s, launches, compared (per kernel, on the
+    card) and peak (GiB, this process)."""
+    import multiprocessing
+
+    from cvids_tpu_torch import _build, native
+    from cvids_tpu_torch.apps import agent_process
+    from cvids_tpu_torch.camera import make_camera
+    from cvids_tpu_torch.io import codec, transport
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.server.pipeline import CollaborativeServer
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    n_agents = len(roots)
+    c = cfg.camera
+    drain_s = drain_s or TOPOLOGY_DRAIN_S
+    # the parent builds what the server loads before any process starts
+    if on_card:
+        _build.build()
+    check(native.available(), "the native host library (max clique) did not build")
+    server = CollaborativeServer(vocab.generic_vocabulary(*vocab_shape, device=dev),
+                                 agent_pipeline_config(c, dense, async_optimize=True), device=dev)
+    for cid in range(n_agents):
+        server.set_client_camera(cid, make_camera(c, device=dev))
+    received = {cid: [] for cid in range(n_agents)}
+    order, process_ms = [], []
+    submit, process = server.submit, server.process
+
+    def recording_submit(pkt):
+        received[int(pkt.client_id)].append(codec.encode_packet(pkt))
+        order.append(int(pkt.client_id))
+        submit(pkt)
+
+    def timed_process():
+        t1 = time.perf_counter()
+        n = process()
+        process_ms.append((time.perf_counter() - t1) * 1e3)
+        return n
+
+    server.submit, server.process = recording_submit, timed_process
+    outs = [os.path.join(os.path.dirname(roots[cid]), f"sent{cid}.npz") for cid in range(n_agents)]
+    ctx = multiprocessing.get_context("spawn")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    recorder = KernelRecorder() if on_card else contextlib.nullcontext()
+    srv = transport.CollaborativeSocketServer(server, match_tol=1e-3)
+    # on the card the agents take the default device (no device argument);
+    # a CPU rehearsal runs them on one intra-op thread each
+    procs = [ctx.Process(target=agent_process.agent_main,
+                         args=(roots[cid], cid, srv.port, outs[cid]) if on_card
+                         else (roots[cid], cid, srv.port, outs[cid], "cpu", 1))
+             for cid in range(n_agents)]
+    t0 = time.perf_counter()
+    try:
+        with recorder:
+            for p in procs:
+                p.start()
+            while not srv.drain(timeout=1.0, min_conns=n_agents):
+                dead = [(cid, p.exitcode) for cid, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"agent process(es) (client, exit code) {dead} died before the "
+                                "stream drained")
+                check(time.perf_counter() - t0 < drain_s,
+                      f"the agents' streams did not drain in {drain_s:.0f} s")
+            stream_s = time.perf_counter() - t0
+            for p in procs:
+                p.join(timeout=60.0)
+            codes = [p.exitcode for p in procs]
+            check(codes == [0] * n_agents, f"agent process exit codes {codes}")
+            server.graph.flush()
+            _sync(dev)
+    finally:
+        try:
+            srv.stop()
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10.0)
+            server.close()
+    counts = dict(ck.launches)
+    sent, frame_ms, keyframe = zip(*(agent_process.load_sent(out) for out in outs))
+    return dict(server=server, transport=srv, sent=sent, frame_ms=frame_ms, keyframe=keyframe,
+                received=received, order=order, process_ms=process_ms, stream_s=stream_s,
+                launches=counts, compared=recorder.compare() if on_card else {},
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan"))
+
+
+def topology_score(server, roots, cfg, dense) -> dict:
+    """test_full_topology.py's figures of a run against the written ground
+    truth: ATE sim3 per agent (m), the median inverse-depth RMS, the mesh
+    (triangles, vertices, all finite, median scene distance m)."""
+    from cvids_tpu_torch.io import euroc
+    from cvids_tpu_torch.mapping.mesh import read_ply
+
+    truth = [euroc.load_euroc(r) for r in roots]
+    ates, rmses, _, dist, n_tri = agents_score(
+        server, [dict(gt_t=t.gt_t, gt_p=t.gt_p, gt_q=t.gt_q) for t in truth], cfg, dense.height,
+        dense.width, len(roots))
+    mesh_path = os.path.join(os.path.dirname(roots[0]), "scene.ply")
+    server.save_mesh(mesh_path)
+    verts = np.asarray(read_ply(mesh_path)[0], np.float64).reshape(-1, 3)
+    return dict(ates=ates, rms=float(np.median(rmses)) if rmses else float("inf"), mesh_m=dist,
+                triangles=n_tri, vertices=len(verts), finite=bool(np.isfinite(verts).all()))
+
+
+def topology_phase(device, seqs, phase8, root, camera=None, dense=None, vocab_shape=(10, 4)):
+    """Phase 9: the reference's deployment graph (test_full_topology.py) at
+    EuRoC's size. Phase 8's two sequences are written as EuRoC-format
+    directories under `root` and read back (`write_sequences`), then
+    `topology_run`: two spawned agent processes stream their packets over
+    TCP into the server with background solves. Checks: both agents exit 0,
+    the stream drains, every packet each agent sent arrived equal (codec
+    dict, bit for bit, image included) with nothing dropped,
+    test_full_topology.py's bounds (a background solve, a loop, both
+    aligned, ATE sim3 < 10 cm against the written ground truth, >= 2 depth
+    maps, a mesh of > 300 finite vertices), and calls 0, 1, 30 and 31 of
+    each kernel equal to the twins. `camera`, `dense` and `vocab_shape` as
+    for `agents_phase` (a CPU rehearsal passes phase 8's; there the agents
+    run on the CPU too and no kernel is held). Returns (server, roots,
+    launches)."""
+    from cvids_tpu_torch.io import euroc
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = agent_config(camera)
+    n_agents = len(seqs)
+    roots = write_sequences(seqs, cfg, root)
+    loaded = euroc.load_agent_config(roots[0])
+    print(f"phase 9 topology: {n_agents} EuRoC-format sequences of {len(seqs[0]['cam_t'])} PNG "
+          f"frames written and read back in {time.perf_counter() - t_phase:.1f} s, equal to "
+          f"phase 8's bit for bit; AgentConfig fields where load_agent_config differs from "
+          f"agent_config(): {config_differences(loaded, cfg) or 'none'}")
+    dense = dense or agent_dense(cfg.camera)
+    run = topology_run(dev, roots, cfg, dense, vocab_shape)
+    server, srv, counts = run["server"], run["transport"], run["launches"]
+    if on_card:
+        check(all(run["compared"].get(n, 0) == len(KernelRecorder.CALLS) for n in counts
+                  if counts[n] > max(KernelRecorder.CALLS)),
+              f"kernel calls held against the twins {run['compared']}, launches {counts}")
+    for cid in range(n_agents):
+        sent, got = run["sent"][cid], run["received"][cid]
+        frame_ms, is_kf = run["frame_ms"][cid], run["keyframe"][cid]
+        check(len(sent) == len(got) >= 8, f"agent {cid}: {len(sent)} packets sent, {len(got)} "
+                                          "arrived (>= 8 needed)")
+        bad = [i for i, (a, b) in enumerate(zip(sent, got)) if not same_codec_dicts(a, b)]
+        check(not bad, f"agent {cid}: packets {bad} arrived different from what was sent")
+        print(f"  agent {cid} (own process, two on one card): {len(frame_ms)} frames, "
+              f"{len(sent)} packets sent and received equal field by field, image included; "
+              f"host ms per plain frame {_ms_stats(frame_ms[~is_kf])}, per keyframe "
+              f"{_ms_stats(frame_ms[is_kf])}")
+    check(srv.msgs_dropped == 0 and srv.imgs_dropped == 0,
+          f"dropped {srv.msgs_dropped} messages and {srv.imgs_dropped} images")
+    sc = topology_score(server, roots, cfg, dense)
+    g = server.graph
+    print(f"  server: {srv.packets_matched} packets matched in {run['stream_s']:.1f} s of "
+          f"stream, host ms per keyframe {_ms_stats(run['process_ms'])}; longest queue "
+          f"{srv.max_queued}; {g.solve_count} background solves ({g.discarded_solves} "
+          f"discarded); ingest order by client {''.join(map(str, run['order']))}; peak device "
+          f"memory {run['peak']:.2f} GiB (this process)")
+    print(f"  aligned {[cl.aligned for cl in g.clients[:n_agents]]}; loops {g.loop_count}; ATE "
+          f"sim3 cm {[round(a * 100, 2) for a in sc['ates']]} (phase 8 on the same frames: "
+          f"{[round(a, 2) for a in phase8['ate_cm']]}); depth maps {server.depth_maps_published}, "
+          f"inverse-depth RMS median {sc['rms']:.4f} (phase 8: {phase8['rms']:.4f}); mesh "
+          f"{sc['triangles']} triangles, {sc['vertices']} vertices, median scene distance "
+          f"{sc['mesh_m']:.4f} m (phase 8: {phase8['mesh_m']:.4f}); launches {counts}")
+    check(g.solve_count >= 1, "the background optimizer never solved")
+    check(g.loop_count >= 1, "no loop closure over the socket path")
+    check(all(cl.aligned for cl in g.clients[:n_agents]), "a client never aligned")
+    check(all(a < 0.10 for a in sc["ates"]), f"ATE sim3 {sc['ates']} m: not all < 0.10")
+    check(server.depth_maps_published >= 2, f"depth maps {server.depth_maps_published} < 2")
+    check(sc["vertices"] > 300 and sc["finite"],
+          f"mesh of {sc['vertices']} vertices (finite: {sc['finite']})")
+    check(not on_card or all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS
+                             if n != "warp_banded"), f"a kernel did not run in phase 9: {counts}")
+    print(f"phase 9 topology: ok in {time.perf_counter() - t_phase:.1f} s")
+    return server, roots, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the apps, the entry step and the viewers
+# ---------------------------------------------------------------------------
+
+
+def run_app(main_fn, argv) -> str:
+    """An app's `main(argv)` with its standard output captured and echoed
+    indented; fails unless it returns 0. Returns the output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    out = buf.getvalue()
+    print("\n".join("    " + line for line in out.splitlines()))
+    check(rc == 0, f"{main_fn.__module__} {argv} returned {rc}")
+    return out
+
+
+def apps_phase(device, server, roots, root):
+    """Phase 10: `apps.run_synthetic` at its defaults with TUM, viewer and
+    plot outputs (test_server.py's ATE bounds, as phase 5: the first agent
+    < 5 cm, the others < 25 cm, raw), `apps.run_euroc` on phase 9's two
+    sequences (test_full_topology.py's 10 cm for these frames), one call
+    of `entry()`'s step, and on phase 9's server `export_viewer`,
+    `save_loop_overlay` and a `live_viewer` read twice over HTTP (the
+    second answer the cached body, nothing collected again). The TUM files
+    read back equal; the HTML and JSON parse."""
+    import urllib.request
+    from html.parser import HTMLParser
+
+    from cvids_tpu_torch.apps import run_euroc, run_synthetic
+    from cvids_tpu_torch.entry import entry
+    from cvids_tpu_torch.io import tum
+    from cvids_tpu_torch.utils import viewer
+
+    dev = torch.device(device)
+    # on the card the apps take their default device: no --device
+    dev_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+    t_phase = time.perf_counter()
+    print("phase 10 apps: python -m cvids_tpu_torch.apps.run_synthetic (defaults)")
+    html_path, plot_path = os.path.join(root, "synthetic.html"), os.path.join(root, "traj.png")
+    out = run_app(run_synthetic.main, ["--tum-prefix", os.path.join(root, "syn_pose"),
+                                       "--viewer", html_path, "--plot", plot_path] + dev_args)
+    ates = [float(line.split("ATE")[1].split()[0]) for line in out.splitlines() if " ATE " in line]
+    check(len(ates) == 2 and ates[0] < 5.0 and all(a < 25.0 for a in ates[1:]),
+          f"run_synthetic ATE cm {ates}: bounds 5 (first agent), 25")
+    check("aligned: [True, True]" in out, "run_synthetic: an agent never aligned")
+    wrote_plot = os.path.exists(plot_path)
+    check(wrote_plot == (f"wrote {plot_path}" in out), "run_synthetic's --plot report is wrong")
+    for cid in range(2):
+        rows = tum.read_tum(os.path.join(root, f"syn_pose{cid}.txt"))
+        check(rows.shape[1] == 8 and len(rows) >= 8, f"run_synthetic TUM file {cid}: {rows.shape}")
+    state = _page_state(html_path)
+    check(len(state["agents"]) == 2, "run_synthetic's viewer page lacks an agent")
+
+    print(f"  python -m cvids_tpu_torch.apps.run_euroc --seq {roots[0]} --seq {roots[1]}")
+    out = run_app(run_euroc.main, [a for r in roots for a in ("--seq", r)]
+                  + ["--tum-prefix", os.path.join(root, "euroc_pose")] + dev_args)
+    ates = [float(line.split()[-2]) for line in out.splitlines() if "ATE (sim3)" in line]
+    check(len(ates) == 2 and all(a < 10.0 for a in ates), f"run_euroc ATE cm {ates}: bound 10")
+
+    step, args = entry(None if dev.type == "cuda" else dev)
+    t0 = time.perf_counter()
+    mu, t_solved = step(*args)
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(mu.shape == (480, 640) and t_solved.shape == (256, 3) and mu.device == dev
+          and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(t_solved).all()),
+          "entry()'s step: wrong shape, device or a non-finite value")
+
+    page = server.export_viewer(os.path.join(root, "topology.html"))
+    HTMLParser().feed(open(page).read())
+    state = _page_state(page)
+    check(len(state["agents"]) == 2 and state["mesh"]["n"] > 0 and state["loops"]["n"] >= 1,
+          "phase 9's viewer page lacks an agent, the mesh or the loops")
+    overlay = os.path.join(root, "loop.png")
+    drew = server.save_loop_overlay(overlay)
+    check(drew == os.path.exists(overlay), "save_loop_overlay's answer and its file disagree")
+    collected = []
+    real = viewer.collect_state
+    with mock.patch.object(viewer, "collect_state",
+                           lambda *a, **k: collected.append(1) or real(*a, **k)):
+        lv = server.live_viewer()
+        try:
+            bodies = [urllib.request.urlopen(lv.url + "state.json", timeout=60).read()
+                      for _ in range(2)]
+        finally:
+            lv.close()
+    check(bodies[0] == bodies[1] and len(collected) == 1,
+          f"live viewer: the second GET collected again ({len(collected)} collections)")
+    live = json.loads(bodies[0])
+    for cid in range(2):
+        path = os.path.join(root, f"topology_pose{cid}.txt")
+        tr = server.trajectory(cid)
+        tum.write_tum(path, tr)
+        back = tum.read_tum(path)
+        check(back.shape == tr.shape and np.allclose(back, tr, rtol=0, atol=1e-8),
+              f"TUM file of client {cid} reads back different")
+    print(f"  entry() step (640x480x128 fusion + 256-keyframe 4-DoF) {step_ms:.1f} ms, finite; "
+          f"phase 9's server: viewer page {os.path.getsize(page)} bytes ({state['mesh']['n']} "
+          f"triangles, {state['loops']['n']} loops), loop overlay "
+          f"{'written' if drew else 'not written (matplotlib is not installed)'}, trajectory plot "
+          f"{'written' if wrote_plot else 'not written (matplotlib is not installed)'}; live "
+          f"viewer /state.json rev {live['rev']}, {len(bodies[0])} bytes, the second GET the "
+          f"cached body; TUM files read back equal")
+    print(f"phase 10 apps: ok in {time.perf_counter() - t_phase:.1f} s")
+
+
+def _page_state(path: str) -> dict:
+    """The state JSON embedded in an exported viewer page."""
+    html = open(path).read()
+    return json.loads(html.split("let STATE=", 1)[1].split("; const LIVE=", 1)[0])
 
 
 def main() -> int:
@@ -2378,7 +2761,15 @@ def main() -> int:
     dist_counts = distorted_phase(dev, tree)
 
     # phase 8: two agents' front-ends on rendered pixels and IMU -> the server
-    agent_counts = agents_phase(dev)
+    agent_counts, agent_seqs, agent_scores = agents_phase(dev)
+
+    # phases 9 and 10: phase 8's frames as EuRoC sequences, agent processes
+    # streaming over sockets into the server; then the apps and the viewers
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="cvids_topology_") as root:
+        server, roots, topo_counts = topology_phase(dev, agent_seqs, agent_scores, root)
+        del agent_seqs
+        apps_phase(dev, server, roots, root)
 
     # launches: the whole server's run (phase 6), which drives all six;
     # launches_phase7: the distorted clients' run, which drives them again;
@@ -2397,7 +2788,8 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],
                 "launches_phase7": dist_counts[name],
-                "launches_phase8": agent_counts[name], **rate[name],
+                "launches_phase8": agent_counts[name],
+                "launches_phase9": topo_counts[name], **rate[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2], "bound_ms": checks[name][3],
                 "bound_by": checks[name][4], "floor_ms": floor,
@@ -2410,10 +2802,21 @@ def main() -> int:
         **big, "share": big["bound_ms"] / big["ms"],
         "reach": max(big["bound_ms"], floor) / big["ms"],
         "profiler_ms": extras["profiler_ms"].get("hamming_2048")}
-    # the port ran without JAX and without the JAX package
+    # the port ran without JAX and without the JAX package, and its readers,
+    # transport, viewers and apps import no optional library
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cvids_tpu"))
     check(not ref_mods, f"JAX or JAX-package modules loaded: {ref_mods}")
-    print("imports: no module of jax or cvids_tpu loaded")
+    optional = ("jax", "cvids_tpu", "PIL", "imageio", "yaml", "matplotlib")
+    res = subprocess.run([sys.executable, "-c", "import sys\n"
+                          "import cvids_tpu_torch.io.transport, cvids_tpu_torch.io.euroc, "
+                          "cvids_tpu_torch.utils.viewer, cvids_tpu_torch.apps.run_euroc\n"
+                          f"print(sorted(m for m in sys.modules if m.split('.')[0] in {optional}))"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(Path(__file__).resolve().parent))
+    check(res.returncode == 0 and res.stdout.strip() == "[]",
+          f"importing the transport, EuRoC reader, viewer and apps loaded {res.stdout}{res.stderr}")
+    print("imports: no module of jax or cvids_tpu loaded; the transport, EuRoC reader, viewer "
+          "and apps load none of jax, cvids_tpu, PIL, imageio, yaml, matplotlib")
     print(json.dumps({"launch_floor": {"ms": floor, "host_us": extras["launch_host_us"],
                                        "profiler_ms": extras["profiler_ms"].get("empty")}}))
     print(json.dumps({"kernels": kernels}))

@@ -40,13 +40,22 @@ Ported so far:
                 (pixels and IMU in, keyframe packets out)
 - ``utils``:    stage tracing, server/TSDF checkpoints (the JAX package's
                 npz layout, so either package loads the other's), the typed
-                configs (``config``), trajectory metrics and the CUDA-graph
-                replay of fixed-shape calls (``cuda_graph``)
-- ``io``:       the keyframe packet, the synthetic sequences and
-                multi-agent streams, and the renderers (numpy, copied from
-                ``cvids_tpu.io``)
-- ``native``:   the C++ max clique for PCM (``fmc.cpp``, built with the
-                host's compiler at first use)
+                configs (``config``), trajectory metrics, the CUDA-graph
+                replay of fixed-shape calls (``cuda_graph``), the WebGL
+                viewer (``viewer``) and the plots (``visualization``)
+- ``io``:       the keyframe packet and its wire codec, the socket
+                transport between agent processes and the server, EuRoC
+                datasets (reader and synthetic writer, with the port's own
+                PNG codec and sensor.yaml reader), TUM files, the synthetic
+                sequences and multi-agent streams, and the renderers (numpy,
+                copied from ``cvids_tpu.io``)
+- ``native``:   the C++ max clique for PCM and the inverted-index BoW
+                database (``fmc.cpp``, ``bow.cpp``, built with the host's
+                compiler at first use)
+- ``apps``:     the programs: ``run_synthetic``, ``run_euroc`` and
+                ``agent_process`` (one agent of the deployment, streaming
+                over a socket); ``entry``: the server's compute step with
+                example inputs
 - ``interop``:  carry the JAX package's states, vocabularies, configs,
                 TSDF volumes and cameras (as numpy) to the port and back
 
@@ -55,7 +64,8 @@ The package imports ``torch`` and never ``jax``, nor any module of
 
 Entry points that own device state (``CollaborativeServer``,
 ``CollaborativePoseGraph``, ``TsdfVolume``, ``SparseBowDatabase``,
-``train_vocabulary``, ``generic_vocabulary``, ``AgentFrontend``) and the helpers that make tensors from nothing or
+``train_vocabulary``, ``generic_vocabulary``, ``AgentFrontend``), the
+apps and the agent process, and the helpers that make tensors from nothing or
 from host data (``ops.depth_filter.init_state``,
 ``ops.hamming.descriptors_to_torch``, ``ops.ransac.gumbel_noise``, the
 cameras' ``create``, ``camera.make_camera`` and the chessboard tools) run on

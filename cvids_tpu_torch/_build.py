@@ -11,8 +11,8 @@ Every C entry point returns ``cudaGetLastError()`` after its launches; the
 wrappers in ``ops/cuda_kernels.py`` raise when it is not 0.
 
 `build_host` does the same for a host-only C++ source (the native max
-clique, ``native/fmc.cpp``) with the host's C++ compiler, into
-``build/host/``.
+clique ``native/fmc.cpp`` and BoW index ``native/bow.cpp``, one library
+each) with the host's C++ compiler, into ``build/host/``.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ gather stay on the card.
 
 from __future__ import annotations
 
+import threading
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
@@ -371,6 +372,76 @@ class CollaborativeServer:
 
     def trajectory(self, cid: int):
         return self.graph.trajectory(cid)
+
+    def export_viewer(self, path: str) -> str:
+        """Write the self-contained interactive WebGL viewer (trajectories,
+        frusta, loop edges, TSDF mesh; the Pangolin-window role,
+        `server_plotter.h:286-600`)."""
+        from ..utils.viewer import collect_state, export_viewer_html
+        with self.graph._lock:
+            state = collect_state(self.graph, self.volume)
+        return export_viewer_html(path, state=state)
+
+    def live_viewer(self, host: str = "127.0.0.1", port: int = 0):
+        """Serve a live re-polling viewer of this running server (the
+        rviz/Pangolin live-view role). Returns a LiveViewer with `.url`.
+
+        The /state.json handler is cheap when nothing changed: rev is
+        computed under the graph lock, and an unchanged rev returns the
+        cached serialized body without re-collecting (in particular without
+        re-running the mesh extraction, which itself runs OUTSIDE the graph
+        lock — the volume is only mutated by ingest, which rev's keyframe
+        count already tracks)."""
+        import json as _json
+
+        from ..utils.viewer import LiveViewer, collect_state, collect_volume_state
+        cache: dict = {"rev": None, "body": None}
+        cache_lock = threading.Lock()
+
+        def _rev_locked():
+            st = self.graph.store
+            # rev changes on ingest, loop acceptance AND optimizer
+            # writeback (pose content hash), so the page re-pulls
+            return (st.count + self.graph.loop_count * 100003
+                    + (hash(st.world_p[:st.count].tobytes()) & 0xFFFFFFF))
+
+        def state():
+            with self.graph._lock:
+                rev = _rev_locked()
+            with cache_lock:
+                if cache["rev"] == rev:
+                    return cache["body"]
+            with self.graph._lock:
+                st = collect_state(self.graph, volume=None, rev=rev)
+            st.update(collect_volume_state(self.volume))
+            body = _json.dumps(st)
+            with cache_lock:
+                cache["rev"], cache["body"] = rev, body
+            return body
+        return LiveViewer(state, host=host, port=port)
+
+    def save_loop_overlay(self, path: str) -> bool:
+        """Render the most recent accepted loop closure as a side-by-side
+        match image (the reference plotter's loop diagnostic,
+        `server_plotter.h:612-691`). Returns False if no loop with retained
+        images has been seen (or matplotlib is unavailable)."""
+        loop = self.graph.last_loop
+        if loop is None or self._loop_overlay_pair is None:
+            return False
+        from ..utils.visualization import save_loop_match_overlay
+        (img_new, s_new), (img_old, s_old) = self._loop_overlay_pair
+
+        def scaled_k(cid, s):
+            k = self._client_k.get(cid)
+            if k is None:
+                return None
+            return np.diag([1.0 / s, 1.0 / s, 1.0]) @ k
+
+        cj = int(self.graph.store.client[loop["j"]])
+        ci = int(self.graph.store.client[loop["i"]])
+        return save_loop_match_overlay(
+            path, img_new, img_old, loop,
+            k_new=scaled_k(cj, s_new), k_old=scaled_k(ci, s_old))
 
     def close(self):
         """Stop the pose graph's background solver, if it runs one."""

@@ -13,6 +13,7 @@ the full one (the path's shapes, every edge shape, the memory audit).
 """
 
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -194,3 +195,70 @@ def test_graphed_solve_equals_eager(dev):
         got, want = call(s, m), tba.solve_window_fast(s, m, iters=4)
         _same(tuple(got[0]) + (got[1],), tuple(want[0]) + (want[1],))
     assert len(call.graphs) == 1 and call.replays == 2
+
+
+def test_topology_on_the_card(dev, tmp_path):
+    """`chip_smoke.py` phase 9's transport at a small size: two spawned
+    agent processes (`apps.agent_process`, the card by default) read
+    EuRoC-format sequences written by the port and stream over TCP into a
+    `CollaborativeServer` on the card with background solves; both exit 0
+    and every packet they sent arrives equal, with nothing dropped."""
+    import multiprocessing
+
+    from cvids_tpu_torch.apps import agent_process
+    from cvids_tpu_torch.camera import make_camera
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+    from cvids_tpu_torch.io import codec, euroc_synth, synthetic, transport
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.server.pipeline import CollaborativeServer
+    from cvids_tpu_torch.utils.config import CameraConfig
+
+    cam = CameraConfig(fx=115.25, fy=114.9, cx=80.5, cy=60.25, k1=-0.28, k2=0.07, p1=1e-4,
+                       p2=-2e-4, width=160, height=120)
+    cfg = cs.agent_config(cam)
+    roots = []
+    for cid, phase in enumerate((0.0, 0.45)):
+        traj = synthetic.Trajectory.circle(radius=1.5, omega=0.5, height_amp=0.15, phase=phase,
+                                           center=(0.0, 0.0, 1.3), speed_mod=0.3,
+                                           speed_mod_freq=0.9)
+        roots.append(euroc_synth.write_euroc_sequence(
+            str(tmp_path / f"agent{cid}"), cfg=cfg, trajectory=traj, duration=3.0, cam_rate=20.0,
+            imu_rate=200.0, num_landmarks=600, seed=21 + cid, world_seed=7, scene=cs.AGENT_SCENE,
+            gyr_noise=2e-4, acc_noise=0.005))
+    dense = DenseConfig(height=120, width=160, num_depths=32, dep_sample=0.015 * 200.0 / cam.fx)
+    server = CollaborativeServer(vocab.synthesize_tree_vocabulary(k=4, levels=3),
+                                 cs.agent_pipeline_config(cam, dense, async_optimize=True))
+    for cid in range(2):
+        server.set_client_camera(cid, make_camera(cam))
+    got = {0: [], 1: []}
+    submit = server.submit
+    server.submit = lambda pkt: (got[int(pkt.client_id)].append(codec.encode_packet(pkt)),
+                                 submit(pkt))
+    srv = transport.CollaborativeSocketServer(server, match_tol=1e-3)
+    outs = [str(tmp_path / f"sent{cid}.npz") for cid in range(2)]
+    procs = [multiprocessing.get_context("spawn").Process(
+        target=agent_process.agent_main, args=(roots[cid], cid, srv.port, outs[cid]))
+        for cid in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        t0 = time.perf_counter()
+        while not srv.drain(timeout=1.0, min_conns=2):
+            assert all(p.exitcode in (None, 0) for p in procs), [p.exitcode for p in procs]
+            assert time.perf_counter() - t0 < 300.0, "did not drain"
+        for p in procs:
+            p.join(timeout=60.0)
+        assert [p.exitcode for p in procs] == [0, 0]
+        server.graph.flush()
+    finally:
+        srv.stop()
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        server.close()
+    assert srv.msgs_dropped == srv.imgs_dropped == 0
+    for cid in range(2):
+        sent, frame_ms, _ = agent_process.load_sent(outs[cid])
+        assert len(frame_ms) == 61 and len(sent) == len(got[cid])
+        assert all(cs.same_codec_dicts(a, b) for a, b in zip(sent, got[cid]))
+    assert server.graph.store.count == sum(len(v) for v in got.values())

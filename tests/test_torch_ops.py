@@ -666,10 +666,58 @@ def _one_thread(fn, **kw):
         torch.set_num_threads(n)
 
 
-def _device_owners():
+def _one_frame_root(tmp_path) -> str:
+    """A one-frame EuRoC-format sequence at 64x48 and a small DBoW2 binary
+    vocabulary beside it: enough for an agent or an app to start."""
+    from cvids_tpu_torch.io import euroc_synth
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.utils.config import AgentConfig, CameraConfig
+
+    root = str(tmp_path / "seq")
+    cam = CameraConfig(fx=60.0, fy=60.0, cx=32.0, cy=24.0, width=64, height=48)
+    euroc_synth.write_euroc_sequence(root, cfg=AgentConfig(camera=cam, max_features=8),
+                                     duration=0.0, cam_rate=20.0, num_landmarks=20)
+    vocab.save_dbow_binary(str(tmp_path / "tree.bin"),
+                           vocab.synthesize_tree_vocabulary(k=4, levels=2))
+    return root
+
+
+def _app(main, argv, **kw):
+    """Run an app's `main` (with `--device` when given); returns the
+    `CollaborativePoseGraph` it built."""
+    from cvids_tpu_torch.server import posegraph
+
+    made = []
+
+    class Recording(posegraph.CollaborativePoseGraph):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(posegraph, "CollaborativePoseGraph", Recording)
+        assert main(argv + (["--device", str(kw["device"])] if "device" in kw else [])) == 0
+    return made[0]
+
+
+def _agent(root, **kw):
+    """`apps.agent_process.run_agent` on `root`, publishing to a socket
+    server in this process; returns its front-end."""
+    from cvids_tpu_torch.apps import agent_process
+    from cvids_tpu_torch.io import transport
+
+    srv = transport.CollaborativeSocketServer(lambda pkt: None)
+    try:
+        return agent_process.run_agent(root, 0, srv.port, **kw)
+    finally:
+        srv.stop()
+
+
+def _device_owners(tmp_path):
     """(name, constructor taking a device) for every entry point of the port
-    that owns device state, and every helper that makes tensors from nothing
-    or from host data."""
+    that owns device state, every helper that makes tensors from nothing or
+    from host data, the agent process and the apps."""
+    from cvids_tpu_torch.apps import run_euroc, run_synthetic
     from cvids_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
     from cvids_tpu_torch.ops import depth_filter, hamming, ransac
     from cvids_tpu_torch.server import pipeline, posegraph, vocab
@@ -695,6 +743,11 @@ def _device_owners():
         "AgentFrontend": lambda **kw: AgentFrontend(AgentConfig(camera=cam, max_features=8), **kw),
         "generic_vocabulary": lambda **kw: _one_thread(vocab.generic_vocabulary, k=2, levels=2,
                                                        seed=1, **kw),
+        "agent_process": lambda **kw: _agent(_one_frame_root(tmp_path), **kw),
+        "run_synthetic": lambda **kw: _app(run_synthetic.main, ["--agents", "1", "--duration",
+                                                                "2", "--landmarks", "60"], **kw),
+        "run_euroc": lambda **kw: _app(run_euroc.main, [
+            "--seq", _one_frame_root(tmp_path), "--vocab", str(tmp_path / "tree.bin")], **kw),
     }
 
 
@@ -702,12 +755,14 @@ def _device_owners():
                                   "CollaborativePoseGraph", "TsdfVolume",
                                   "SparseBowDatabase", "train_vocabulary",
                                   "init_state", "descriptors_to_torch",
-                                  "gumbel_noise", "AgentFrontend", "generic_vocabulary"])
-def test_default_device_is_the_card(name, monkeypatch):
+                                  "gumbel_noise", "AgentFrontend", "generic_vocabulary",
+                                  "agent_process", "run_synthetic", "run_euroc"])
+def test_default_device_is_the_card(name, monkeypatch, tmp_path):
     """With no device given, every entry point that owns device state, and
     every helper that makes tensors from nothing or from host data, asks
     for the card: without one it raises and names the remedy (no silent
-    CPU); with device="cpu" it builds, on the CPU."""
+    CPU); with device="cpu" it builds, on the CPU. The agent process and
+    the apps (`cvids_tpu_torch/apps`) likewise, unless given `--device`."""
     import cvids_tpu_torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -716,7 +771,7 @@ def test_default_device_is_the_card(name, monkeypatch):
             cvids_tpu_torch.default_device()
         assert cvids_tpu_torch.resolve_device("cpu") == torch.device("cpu")
         return
-    build = _device_owners()[name]
+    build = _device_owners(tmp_path)[name]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()
     ran_on = []     # generic_vocabulary's FAST and BRIEF inputs' devices
@@ -743,6 +798,9 @@ def test_default_device_is_the_card(name, monkeypatch):
              "descriptors_to_torch": lambda o: o.device,
              "gumbel_noise": lambda o: o.device,
              "AgentFrontend": lambda o: o.state.lm.device,
+             "agent_process": lambda o: o.state.lm.device,
+             "run_synthetic": lambda o: o.db.vectors.device,
+             "run_euroc": lambda o: o.db.ids.device,
              # a host tree: FAST and BRIEF on 8 worlds x 2 views, each call
              # on the device asked for
              "generic_vocabulary": lambda o: ran_on[0] if len(set(ran_on)) == 1 else ran_on}[name](obj)

@@ -387,3 +387,57 @@ def test_state_interop_round_trip():
     assert st.kf_valid.dtype == torch.bool and st.p.dtype == torch.float32
     q = quat_normalize(st.q)
     assert torch.allclose(torch.linalg.vector_norm(q, dim=-1), torch.ones(q.shape[0]))
+
+
+def test_fast_solver_zero_residual_departure():
+    """A departure ROADMAP names (found by dev/torch_probe_frontend_lockstep.py
+    at 752x480): where one observation reprojects exactly onto its landmark
+    (a zero residual, which a converging float32 solve reaches), the
+    derivative of `jnp.linalg.norm` in the JAX package's per-landmark
+    residual is 0/0. Its `jacfwd` Jacobian gets NaN rows, the reduced system
+    is NaN, and its fast solve rejects every LM step from there on; the
+    port's closed-form Jacobians stay finite and its solve descends. With
+    the observation moved off zero by 1e-6 the JAX solve descends too."""
+    _, state, meas, st, m = _problem(perturb=0.1)
+    # keyframe 0 at the identity, landmark 0 two metres ahead on its optical
+    # axis, observed at the image centre: every product in the projection is
+    # exact, so the residual is exactly zero whatever the order of operations
+    p0 = np.array([0.5, -1.25, 1.0], np.float32)
+    q0 = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+    lm0 = p0 + np.array([2.0, 0.0, 0.0], np.float32)
+    obs = np.asarray(meas.obs).copy()
+    obs[0, 0] = 0.0
+    vis = np.asarray(meas.vis).copy()
+    vis[0, 0] = vis[1, 0] = True
+    lm_valid = np.asarray(state.lm_valid).copy()
+    lm_valid[0] = True
+    state_j = state._replace(p=state.p.at[0].set(p0), q=state.q.at[0].set(q0),
+                             lm=state.lm.at[0].set(lm0), lm_valid=jnp.asarray(lm_valid))
+    meas_j = meas._replace(obs=jnp.asarray(obs), vis=jnp.asarray(vis))
+    st_t = tba.WindowState(*interop.window_state_to_torch(_np_tree(state_j), "cpu"))
+    m_t = m._replace(obs=_t(obs), vis=_t(vis))
+    assert float(tba.reprojection_residuals(st_t, m_t)[0, 0].abs().max()) == 0.0
+
+    k = state_j.p.shape[0]
+
+    def res(dcl):
+        s2 = jba.retract_cam(state_j, dcl[:15 * k])
+        return jba._proj_residual_one_lm(s2.p, s2.q, state_j.kf_valid, state_j.lm_valid[0],
+                                         meas_j.r_cb, meas_j.p_bc, meas_j.pix_weight,
+                                         meas_j.huber_delta, state_j.lm[0] + dcl[15 * k:],
+                                         meas_j.obs[:, 0], meas_j.vis[:, 0])
+
+    jac = np.asarray(jax.jacfwd(res)(jnp.zeros(15 * k + 3)))
+    assert np.isnan(jac[:2]).any() and np.isfinite(jac[2:]).all()
+    _, j_pose, j_lm = tba.reprojection_jacobians(st_t, m_t)
+    assert bool(torch.isfinite(j_pose).all()) and bool(torch.isfinite(j_lm).all())
+
+    cost0 = 0.5 * float(torch.sum(tba._all_residuals(st_t, m_t) ** 2))
+    sj, cj = jba.solve_window_fast(state_j, meas_j, iters=12)
+    np.testing.assert_array_equal(np.asarray(sj.p), np.asarray(state_j.p))    # no step taken
+    assert float(cj) == pytest.approx(cost0, rel=1e-5)
+    s2, c2 = tba.solve_window_fast(st_t, m_t, iters=12)
+    assert bool(torch.isfinite(s2.p).all()) and float(c2) < 0.5 * cost0
+    obs[0, 0, 0] = 1e-6
+    _, cn = jba.solve_window_fast(state_j, meas_j._replace(obs=jnp.asarray(obs)), iters=12)
+    assert float(cn) < 0.5 * cost0
