@@ -47,11 +47,19 @@ and checks that every kernel of each path ran:
 - phase 10, the apps and the viewers: `apps.run_synthetic` at its
   defaults, `apps.run_euroc` on phase 9's sequences, one call of
   `entry()`'s step, and phase 9's server's `export_viewer`,
-  `save_loop_overlay` and `live_viewer`.
+  `save_loop_overlay` and `live_viewer`;
+- phase 11, multi-GPU: `entry.dryrun_multichip(4)`, the JAX dry run's toy
+  and production phases (the 1024-keyframe / 6400-edge solve, one agent a
+  rank at 480x640x128 bf16, the K=21 / L=600 window, the 2048-chunk TSDF)
+  on four ranks, NCCL with a card a rank where the machine has four cards,
+  else gloo with the four sharing this card; each rank's dense step and TSDF
+  block bit-equal to one process's on the card, the sharded solve and window
+  within their bounds of one card's, the collectives by their formulas.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
     python3 chip_smoke.py --dense-probe [--package DIR]   # the dense frame's times only
+    python3 chip_smoke.py --multichip       # phases 1, 2 and 11 only
 
 The banded warp is one kernel that computes its own sample positions from
 the 3x3 map on the device; phase 3 also checks that a call is that one launch
@@ -2654,6 +2662,172 @@ def apps_phase(device, server, roots, root):
     print(f"phase 10 apps: ok in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-GPU dry run
+
+MULTI_RANKS = 4             # ranks of phase 11: one a card where there are 4
+SOLVE_TOL = 2e-3            # t and yaw of the sharded 4-DoF solve against one card's
+# the sharded solve's cost may exceed one card's by this share of the
+# starting cost: the two sum the same terms in other orders in fp32
+SOLVE_COST_SLACK = 1e-6
+
+
+def dense_digests(d: dict, dev) -> list[str]:
+    """Each agent of a dry-run dense problem (`entry.dryrun_problems`) fused
+    by one `fuse_measurement` in this process: the digests of its filter
+    and cost volumes, as `dryrun_multichip`'s ranks report theirs."""
+    from cvids_tpu_torch.dense import estimator
+    from cvids_tpu_torch.entry import tensor_digest
+
+    cfg, as_dev = d["cfg"], (lambda x: torch.as_tensor(x, device=dev))
+    out = []
+    for ref, meas in zip(d["refs"], d["meas"]):
+        st = estimator.fuse_measurement(cfg, estimator.init_reference(cfg, as_dev(ref)),
+                                        as_dev(meas), as_dev(d["a"]), as_dev(d["b"]),
+                                        banded_warp=d["gate"])
+        out.append(tensor_digest(st.filt.mu, st.filt.sigma2, st.filt.a, st.filt.b,
+                                 st.mean_cost, st.count))
+    return out
+
+
+def tsdf_digests(t: dict, n_ranks: int, dev) -> list[str]:
+    """A dry-run TSDF problem integrated by one `integrate_chunks` over the
+    whole pool in this process: the digest of each rank's block."""
+    from cvids_tpu_torch.entry import tensor_digest
+    from cvids_tpu_torch.mapping import tsdf
+
+    cfg = t["cfg"]
+    pool = tsdf._empty_pool(cfg.capacity, cfg.chunk_size, dev)
+    tsdf.integrate_chunks(cfg, pool, torch.arange(cfg.capacity, device=dev), t["coords"],
+                          t["depth"], t["color"], t["k"], t["r"], t["t"])
+    per = cfg.capacity // n_ranks
+    return [tensor_digest(*(x[r * per:(r + 1) * per] for x in pool)) for r in range(n_ranks)]
+
+
+def solve_collectives(n_nodes: int, lm_iters: int, cg_iters: int) -> dict:
+    """The calls and bytes of `shard_posegraph_solve`'s docstring: the
+    first cost, then per LM iteration an (N, 8) buffer, cg_iters (N, 4)
+    buffers and the trial cost, in fp32."""
+    return {"count": 1 + lm_iters * (cg_iters + 2),
+            "bytes": 4 * (1 + lm_iters * (cg_iters * 4 * n_nodes + 8 * n_nodes + 1))}
+
+
+def window_collectives(k: int, l_padded: int, iters: int) -> dict:
+    """The calls and bytes of `solve_window_schur_sharded`'s docstring: the
+    first cost, per LM iteration the packed reduced system (2·(15K)² +
+    2·15K + 1 floats), the trial cost and the three gain-ratio terms, and the
+    (L', 3) landmark gather."""
+    pc = 15 * k
+    return {"count": 3 * iters + 2,
+            "bytes": 4 * (1 + iters * (2 * pc * pc + 2 * pc + 1 + 1 + 3) + 3 * l_padded)}
+
+
+def multichip_checks(res: dict, probs: dict, n_ranks: int, dev) -> None:
+    """Holds a `dryrun_multichip` result to the single-process path on this
+    process's card: (a) every rank's tensors on a card; (b) each agent's
+    dense step and (c) each rank's TSDF block equal to one process's, bit
+    for bit, with the five dense kernels launched on every rank; (d) the
+    solves within SOLVE_TOL of `optimize_pose_graph`, at no higher cost;
+    (e) the windows to test_parallel.py's bounds against `solve_window_fast`
+    (the toy window, of random observations, only finite, as in the JAX dry
+    run); (f) no collective in the dense steps and TSDFs, and the solves'
+    and windows' calls and bytes by their formulas."""
+    from cvids_tpu_torch.server import optimizer as opt
+    from cvids_tpu_torch.vio import window_ba as ba
+
+    ranks, phases = res["ranks"], res["phases"]
+    prefixes = ("toy_", "") if res["production"] else ("toy_",)
+    check(all(d.startswith(dev.type) for r in ranks for d in r["devices"]),
+          f"a rank's tensors are off {dev.type}: {[r['devices'] for r in ranks]}")
+    for name in (p + "dense" for p in prefixes):
+        got = [dg for r in ranks for dg in r[name]["digests"]]
+        check(got == dense_digests(probs[name], dev),
+              f"{name}: a rank's filter or cost volume differs from one process's")
+        check(dev.type != "cuda" or all(r[name]["launches"][k] > 0 for r in ranks
+                                        for k in DENSE_KERNELS),
+              f"{name}: a dense kernel did not run on a rank: {[r[name]['launches'] for r in ranks]}")
+    for name in (p + "tsdf" for p in prefixes):
+        check([r[name]["digest"] for r in ranks] == tsdf_digests(probs[name], n_ranks, dev),
+              f"{name}: a rank's chunk block differs from one process's integration")
+    for name in (p + q for p in prefixes for q in ("dense", "tsdf")):
+        check(not phases[name]["collectives"], phases[name]["audit"])
+    for name, lm_iters, cg_iters in (("toy_graph", 2, 8), ("graph", 12, 60))[:len(prefixes)]:
+        nodes, edges = probs[name]
+        t0 = time.perf_counter()
+        want = opt.optimize_pose_graph(nodes, edges, lm_iters=lm_iters, cg_iters=cg_iters)
+        _sync(dev)
+        one_s = time.perf_counter() - t0
+        got = nodes._replace(t=res[name]["t"].to(dev), yaw=res[name]["yaw"].to(dev))
+        d_yaw = torch.remainder(got.yaw - want.yaw + np.pi, 2 * np.pi) - np.pi
+        err = max(float((got.t - want.t).abs().max()), float(d_yaw.abs().max()))
+        costs = [float(0.5 * torch.sum(opt.edge_residuals(nd, edges) ** 2))
+                 for nd in (nodes, want, got)]
+        print(f"  {name}: max |t|, |yaw| against one card {err:.3g} (tolerance {SOLVE_TOL}); "
+              f"cost {costs[0]:.6g} -> {costs[2]:.6g} sharded, {costs[1]:.6g} on one card "
+              f"(the solve alone {one_s:.3f} s there)")
+        check(err <= SOLVE_TOL, f"{name}: the sharded solve is {err} from one card's")
+        check(costs[2] <= costs[1] + SOLVE_COST_SLACK * costs[0],
+              f"{name}: sharded cost {costs[2]} above one card's {costs[1]}")
+        want_c = solve_collectives(len(nodes.yaw), lm_iters, cg_iters)
+        check(phases[name]["collectives"] == [{"op": "all-reduce", **want_c}],
+              f"{name}: collectives {phases[name]['collectives']}, expected {want_c}")
+    for name, iters in (("toy_window", 2), ("window", 8))[:len(prefixes)]:
+        state, meas = probs[name]
+        got = res[name]
+        check(np.isfinite(float(got["cost"])) and bool(torch.isfinite(got["p"]).all()),
+              f"{name}: a non-finite result")
+        l_padded = -(-state.lm.shape[0] // n_ranks) * n_ranks
+        want_c = window_collectives(state.p.shape[0], l_padded, iters)
+        check(phases[name]["collectives"] == [{"op": "all-reduce", **want_c}],
+              f"{name}: collectives {phases[name]['collectives']}, expected {want_c}")
+        if name == "window":
+            t0 = time.perf_counter()
+            ref, ref_cost = ba.solve_window_fast(state, meas, iters=iters)
+            _sync(dev)
+            one_s = time.perf_counter() - t0
+            p_err = float((got["p"].to(dev) - ref.p).abs().max())
+            print(f"  window: cost {float(got['cost']):.2f} sharded, {float(ref_cost):.2f} "
+                  f"by solve_window_fast ({one_s:.3f} s on one card); max |p| difference "
+                  f"{p_err:.3g} (bound 5e-2)")
+            check(float(got["cost"]) < 1.2 * float(ref_cost) + 5.0 and p_err < 5e-2,
+                  "window: the sharded Schur solve misses test_parallel.py's bounds")
+
+
+def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:
+    """Phase 11: `entry.dryrun_multichip(n_ranks)` on NCCL with one card a
+    rank where the machine has n_ranks cards, else on gloo with every rank on
+    this card (a stated layout: every tensor stays on the card), held to the
+    single-process path by `multichip_checks`. Returns the dense kernels'
+    launches on the production dense step, summed over the ranks."""
+    from cvids_tpu_torch.entry import dryrun_multichip, dryrun_problems
+
+    dev = torch.device(device)
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= n_ranks else "gloo"
+    print(f"phase 11 multi-GPU: dryrun_multichip({n_ranks}), backend {backend}, {n_ranks} "
+          f"ranks on {n_ranks if backend == 'nccl' else 1} of {n_cards} cards")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = dryrun_multichip(n_ranks, backend=backend, device=None if backend == "nccl" else dev)
+    run_s = time.perf_counter() - t_phase
+    probs = dryrun_problems(n_ranks, dev)
+    multichip_checks(res, probs, n_ranks, dev)
+    for name, ph in res["phases"].items():
+        calls = sum(c["count"] for c in ph["collectives"])
+        nbytes = sum(c["bytes"] for c in ph["collectives"])
+        print(f"  {name}: {ph['seconds']:.3f} s on rank 0; {calls} collective calls, {nbytes} "
+              f"bytes" + (f", {ph['seconds'] / calls * 1e3:.3f} ms a call with the work "
+                          f"between" if calls else ""))
+    print(f"  one all-reduce of the solve's (1024, 4) fp32 buffer alone, {backend}: "
+          f"{res['all_reduce_ms']:.4f} ms a call (mean of 50 after 20)")
+    print(f"  peak device memory per rank (GiB): "
+          f"{[round(r['peak_gib'], 3) for r in res['ranks']]}; dense launches per rank: "
+          f"{[r['dense']['launches'] for r in res['ranks']]}")
+    print(f"phase 11 multi-GPU: ok in {time.perf_counter() - t_phase:.1f} s (dry run "
+          f"{run_s:.1f} s, of it the ranks' start and stop; the checks on one card the rest)")
+    return {k: sum(r["dense"]["launches"][k] for r in res["ranks"]) for k in SOURCES}
+
+
 def _page_state(path: str) -> dict:
     """The state JSON embedded in an exported viewer page."""
     html = open(path).read()
@@ -2693,6 +2867,9 @@ def main() -> int:
 
     if "--dense-probe" in sys.argv[1:]:
         dense_probe(dev)
+        return 0
+    if "--multichip" in sys.argv[1:]:
+        multichip_phase(dev)
         return 0
 
     # phase 3: each kernel against its twin at the main path's shapes
@@ -2770,10 +2947,16 @@ def main() -> int:
         server, roots, topo_counts = topology_phase(dev, agent_seqs, agent_scores, root)
         del agent_seqs
         apps_phase(dev, server, roots, root)
+        del server
+
+    # phase 11: the sharded server step on 4 ranks, against one process
+    multi_counts = multichip_phase(dev)
 
     # launches: the whole server's run (phase 6), which drives all six;
     # launches_phase7: the distorted clients' run, which drives them again;
     # launches_phase8: the server fed by the agents' front-ends;
+    # launches_phase9: the topology's server; launches_phase11: the dry
+    # run's production dense step, summed over its ranks;
     # launches_per_frame: per fuse_measurement of phase 4's chain; the
     # Hamming kernel's launches_per_keyframe: of phase 6's stream.
     # floor_ms: the empty kernel through the same launch path, timed the same
@@ -2789,7 +2972,8 @@ def main() -> int:
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],
                 "launches_phase7": dist_counts[name],
                 "launches_phase8": agent_counts[name],
-                "launches_phase9": topo_counts[name], **rate[name],
+                "launches_phase9": topo_counts[name],
+                "launches_phase11": multi_counts[name], **rate[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2], "bound_ms": checks[name][3],
                 "bound_by": checks[name][4], "floor_ms": floor,

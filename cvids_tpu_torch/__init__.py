@@ -32,9 +32,10 @@ Ported so far:
                 solves), its keyframe store, BoW vocabularies and databases
                 (``vocab``), PCM outlier rejection (``pcm``), the 4-DoF
                 pose-graph optimizer and the relaxation smoother
-- ``mapping``:  the chunked TSDF volume on the device (``tsdf``) and its
-                meshing by marching tetrahedra with PLY export (``mesh``,
-                ``ops/marching_cubes.py``)
+- ``mapping``:  the chunked TSDF volume on the device (``tsdf``, with the
+                chunk-sharded ``shard_pool`` / ``sharded_integrate``) and
+                its meshing by marching tetrahedra with PLY export
+                (``mesh``, ``ops/marching_cubes.py``)
 - ``vio``:      the agent: IMU preintegration, the visual-inertial
                 bootstrap, the sliding-window BA and ``AgentFrontend``
                 (pixels and IMU in, keyframe packets out)
@@ -52,10 +53,16 @@ Ported so far:
 - ``native``:   the C++ max clique for PCM and the inverted-index BoW
                 database (``fmc.cpp``, ``bow.cpp``, built with the host's
                 compiler at first use)
+- ``parallel``: multi-GPU on ``torch.distributed``: process meshes and
+                ``launch`` (nccl with a card a rank, or gloo ranks sharing
+                one device), the edge-sharded 4-DoF solve, the
+                agent-sharded dense step, the landmark-sharded window Schur
+                solve and the audit of the collectives a run issues
 - ``apps``:     the programs: ``run_synthetic``, ``run_euroc`` and
                 ``agent_process`` (one agent of the deployment, streaming
                 over a socket); ``entry``: the server's compute step with
-                example inputs
+                example inputs, and ``dryrun_multichip``, the sharded
+                server step on N ranks
 - ``interop``:  carry the JAX package's states, vocabularies, configs,
                 TSDF volumes and cameras (as numpy) to the port and back
 
@@ -65,7 +72,8 @@ The package imports ``torch`` and never ``jax``, nor any module of
 Entry points that own device state (``CollaborativeServer``,
 ``CollaborativePoseGraph``, ``TsdfVolume``, ``SparseBowDatabase``,
 ``train_vocabulary``, ``generic_vocabulary``, ``AgentFrontend``), the
-apps and the agent process, and the helpers that make tensors from nothing or
+apps and the agent process, ``parallel.make_mesh`` outside a process
+group, and the helpers that make tensors from nothing or
 from host data (``ops.depth_filter.init_state``,
 ``ops.hamming.descriptors_to_torch``, ``ops.ransac.gumbel_noise``, the
 cameras' ``create``, ``camera.make_camera`` and the chessboard tools) run on

@@ -10,6 +10,10 @@ one batch of tensor ops over every chunk it touches
 truncation and optional space carving), written back with one
 `index_copy_` per field.
 
+Over a mesh of ranks (``parallel``), `shard_pool` gives each rank a
+contiguous block of the chunk axis and `sharded_integrate` integrates the
+replicated frame into it, with no collective.
+
 Defaults mirror the reference launch config (`chisel_ros/launch/
 sample.launch:7-21`): 8³-voxel chunks, 0.1 m voxels, truncation scaling with
 distance (quadratic truncator), space carving on.
@@ -32,7 +36,8 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["TsdfConfig", "ChunkPool", "TsdfVolume", "integrate_chunks"]
+__all__ = ["TsdfConfig", "ChunkPool", "TsdfVolume", "integrate_chunks",
+           "sharded_integrate", "shard_pool"]
 
 
 @dataclass(frozen=True)
@@ -129,6 +134,37 @@ def integrate_chunks(cfg: TsdfConfig, pool: ChunkPool, slots: torch.Tensor,
     pool.sdf.index_copy_(0, slots, sdf.reshape(m, s, s, s))
     pool.weight.index_copy_(0, slots, wout.reshape(m, s, s, s))
     pool.color.index_copy_(0, slots, cnew.reshape(m, s, s, s, 3))
+
+
+def shard_pool(pool: ChunkPool, mesh) -> ChunkPool:
+    """This rank's contiguous block of the pool's chunk axis (a copy), the
+    shard of a chunk-sharded pool over `mesh` (`parallel.Mesh`). The
+    capacity must be a multiple of the mesh size."""
+    c = pool.sdf.shape[0]
+    if c % mesh.size:
+        raise ValueError(f"a pool of {c} chunks does not shard over {mesh.size} ranks")
+    mine = mesh.block(c)
+    return ChunkPool(*(x[mine].clone() for x in pool))
+
+
+def sharded_integrate(cfg: TsdfConfig, pool_loc: ChunkPool, coords_loc: torch.Tensor,
+                      active_loc: torch.Tensor, depth: torch.Tensor, color: torch.Tensor,
+                      k_mat: torch.Tensor, r_cw: torch.Tensor, t_cw: torch.Tensor,
+                      mesh) -> ChunkPool:
+    """Integrate the replicated frame into this rank's resident chunks
+    (`shard_pool`): `coords_loc` (C', 3) names slot i's chunk, and the
+    active slots (`active_loc` (C',) bool) go through `integrate_chunks`;
+    the inactive ones stay unchanged. Updates `pool_loc` in place and
+    returns it. Every voxel stays on its rank: no collective, so `mesh`
+    (`parallel.Mesh`) is only checked to hold the pool. The JAX function
+    returns (jitted function, args) so that its HLO can be audited; the
+    port's audit reads the mesh's log instead."""
+    if pool_loc.sdf.device != torch.device(mesh.device):
+        raise ValueError(f"the pool is on {pool_loc.sdf.device}, the mesh's rank on "
+                         f"{mesh.device}")
+    slots = torch.nonzero(active_loc).flatten()
+    integrate_chunks(cfg, pool_loc, slots, coords_loc[slots], depth, color, k_mat, r_cw, t_cw)
+    return pool_loc
 
 
 class TsdfVolume:

@@ -14,7 +14,7 @@ Cost semantics mirror `FourDOFError` / `FourDOFWeightError`
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -141,19 +141,30 @@ def _vjp(nodes, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, r, n_nodes):
 
 def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
                         lm_iters: int = 12, cg_iters: int = 50,
-                        init_lambda: float = 1e-4) -> PoseGraphNodes:
+                        init_lambda: float = 1e-4,
+                        reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
+                        ) -> PoseGraphNodes:
     """LM with Jacobi-preconditioned CG on the 4-DoF graph.
 
     Fixed/invalid nodes get unit diagonal and zero updates. A step is kept
     only if it lowers the cost; lambda shrinks by 0.33 on success and grows
     by 4 otherwise (the accept test is a tensor select, not a host branch).
+
+    `reduce`, when given, sums a tensor in place across the ranks that each
+    hold a block of `edges` (`parallel.shard_posegraph_solve`); every
+    segment sum and cost goes through it, packed into
+    1 + lm_iters * (cg_iters + 2) calls: the first cost, then per LM
+    iteration the gradient with the Jacobi diagonal (one (N, 8) buffer), one
+    (N, 4) buffer a CG step (the two segment sums of `_vjp`) and the trial
+    cost. None: this process holds every edge.
     """
     n = nodes.yaw.shape[0]
     free = nodes.valid & ~nodes.fixed
     zero = torch.zeros((), dtype=nodes.t.dtype, device=nodes.t.device)
 
     def total_cost(nd):
-        return 0.5 * torch.sum(edge_residuals(nd, edges) ** 2)
+        cost = 0.5 * torch.sum(edge_residuals(nd, edges) ** 2)
+        return cost if reduce is None else reduce(cost.reshape(1))[0]
 
     def dot(a, b):
         return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
@@ -167,8 +178,6 @@ def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
         r = edge_residuals(nd, edges)
 
         g_yaw, g_t = _vjp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, r, n)
-        g_yaw = torch.where(free, g_yaw, zero)
-        g_t = torch.where(free[:, None], g_t, zero)
 
         # Jacobi preconditioner: diag(J^T J) per node from edge blocks
         st2 = scale_t ** 2
@@ -179,6 +188,11 @@ def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
                               edges.j, n))
         d_yaw = (_segment_sum(torch.sum(jt_yi ** 2, -1) * st2 + sy2, edges.i, n)
                  + _segment_sum(sy2, edges.j, n))
+        if reduce is not None:
+            packed = reduce(torch.cat([g_yaw[:, None], g_t, d_yaw[:, None], d_t], 1))
+            g_yaw, g_t, d_yaw, d_t = packed[:, 0], packed[:, 1:4], packed[:, 4], packed[:, 5:]
+        g_yaw = torch.where(free, g_yaw, zero)
+        g_t = torch.where(free[:, None], g_t, zero)
         d_t = torch.where(free[:, None], d_t, torch.ones((), device=d_t.device)) + 1e-8
         d_yaw = torch.where(free, d_yaw, torch.ones((), device=d_yaw.device)) + 1e-8
         lam_d_t = d_t * (1.0 + lam)
@@ -189,6 +203,9 @@ def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
             dt = torch.where(free[:, None], dt, zero)
             jv = _jvp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, dyaw, dt)
             hy, ht = _vjp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, jv, n)
+            if reduce is not None:
+                packed = reduce(torch.cat([hy[:, None], ht], 1))
+                hy, ht = packed[:, 0], packed[:, 1:]
             hy = torch.where(free, hy + lam * d_yaw * dyaw, zero)
             ht = torch.where(free[:, None], ht + lam * d_t * dt, zero)
             return hy, ht

@@ -1,5 +1,6 @@
-"""The six CUDA kernels against their PyTorch twins, and the front-end's
-CUDA graphs against its eager calls, on a CUDA card.
+"""The six CUDA kernels against their PyTorch twins, the front-end's CUDA
+graphs against its eager calls, the deployment topology and the multi-GPU
+dry run on two ranks that share the card, on a CUDA card.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
 
@@ -262,3 +263,16 @@ def test_topology_on_the_card(dev, tmp_path):
         assert len(frame_ms) == 61 and len(sent) == len(got[cid])
         assert all(cs.same_codec_dicts(a, b) for a, b in zip(sent, got[cid]))
     assert server.graph.store.count == sum(len(v) for v in got.values())
+
+
+def test_two_gloo_ranks_on_one_card(dev):
+    """`entry.dryrun_multichip` at its toy shapes on two gloo ranks that
+    share the card (`chip_smoke.py` phase 11's layout on a one-card
+    machine): every rank's tensors on the card, the dense step and the TSDF
+    blocks equal to one process's bit for bit, the five dense kernels
+    launched on each rank, no collective in either, and the solves and
+    windows by their formulas (`chip_smoke.multichip_checks`)."""
+    from cvids_tpu_torch.entry import dryrun_multichip, dryrun_problems
+
+    res = dryrun_multichip(2, backend="gloo", device=dev, production=False)
+    cs.multichip_checks(res, dryrun_problems(2, dev, production=False), 2, dev)

@@ -720,6 +720,7 @@ def _device_owners(tmp_path):
     from cvids_tpu_torch.apps import run_euroc, run_synthetic
     from cvids_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
     from cvids_tpu_torch.ops import depth_filter, hamming, ransac
+    from cvids_tpu_torch.parallel import make_mesh
     from cvids_tpu_torch.server import pipeline, posegraph, vocab
     from cvids_tpu_torch.utils.config import AgentConfig, CameraConfig
     from cvids_tpu_torch.vio.frontend import AgentFrontend
@@ -748,6 +749,7 @@ def _device_owners(tmp_path):
                                                                 "2", "--landmarks", "60"], **kw),
         "run_euroc": lambda **kw: _app(run_euroc.main, [
             "--seq", _one_frame_root(tmp_path), "--vocab", str(tmp_path / "tree.bin")], **kw),
+        "make_mesh": lambda **kw: make_mesh(**kw),
     }
 
 
@@ -756,13 +758,16 @@ def _device_owners(tmp_path):
                                   "SparseBowDatabase", "train_vocabulary",
                                   "init_state", "descriptors_to_torch",
                                   "gumbel_noise", "AgentFrontend", "generic_vocabulary",
-                                  "agent_process", "run_synthetic", "run_euroc"])
+                                  "agent_process", "run_synthetic", "run_euroc", "make_mesh",
+                                  "launch_nccl"])
 def test_default_device_is_the_card(name, monkeypatch, tmp_path):
     """With no device given, every entry point that owns device state, and
     every helper that makes tensors from nothing or from host data, asks
     for the card: without one it raises and names the remedy (no silent
     CPU); with device="cpu" it builds, on the CPU. The agent process and
-    the apps (`cvids_tpu_torch/apps`) likewise, unless given `--device`."""
+    the apps (`cvids_tpu_torch/apps`) likewise, unless given `--device`;
+    `parallel.make_mesh` with no process group likewise, and `parallel.launch`
+    with the nccl backend raises without a card for each rank."""
     import cvids_tpu_torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -770,6 +775,12 @@ def test_default_device_is_the_card(name, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             cvids_tpu_torch.default_device()
         assert cvids_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+        return
+    if name == "launch_nccl":
+        # one rank a card: without enough cards it raises before it spawns
+        from cvids_tpu_torch.parallel import launch
+        with pytest.raises(RuntimeError, match='needs 2 CUDA devices.*device="cpu"'):
+            launch(print, 2, "nccl")
         return
     build = _device_owners(tmp_path)[name]
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -801,6 +812,7 @@ def test_default_device_is_the_card(name, monkeypatch, tmp_path):
              "agent_process": lambda o: o.state.lm.device,
              "run_synthetic": lambda o: o.db.vectors.device,
              "run_euroc": lambda o: o.db.ids.device,
+             "make_mesh": lambda o: o.device,
              # a host tree: FAST and BRIEF on 8 worlds x 2 views, each call
              # on the device asked for
              "generic_vocabulary": lambda o: ran_on[0] if len(set(ran_on)) == 1 else ran_on}[name](obj)
