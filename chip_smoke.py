@@ -7,18 +7,25 @@ and checks that every kernel of each path ran:
 
 - phase 4, the server step of `__graft_entry__.entry()`: dense fusion at
   640x480x128 in bf16 (warp, sweep, SGM, WTA, filter kernels), then the
-  4-DoF solve on a 256-keyframe graph;
+  4-DoF solve on a 256-keyframe graph, both as the server runs them
+  (replayed CUDA graphs); then the graphed dense frame against the eager one
+  bit for bit over 40 frames (both warps, reference rolls), the two side by
+  side (wall per frame, device busy, device activities, host launch calls),
+  and the 1024-keyframe / 6400-edge solve (12 LM x 60 CG) eager against
+  graphed, seconds and bit equality;
 - phase 5, the collaborative pose-graph server: 4 agents streaming ~500
   keyframes (160 window / 512 extra features each) through
   `CollaborativePoseGraph` with a 10^6-word tree vocabulary and the
-  background solver (the Hamming kernel in every loop verification), then
-  the same stream's loop edges through the kernel and through its twin;
+  background solver (the Hamming kernel in every loop verification; the
+  graphed solve on the worker's stream), then the same stream's loop edges
+  through the kernel and through its twin with inline solves, and the two
+  ingest medians;
 - phase 6, the whole collaborative server: 4 agents' keyframe packets
   with 640x480 images rendered in `default_scene()`'s room through
   `CollaborativeServer` (pose graph, per-client dense depth at 640x480x128
   bf16, TSDF fusion at 0.1 m with carving, the mesh), scored against the
-  rendered depth and the analytic scene; then a short stream through the
-  kernels and through the twins;
+  rendered depth and the analytic scene, with the dense graphs' shared
+  pool; then a short stream through the kernels and through the twins;
 - phase 7, distorted clients: the remap grids that `set_client_camera`
   builds for a radtan pinhole, an equidistant fisheye and a Mei camera (equal
   to the CPU's; an image rendered through the distorted camera and remapped
@@ -33,9 +40,10 @@ and checks that every kernel of each path ran:
   4)`, held to test_full_system.py's bounds (VI-initialized, >= 8 packets an
   agent, aligned, a loop, ATE < 10 cm, depth RMS < 0.12, mesh < 0.15 m),
   with the front-end's times per frame and keyframe, its host syncs and its
-  device activities per frame; four calls of each kernel of that server run
-  (480x752x128 volumes) are kept and held against the twins on the same
-  inputs;
+  device activities per frame; four Hamming calls and two graphed dense
+  frames of that server run (480x752x128 volumes) are kept, the frames
+  rerun eagerly through the kernels (equal to the graph's, each kernel call
+  held against its twin) and through the twins;
 - phase 9, the reference's deployment topology (test_full_topology.py):
   phase 8's frames written as two EuRoC-format sequences (PNG, CSV with the
   IMU at 17 significant digits, sensor.yaml) and read back bit-equal, two
@@ -43,7 +51,8 @@ and checks that every kernel of each path ran:
   (`apps.agent_process`) streaming AgentMsg and image frames over TCP into
   `CollaborativeSocketServer` -> `CollaborativeServer` with background
   solves; every packet received equal to what was sent, the topology
-  test's bounds, four calls of each kernel held against the twins;
+  test's bounds, four Hamming calls and two graphed dense frames held
+  against the twins as in phase 8;
 - phase 10, the apps and the viewers: `apps.run_synthetic` at its
   defaults, `apps.run_euroc` on phase 9's sequences, one call of
   `entry()`'s step, and phase 9's server's `export_viewer`,
@@ -65,9 +74,10 @@ The banded warp is one kernel that computes its own sample positions from
 the 3x3 map on the device; phase 3 also checks that a call is that one launch
 and no other device work.
 
-`--dense-probe` builds, runs 40 dense frames for the wall time per frame and
-profiles three frames for the device's busy time, the number of device
-activities and each kernel's time in the frame. With `--package DIR` it
+`--dense-probe` builds, times 35 dense frames after 5 of warm-up, eager and
+graphed in turn (a package without graphs: eager only), profiles one of
+each (device busy, device activities, host launch calls) and three graphed
+frames for each kernel's time in the frame. With `--package DIR` it
 imports `cvids_tpu_torch` from DIR (an unpacked `git archive` of another
 commit) instead of this script's directory: the run to make in turns on two
 trees (parent, change, change, parent) inside one call when a change to the
@@ -84,8 +94,8 @@ and checks so at the end. Exits non-zero on any failed phase. The line before
 the last is the kernel table as JSON (per kernel: launches on the whole
 server's run, on the distorted clients' run, on the agents' server run and
 on the topology's,
-launches per dense frame or,
-for the Hamming kernel, per keyframe, max abs err against the twin, kernel
+launches per graphed dense frame and the host's launch calls per graphed
+and eager frame or, for the Hamming kernel, launches per keyframe, max abs err against the twin, kernel
 and twin ms, the roofline bound of the same call from
 `cuda_kernels.kernel_work` and the H100's published peaks, the launch floor,
 the share of the bound reached and the reach, max(bound, floor) / time); the
@@ -217,9 +227,16 @@ def _self_device_us(evt) -> float:
     return float(v if v is not None else evt.self_cuda_time_total)
 
 
-def profile_frame(fn) -> tuple[float, list[tuple[str, float, int]]]:
+# the runtime calls that put work on a stream: what a frame costs the host
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync", "cudaLaunchCooperativeKernel")
+
+
+def profile_frame(fn, host_launches: bool = False):
     """Run fn() once under torch.profiler; returns (wall ms, [(name, device
-    ms, calls)] of the device activities, largest first)."""
+    ms, calls)] of the device activities, largest first) and, with
+    `host_launches`, the number of HOST_LAUNCH_CALLS the host made."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -227,9 +244,14 @@ def profile_frame(fn) -> tuple[float, list[tuple[str, float, int]]]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, _self_device_us(e) / 1e3, e.count) for e in prof.key_averages()
+    events = prof.key_averages()
+    rows = [(e.key, _self_device_us(e) / 1e3, e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0]
-    return wall, sorted(rows, key=lambda r: -r[1])
+    rows = sorted(rows, key=lambda r: -r[1])
+    if not host_launches:
+        return wall, rows
+    return wall, rows, sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS
+                           and e.device_type == torch.autograd.DeviceType.CPU)
 
 
 def profiled_kernel_ms(fn, entry: str) -> float:
@@ -916,14 +938,65 @@ def memory_checks(device, rng, repeats=3) -> int:
 # ---------------------------------------------------------------------------
 
 
-def dense_chain(device, rng_seed, h=H, w=W, d=D, n_frames=N_FRAMES):
-    """init_reference, n_frames of fuse_measurement with the host's banded
-    gate, finalize, then one frame whose rotation fails the gate. Returns
-    (median depth, converged share, final filt.mu, per-frame ms, gates)."""
+def _dense_api():
+    """(estimator, DenseStep or None, disable_graphs or None): a package of
+    a revision before the graphed frame (`--package`) has neither."""
     from cvids_tpu_torch.dense import estimator
+    try:
+        from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+    except ImportError:
+        disable_graphs = None
+    return estimator, getattr(estimator, "DenseStep", None), disable_graphs
 
+
+class _Chain:
+    """One dense state driven as the server drives it: a `DenseStep`, its
+    frames replayed as CUDA graphs or, with `graphed=False`, run eagerly
+    (inside `disable_graphs()`); `fuse_measurement` itself where the
+    package has no `DenseStep`."""
+
+    def __init__(self, cfg, ref_t, graphed=True):
+        estimator, step_cls, self._disable = _dense_api()
+        self.graphed = graphed and step_cls is not None
+        self.cfg, self._est = cfg, estimator
+        self.step = step_cls(cfg) if step_cls is not None else None
+        if self.step is not None:
+            self.step.init_reference(ref_t)
+        else:
+            self._state = estimator.init_reference(cfg, ref_t)
+
+    @property
+    def state(self):
+        return self.step.state if self.step is not None else self._state
+
+    def _mode(self):
+        return (contextlib.nullcontext() if self.graphed or self._disable is None
+                else self._disable())
+
+    def fuse(self, meas_t, a_t, b_t, banded):
+        with self._mode():
+            if self.step is None:
+                self._state = self._est.fuse_measurement(self.cfg, self._state, meas_t, a_t,
+                                                         b_t, banded_warp=banded)
+            else:
+                self.step.fuse(meas_t, a_t, b_t, banded)
+
+    def roll(self, ref_t, k_t, bias):
+        dev = ref_t.device
+        with self._mode():
+            self.step.propagate_reference(ref_t, torch.eye(3, device=dev),
+                                          torch.zeros(3, device=dev), k_t, sparse_bias=bias)
+
+
+def dense_chain(device, rng_seed, h=H, w=W, d=D, n_frames=N_FRAMES, graphed=True):
+    """init_reference, n_frames with the host's banded gate, finalize, then
+    one frame whose rotation fails the gate, all through a `DenseStep` as
+    the server runs it (replayed CUDA graphs; eagerly with `graphed=False`).
+    Returns (median depth, converged share, final filt.mu, per-frame ms,
+    gates)."""
     dev = torch.device(device)
     rng = np.random.default_rng(rng_seed)
+    estimator = _dense_api()[0]
     cfg = estimator.DenseConfig(height=h, width=w, num_depths=d,
                                 dep_sample=1.0 / (BASELINE * FOCAL))
     ref, meas, a_mat, b_vec, k = textured_plane(rng, h, w)
@@ -931,16 +1004,15 @@ def dense_chain(device, rng_seed, h=H, w=W, d=D, n_frames=N_FRAMES):
     a_t = torch.from_numpy(a_mat).to(dev)
     b_t = torch.from_numpy(b_vec).to(dev)
     gate = banded_gate(a_mat, h, w)
-    state = estimator.init_reference(cfg, torch.from_numpy(ref).to(dev))
+    chain = _Chain(cfg, torch.from_numpy(ref).to(dev), graphed)
     frame_ms = []
     for _ in range(n_frames):
         _sync(dev)
         t0 = time.perf_counter()
-        state = estimator.fuse_measurement(cfg, state, meas_t, a_t, b_t,
-                                           banded_warp=gate)
+        chain.fuse(meas_t, a_t, b_t, gate)
         _sync(dev)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    inv_d, ok = estimator.finalize(cfg, state)
+    inv_d, ok = estimator.finalize(cfg, chain.state)
     crop = (slice(40, -40), slice(40, -40))
     okc = ok[crop]
     med = float(torch.median(1.0 / inv_d[crop][okc].clamp(min=1e-6)).item()) \
@@ -949,15 +1021,158 @@ def dense_chain(device, rng_seed, h=H, w=W, d=D, n_frames=N_FRAMES):
     # one frame that fails the gate: the exact warp runs
     a_rot = rotation_homography(k, 0.25)
     gate_rot = banded_gate(a_rot, h, w)
-    state = estimator.fuse_measurement(cfg, state, meas_t, torch.from_numpy(a_rot).to(dev),
-                                       b_t, banded_warp=gate_rot)
+    chain.fuse(meas_t, torch.from_numpy(a_rot).to(dev), b_t, gate_rot)
     _sync(dev)
-    return med, share, state.filt.mu, frame_ms, (gate, gate_rot)
+    return med, share, chain.state.filt.mu.clone(), frame_ms, (gate, gate_rot)
+
+
+GRAPH_FRAMES = 40           # graphed against eager frames, bit for bit
+TIMED_FRAMES = (5, 35)      # warm-up, then timed frames per mode
+
+
+def _stats(ms) -> dict:
+    return {"median": statistics.median(ms), "p90": sorted(ms)[int(0.9 * len(ms))],
+            "min": min(ms)}
+
+
+def frame_times(device, pair=None) -> dict:
+    """The dense frame at 640x480x128, eager against graphed: wall ms per
+    frame (median, p90, min) over TIMED_FRAMES[1] frames after
+    TIMED_FRAMES[0] of warm-up, each mode in turn, the device synced
+    around each frame; then one profiled frame of each: device busy ms,
+    device activities, wall ms with the profiler on, and the host's launch
+    calls (HOST_LAUNCH_CALLS). `pair` continues two chains (eager, graph);
+    a package without graphs gives the eager figures only."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    estimator = _dense_api()[0]
+    cfg = estimator.DenseConfig(dep_sample=1.0 / (BASELINE * FOCAL))
+    ref, meas, a_mat, b_vec, _ = textured_plane(rng)
+    args = (torch.from_numpy(meas).to(dev), torch.from_numpy(a_mat).to(dev),
+            torch.from_numpy(b_vec).to(dev), banded_gate(a_mat, H, W))
+    if pair is None:
+        ref_t = torch.from_numpy(ref).to(dev)
+        pair = (_Chain(cfg, ref_t, graphed=False), _Chain(cfg, ref_t, graphed=True))
+    chains = {"eager": pair[0]}
+    if pair[1].graphed:
+        chains["graph"] = pair[1]
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    ms = {m: [] for m in chains}
+    launched = {m: dict.fromkeys(ck.launches, 0) for m in chains}
+    for i in range(sum(TIMED_FRAMES)):
+        for m, ch in chains.items():
+            before = dict(ck.launches)
+            _sync(dev)
+            t0 = time.perf_counter()
+            ch.fuse(*args)
+            _sync(dev)
+            if i >= TIMED_FRAMES[0]:
+                ms[m].append((time.perf_counter() - t0) * 1e3)
+                for n in launched[m]:
+                    launched[m][n] += ck.launches[n] - before[n]
+    out = {}
+    for m, ch in chains.items():
+        wall, rows, host = profile_frame(lambda: ch.fuse(*args), host_launches=True)
+        out[m] = {"wall_ms": _stats(ms[m]), "device_busy_ms": sum(r[1] for r in rows),
+                  "kernel_launches": {n: v / TIMED_FRAMES[1] for n, v in launched[m].items()
+                                      if v},
+                  "device_activities": sum(r[2] for r in rows), "profiled_wall_ms": wall,
+                  "host_launches": host,
+                  "kernels_ms": {name: round(t, 4) for name, t, _ in rows
+                                 if any(k in name for k in KERNEL_ENTRIES)}}
+    for m, v in out.items():
+        print(f"  dense frame {m:5s}: wall ms median {v['wall_ms']['median']:.3f} p90 "
+              f"{v['wall_ms']['p90']:.3f} min {v['wall_ms']['min']:.3f} over "
+              f"{TIMED_FRAMES[1]} frames; profiled: device busy {v['device_busy_ms']:.3f} ms, "
+              f"{v['device_activities']} device activities, {v['host_launches']} host launch "
+              f"calls, wall {v['profiled_wall_ms']:.3f} ms (profiler on)")
+    return out
+
+
+def graph_frame_checks(device, n_frames=GRAPH_FRAMES) -> dict:
+    """The graphed dense frame against the eager one at 640x480x128, bit
+    for bit (the two volumes, the four filter fields, the frame count)
+    after each of `n_frames` frames: banded and exact warps, and reference
+    rolls with and without a sparse bias between, so every graph variant
+    runs and the graphs outlive the rolls. Then `frame_times` on the same
+    two chains. Returns the frame figures."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    estimator = _dense_api()[0]
+    cfg = estimator.DenseConfig(dep_sample=1.0 / (BASELINE * FOCAL))
+    ref, meas, a_mat, b_vec, k = textured_plane(rng)
+    ref_t, meas_t = torch.from_numpy(ref).to(dev), torch.from_numpy(meas).to(dev)
+    a_t, b_t, k_t = (torch.from_numpy(x).to(dev) for x in (a_mat, b_vec, k))
+    a_rot = rotation_homography(k, 0.25)
+    a_rot_t = torch.from_numpy(a_rot).to(dev)
+    gates = (banded_gate(a_mat, H, W), banded_gate(a_rot, H, W))
+    uv = np.stack(np.meshgrid(np.arange(20, W - 20, 24), np.arange(20, H - 20, 24)),
+                  -1).reshape(-1, 2).astype(np.float32)
+    bias = estimator.splat_sparse(cfg, torch.from_numpy(uv).to(dev),
+                                  torch.full((len(uv),), 1.0 / DEPTH, device=dev),
+                                  torch.ones(len(uv), dtype=torch.bool, device=dev))
+    pair = (_Chain(cfg, ref_t, graphed=False), _Chain(cfg, ref_t, graphed=True))
+    rolls = {n_frames // 2: bias, 3 * n_frames // 4: None}
+    exact = {n_frames // 4, n_frames // 2 + 3, 3 * n_frames // 4 + 2}
+    equal = 0
+    for i in range(n_frames):
+        if i in rolls:
+            for ch in pair:
+                ch.roll(ref_t, k_t, rolls[i])
+        a, g = (a_rot_t, gates[1]) if i in exact else (a_t, gates[0])
+        for ch in pair:
+            ch.fuse(meas_t, a, b_t, g)
+        check(_dense_bits_equal(pair[0].state, pair[1].state),
+              f"graphed dense frame {i} differs from the eager frame")
+        equal += 1
+    graphs = pair[1].step.graphs
+    check(len(graphs.graphs) == 4, f"{len(graphs.graphs)} dense graphs captured, not 4")
+    print(f"  graphed dense frames: {equal} of {n_frames} equal to the eager frames bit for "
+          f"bit (mean_cost, count, mu, sigma2, a, b, num_frames): gates {gates}, exact-warp "
+          f"frames {sorted(exact)}, reference rolls at {sorted(rolls)} (the first with a sparse "
+          f"bias); {len(graphs.graphs)} graphs captured (warp x bias), {graphs.replays} replays")
+    return frame_times(dev, pair)
+
+
+def solve_checks(device) -> dict:
+    """The dry run's 1024-keyframe / 6400-edge problem (`entry.
+    dryrun_problems`), 12 LM x 60 CG, on one card: the eager solve against
+    the graphed one (an LM iteration's graph replayed 12 times), seconds
+    and bit equality. The first graphed call captures (after one eager
+    warm-up iteration), the second only replays."""
+    from cvids_tpu_torch.entry import dryrun_problems
+    from cvids_tpu_torch.server import optimizer as opt
+
+    dev = torch.device(device)
+    nodes, edges = dryrun_problems(1, dev, production=True)["graph"]
+    times, outs = {}, {}
+    for name, fn in (("eager", opt.optimize_pose_graph),
+                     ("graph_capture", opt.optimize_pose_graph_graphed),
+                     ("graph", opt.optimize_pose_graph_graphed)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        outs[name] = fn(nodes, edges, 12, 60)
+        _sync(dev)
+        times[name] = time.perf_counter() - t0
+    same = all(_same_bits(x, y) for m in ("graph_capture", "graph")
+               for x, y in zip(outs[m], outs["eager"]))
+    _, rows = profile_frame(lambda: opt.optimize_pose_graph_graphed(nodes, edges, 12, 60))
+    busy = sum(r[1] for r in rows)
+    print(f"  4-DoF solve {len(nodes.yaw)} KF / {len(edges.i)} edges, 12 LM x 60 CG: eager "
+          f"{times['eager']:.4f} s, graphed {times['graph']:.4f} s (the capturing call "
+          f"{times['graph_capture']:.4f} s); graphed equal to eager bit for bit: {same}; "
+          f"a replay's device busy {busy / 1e3:.4f} s over {sum(r[2] for r in rows)} device "
+          f"activities")
+    check(same, "the graphed 4-DoF solve differs from the eager solve")
+    return {"nodes": len(nodes.yaw), "edges": len(edges.i), "eager_s": times["eager"],
+            "graph_s": times["graph"], "capture_s": times["graph_capture"],
+            "device_busy_s": busy / 1e3, "bit_equal": same}
 
 
 def pose_graph(device, n=N_NODES):
     """The 256-keyframe 4-DoF solve of __graft_entry__.entry() (2 LM
-    iterations of 10 CG steps). Returns (residual norm before, after, ms)."""
+    iterations of 10 CG steps), graphed as `entry()` runs it. Returns
+    (residual norm before, after, ms of the capturing call and a replay)."""
     from cvids_tpu_torch.server import optimizer as opt
 
     dev = torch.device(device)
@@ -982,7 +1197,7 @@ def pose_graph(device, n=N_NODES):
     for _ in range(2):      # the first solve also initializes cuBLAS
         _sync(dev)
         t0 = time.perf_counter()
-        out = opt.optimize_pose_graph(nodes, edges, lm_iters=2, cg_iters=10)
+        out = opt.optimize_pose_graph_graphed(nodes, edges, lm_iters=2, cg_iters=10)
         _sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
     check(all(bool(torch.isfinite(x.float()).all()) for x in out), "pose graph: non-finite output")
@@ -991,30 +1206,24 @@ def pose_graph(device, n=N_NODES):
 
 
 def profile_slice(device):
-    """Profile one steady-state fuse_measurement (third frame of a fresh
+    """Profile one steady-state graphed dense frame (the third of a fresh
     chain); prints the device time by activity and the device-busy share."""
-    from cvids_tpu_torch.dense import estimator
-
     dev = torch.device(device)
     rng = np.random.default_rng(0)
+    estimator = _dense_api()[0]
     cfg = estimator.DenseConfig(dep_sample=1.0 / (BASELINE * FOCAL))
     ref, meas, a_mat, b_vec, _ = textured_plane(rng)
     args = (torch.from_numpy(meas).to(dev), torch.from_numpy(a_mat).to(dev),
-            torch.from_numpy(b_vec).to(dev))
-    gate = banded_gate(a_mat, H, W)
-    box = [estimator.init_reference(cfg, torch.from_numpy(ref).to(dev))]
+            torch.from_numpy(b_vec).to(dev), banded_gate(a_mat, H, W))
+    chain = _Chain(cfg, torch.from_numpy(ref).to(dev))
     for _ in range(2):
-        box[0] = estimator.fuse_measurement(cfg, box[0], *args, banded_warp=gate)
-
-    def frame():
-        box[0] = estimator.fuse_measurement(cfg, box[0], *args, banded_warp=gate)
-
-    wall, rows = profile_frame(frame)
+        chain.fuse(*args)
+    wall, rows = profile_frame(lambda: chain.fuse(*args))
     total = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if any(k in r[0] for k in KERNEL_ENTRIES))
-    print(f"  profiled frame: wall {wall:.3f} ms (profiler on), device busy "
-          f"{total:.3f} ms ({total / wall:.1%} of wall), the five kernels "
-          f"{ours:.3f} ms, {sum(r[2] for r in rows)} device activities "
+    print(f"  profiled {'graphed' if chain.graphed else 'eager'} frame: wall {wall:.3f} ms "
+          f"(profiler on), device busy {total:.3f} ms ({total / wall:.1%} of wall), the five "
+          f"kernels {ours:.3f} ms, {sum(r[2] for r in rows)} device activities "
           f"({len(rows)} distinct)")
     # the 14 largest, and the port's own kernels wherever they rank
     for k, (name, ms, calls) in enumerate(rows):
@@ -1023,17 +1232,12 @@ def profile_slice(device):
 
 
 def dense_probe(device) -> None:
-    """The dense frame's times, one line each: the wall time per
-    fuse_measurement over 35 frames after 5 of warm-up, and three profiled
-    frames (device busy ms, the number of device activities, wall with the
-    profiler on, device ms by kernel).
-    Uses only what every revision of the package has."""
+    """The dense frame's times: eager against graphed (`frame_times`; the
+    eager frame only for a package without graphs), then three profiled
+    graphed frames with each kernel's device time."""
     import cvids_tpu_torch
     print(f"dense probe of {cvids_tpu_torch.__path__[0]}")
-    frame_ms = dense_chain(device, 0, n_frames=40)[3][5:]
-    print(f"dense probe frame wall ms over {len(frame_ms)} frames: median "
-          f"{statistics.median(frame_ms):.3f} min {min(frame_ms):.3f} p90 "
-          f"{sorted(frame_ms)[int(0.9 * len(frame_ms))]:.3f}")
+    print(json.dumps({"dense_frame": frame_times(device)}))
     for _ in range(3):
         profile_slice(device)
 
@@ -1052,21 +1256,26 @@ def _same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 class KernelRecorder:
-    """Keeps the inputs and outputs of the calls numbered CALLS of each
-    kernel wrapper during a run (device clones), then holds each kept output
-    against the twin on the same inputs: the run's own data at the run's
-    shapes. The recording launches none of the kernels; the comparison runs
-    only the twins. A context manager around the run."""
+    """Keeps the inputs and outputs of the calls numbered `calls` (None:
+    every call) of the wrappers of kernels `names` during a run (device
+    clones), then holds each kept output against the twin on the same
+    inputs: the run's own data at the run's shapes. The recording launches
+    none of the kernels; the comparison runs only the twins. A CUDA-graph
+    replay calls no wrapper, and a capture's calls are not kept (they run
+    nothing): a graphed dense frame is held to the twins by `FrameRecorder`.
+    A context manager around the run."""
 
     CALLS = (0, 1, 30, 31)   # for the SGM (two calls a frame): frames 1 and 16
 
-    def __init__(self):
+    def __init__(self, names=tuple(WRAPPERS), calls=CALLS):
         from cvids_tpu_torch.ops import cuda_kernels as ck
 
-        self.calls = {name: 0 for name in WRAPPERS}
+        self.calls = {name: 0 for name in names}
+        self.keep = calls
         self.kept = []
-        self._patches = [mock.patch.object(ck, fn, self._recording(name, getattr(ck, fn)))
-                         for name, fn in WRAPPERS.items()]
+        self._patches = [mock.patch.object(ck, WRAPPERS[name],
+                                           self._recording(name, getattr(ck, WRAPPERS[name])))
+                         for name in names]
 
     def _recording(self, name, fn):
         from torch.utils import _pytree as pytree
@@ -1075,9 +1284,11 @@ class KernelRecorder:
             return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, tree)
 
         def call(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():   # a capture runs nothing
+                return fn(*args, **kwargs)
             i = self.calls[name]
             self.calls[name] += 1
-            keep = i in self.CALLS
+            keep = self.keep is None or i in self.keep
             inputs = clone((args, kwargs)) if keep else None
             out = fn(*args, **kwargs)
             if keep:
@@ -1118,6 +1329,116 @@ class KernelRecorder:
               f"exact, the filter {FILTER_MAX_ULP} ulp): "
               + "; ".join(f"{n} {', '.join(v)}" for n, v in seen.items()))
         return {n: len(v) for n, v in seen.items()}
+
+
+def _clone_state(st):
+    """A DenseState with every tensor cloned (a bias of None stays None)."""
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, st)
+
+
+def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)))
+
+
+def _dense_bits_equal(a, b) -> bool:
+    """The two volumes, the four filter fields and the frame count, bit for bit."""
+    return all(_same_bits(x, y) for x, y in zip(
+        (a.mean_cost, a.count, *a.filt, a.num_frames), (b.mean_cost, b.count, *b.filt,
+                                                        b.num_frames)))
+
+
+class FrameRecorder:
+    """Keeps the graphed dense frames numbered FRAMES of a run (calls of
+    `DenseStep.fuse`, all clients counted together): the state before the
+    frame, its measurement, `a_mat`, `b_vec` and warp choice, and the state
+    after it (device clones). `compare` reruns each kept frame on a copy of
+    the state before, twice and eagerly: with the kernels, each kernel call
+    held against its twin on its own inputs (`KernelRecorder`, every call),
+    and with the twins. The kernel frame must equal the graph's frame bit
+    for bit; the twin frame must equal it exactly in the volumes and within
+    FILTER_MAX_ULP in the filter. A context manager around the run."""
+
+    FRAMES = (1, 16)
+
+    def __init__(self):
+        from cvids_tpu_torch.dense import estimator
+
+        self.n = 0
+        self.kept = []
+        real = estimator.DenseStep.fuse
+
+        def fuse(step, meas_img, a_mat, b_vec, banded_warp=None):
+            i = self.n
+            self.n += 1
+            if i not in self.FRAMES:
+                return real(step, meas_img, a_mat, b_vec, banded_warp)
+            before = _clone_state(step.state)
+            inputs = (meas_img.to(torch.float32).clone(), a_mat.clone(), b_vec.clone(),
+                      banded_warp)
+            out = real(step, meas_img, a_mat, b_vec, banded_warp)
+            self.kept.append((i, step.cfg, before, inputs, _clone_state(out)))
+            return out
+
+        self._patch = mock.patch.object(estimator.DenseStep, "fuse", fuse)
+
+    def __enter__(self):
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def compare(self) -> dict:
+        """Returns the number of kernel calls held against the twins per
+        kernel."""
+        from cvids_tpu_torch.dense import estimator
+        from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+        counts = {}
+        for i, cfg, before, (meas, a, b, banded), graphed in self.kept:
+            what = f"graphed dense frame {i} ({'banded' if banded else 'exact'} warp, " \
+                   f"{'a' if before.sparse_bias is not None else 'no'} sparse bias) at " \
+                   f"{tuple(before.mean_cost.shape)}"
+            rec = KernelRecorder(names=DENSE_KERNELS, calls=None)
+            st_k, st_t = _clone_state(before), _clone_state(before)
+            with disable_graphs():
+                with rec:
+                    estimator._fuse_into(cfg, st_k, meas, a, b, banded)
+                with contextlib.ExitStack() as stack:
+                    for p in twin_patches():
+                        stack.enter_context(p)
+                    estimator._fuse_into(cfg, st_t, meas, a, b, banded)
+            check(_dense_bits_equal(st_k, graphed),
+                  f"{what}: the eager frame differs from the graph's")
+            check(all(_same_values(x, y) for x, y in zip(
+                (st_t.mean_cost, st_t.count, st_t.num_frames),
+                (graphed.mean_cost, graphed.count, graphed.num_frames))),
+                f"{what}: the twins' volumes differ from the graph's")
+            filter_agree(graphed.filt, st_t.filt, f"{what}, the twins' filter")
+            for n, c in rec.compare().items():
+                counts[n] = counts.get(n, 0) + c
+        print(f"  {len(self.kept)} graphed dense frames rerun eagerly with the kernels (equal bit "
+              f"for bit) and with the twins (volumes exact, filter {FILTER_MAX_ULP} ulp): kernel "
+              f"calls held against the twins {counts}")
+        return counts
+
+
+def recorded_checks(recorder: KernelRecorder, frames: FrameRecorder, counts: dict) -> None:
+    """A server run's recorded calls against the twins: the Hamming
+    kernel's kept calls, and every dense kernel that the kept graphed
+    frames ran (the banded warp where its gate passed in them)."""
+    compared = recorder.compare()
+    check(all(compared.get(n, 0) == len(KernelRecorder.CALLS) for n in SERVER_KERNELS
+              if counts[n] > max(KernelRecorder.CALLS)),
+          f"kernel calls held against the twins {compared}, launches {counts}")
+    dense = frames.compare()
+    banded = any(k[3][3] for k in frames.kept)
+    check(len(frames.kept) == len(FrameRecorder.FRAMES)
+          and all(dense.get(n, 0) > 0 for n in DENSE_KERNELS if n != "warp_banded" or banded),
+          f"graphed frames kept {len(frames.kept)}, dense kernel calls held against the "
+          f"twins {dense}")
 
 
 # ---------------------------------------------------------------------------
@@ -1224,14 +1545,18 @@ def server_run(device, packets, tree, sync_window=(200, 240)):
     real_optimize = server.optimize
 
     def timed_optimize():
+        # the worker solves on its own stream: sync that one, never the
+        # device (a capture may be underway on another thread)
         t0 = time.perf_counter()
         out = real_optimize()
-        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.current_stream().synchronize()
         solve_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
     server.optimize = timed_optimize
-    ingest_ms, syncs = [], float("nan")
+    from cvids_tpu_torch.server import optimizer as opt
+    ingest_ms, captured, syncs = [], [], float("nan")
     lo, hi = sync_window
     counter = None
     try:
@@ -1243,6 +1568,7 @@ def server_run(device, packets, tree, sync_window=(200, 240)):
                 t0 = time.perf_counter()
                 server.add_keyframe(pkt)
                 ingest_ms.append((time.perf_counter() - t0) * 1e3)
+                captured.append(len(opt._GRAPHED.graphs) if opt._GRAPHED is not None else 0)
                 if k == hi - 1 and counter is not None:
                     counter.__exit__(None, None, None)
                     syncs, counter = counter.count / (hi - lo), None
@@ -1254,7 +1580,7 @@ def server_run(device, packets, tree, sync_window=(200, 240)):
             counter.__exit__(None, None, None)
         server.close()
     return server, {"ingest_ms": ingest_ms, "solve_ms": solve_ms, "pcm_sizes": pcm_sizes,
-                    "syncs_per_kf": syncs, "stream_s": stream_s}
+                    "syncs_per_kf": syncs, "stream_s": stream_s, "captured": captured}
 
 
 def server_edges(device, packets, tree):
@@ -1333,6 +1659,19 @@ def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
           f"twin route accept the same {len(edges_kernel)} loop edges; ingest ms per "
           f"keyframe without a solve (kernel route) median {np.median(inline_ms):.3f} "
           f"p90 {np.percentile(inline_ms, 90):.3f}")
+    from cvids_tpu_torch.server import optimizer as opt
+    graphed = opt._GRAPHED
+    if dev.type == "cuda":
+        check(graphed is not None and graphed.replays > 0, "no 4-DoF solve was a graph replay")
+        # the keyframes ingested after the background run's last capture
+        cap = stats["captured"]
+        steady = ingest[[k for k in range(len(cap)) if cap[k] == cap[-1]][1:]]
+        print(f"  graphed 4-DoF solves: ingest ms per keyframe median, background "
+              f"{np.median(ingest):.3f} ({len(packets)} keyframes; {np.median(steady):.3f} over "
+              f"the {len(steady)} after the last of its {cap[-1]} captures), inline "
+              f"{np.median(inline_ms):.3f} (the {len(cmp_packets)}-keyframe stream, keyframes "
+              f"that ran no solve); {len(graphed.graphs)} LM-iteration graphs captured in the "
+              f"process (tiers), {graphed.replays} replays")
     print("phase 5 server: ok")
     return tree
 
@@ -1610,6 +1949,22 @@ def pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s,
     return spans
 
 
+def dense_graph_memory(server, dev) -> None:
+    """Prints what the server's dense CUDA graphs hold: the graphs, one per
+    client and warp and bias variant, and the device memory that the
+    caching allocator keeps in the one pool that they share."""
+    graphs = server._dense_graphs
+    pool = graphs._pools.get(dev)
+    dense = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if pool is not None and tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool))
+    clients = len(server.dense_state)
+    print(f"  dense CUDA graphs: {len(graphs.graphs)} for {clients} clients (warp x bias "
+          f"variants), {graphs.replays} replays, sharing one pool of {dense / 2 ** 30:.3f} GiB; "
+          f"device memory reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+    check(pool is not None and len(graphs.graphs) >= clients and dense > 0,
+          "the server's dense frames were not replayed from one shared graph pool")
+
+
 def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, w=W,
                    focal=FOCAL, dense=None, short_kf=SHORT_KF):
     """Phase 6: the whole server at DenseConfig() and TsdfConfig() defaults
@@ -1641,12 +1996,17 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
     counts = dict(ck.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
     pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s, peak)
+    if dev.type == "cuda":
+        dense_graph_memory(server, dev)
 
     # the short stream, kernels against twins: the same maps and chunks
     short = [p for p in packets if p.client_id == 0][:short_kf]
     runs = []
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
     for patched in (False, True):
         with contextlib.ExitStack() as stack:
+            if patched:         # the twins run eagerly: a graph would replay the kernels
+                stack.enter_context(disable_graphs())
             for p in twin_patches() if patched else ():
                 stack.enter_context(p)
             s, _, _ = pipeline_run(dev, short, vocabulary, k, cfg)
@@ -2180,9 +2540,10 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     both agents VI-initialized with >= 8 packets, both clients aligned, >= 1
     loop, ATE sim3 < 10 cm, median inverse-depth RMS < 0.12, mesh median
     scene distance < 0.15 m; every kernel launched but the banded warp,
-    whose host gate these keyframes' rotations exceed, and four of each
-    kernel's calls equal to the twin's on their inputs (`KernelRecorder`,
-    on the card); an `AgentFrontend`
+    whose host gate these keyframes' rotations exceed; on the card four of
+    the Hamming kernel's calls equal to the twin's on their inputs
+    (`KernelRecorder`) and two graphed dense frames rerun eagerly through
+    the kernels and the twins (`FrameRecorder`); an `AgentFrontend`
     built with no device on the card. `camera` and `dense` replace the
     EuRoC camera and the dense size for a rehearsal on the CPU. Returns the
     server run's launch counts, the sequences and the scores (ATE cm per
@@ -2249,10 +2610,12 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
         torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
     kf_ms_srv = []
-    recorder = KernelRecorder() if dev.type == "cuda" else contextlib.nullcontext()
+    on_card = dev.type == "cuda"
+    recorder = KernelRecorder(SERVER_KERNELS) if on_card else contextlib.nullcontext()
+    frames = FrameRecorder() if on_card else contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
-        with recorder:
+        with recorder, frames:
             for p in merged:
                 t1 = time.perf_counter()
                 server.submit(p)
@@ -2264,11 +2627,8 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
         server.close()
     srv_s = time.perf_counter() - t0
     counts = dict(ck.launches)
-    if dev.type == "cuda":
-        compared = recorder.compare()
-        check(all(compared.get(n, 0) == len(KernelRecorder.CALLS) for n in counts
-                  if counts[n] > max(KernelRecorder.CALLS)),
-              f"kernel calls held against the twins {compared}, launches {counts}")
+    if on_card:
+        recorded_checks(recorder, frames, counts)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
     ates, rmses, overlaps, dist, n_tri = agents_score(server, seqs, cfg, dense.height,
                                                       dense.width, n_agents)
@@ -2366,12 +2726,13 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     process a root (`apps.agent_process`; on the card with no device
     argument, so the default device). Waits for the stream to drain, and
     fails at once if an agent process dies or the ingest thread raises; then
-    a final solve (`flush`). On the card `KernelRecorder` keeps four of each
-    kernel's calls. Returns a dict: server, transport, sent / frame_ms /
-    keyframe per agent (what each saved), received (the codec dicts the
-    server was given, per client), order (the client of each ingested
-    packet), process_ms, stream_s, launches, compared (per kernel, on the
-    card) and peak (GiB, this process)."""
+    a final solve (`flush`). On the card `KernelRecorder` keeps four of the
+    Hamming kernel's calls and `FrameRecorder` two graphed dense frames.
+    Returns a dict: server, transport, sent / frame_ms / keyframe per agent
+    (what each saved), received (the codec dicts the server was given, per
+    client), order (the client of each ingested packet), process_ms,
+    stream_s, launches, recorders (the two, on the card) and peak (GiB,
+    this process)."""
     import multiprocessing
 
     from cvids_tpu_torch import _build, native
@@ -2416,7 +2777,8 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
-    recorder = KernelRecorder() if on_card else contextlib.nullcontext()
+    recorder = KernelRecorder(SERVER_KERNELS) if on_card else contextlib.nullcontext()
+    frames = FrameRecorder() if on_card else contextlib.nullcontext()
     srv = transport.CollaborativeSocketServer(server, match_tol=1e-3)
     # on the card the agents take the default device (no device argument);
     # a CPU rehearsal runs them on one intra-op thread each
@@ -2426,7 +2788,7 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
              for cid in range(n_agents)]
     t0 = time.perf_counter()
     try:
-        with recorder:
+        with recorder, frames:
             for p in procs:
                 p.start()
             while not srv.drain(timeout=1.0, min_conns=n_agents):
@@ -2456,7 +2818,7 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     sent, frame_ms, keyframe = zip(*(agent_process.load_sent(out) for out in outs))
     return dict(server=server, transport=srv, sent=sent, frame_ms=frame_ms, keyframe=keyframe,
                 received=received, order=order, process_ms=process_ms, stream_s=stream_s,
-                launches=counts, compared=recorder.compare() if on_card else {},
+                launches=counts, recorders=(recorder, frames),
                 peak=torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan"))
 
 
@@ -2510,9 +2872,7 @@ def topology_phase(device, seqs, phase8, root, camera=None, dense=None, vocab_sh
     run = topology_run(dev, roots, cfg, dense, vocab_shape)
     server, srv, counts = run["server"], run["transport"], run["launches"]
     if on_card:
-        check(all(run["compared"].get(n, 0) == len(KernelRecorder.CALLS) for n in counts
-                  if counts[n] > max(KernelRecorder.CALLS)),
-              f"kernel calls held against the twins {run['compared']}, launches {counts}")
+        recorded_checks(*run["recorders"], counts)
     for cid in range(n_agents):
         sent, got = run["sent"][cid], run["received"][cid]
         frame_ms, is_kf = run["frame_ms"][cid], run["keyframe"][cid]
@@ -2885,7 +3245,8 @@ def main() -> int:
     if kernels_only:
         return 0
 
-    # phase 4: the dense step + 4-DoF solve, counted
+    # phase 4: the dense step + 4-DoF solve as the server runs them
+    # (replayed CUDA graphs), counted; then graphed against eager
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
     med, share, mu, frame_ms, gates = dense_chain(dev, 0)
@@ -2895,13 +3256,13 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"phase 4 slice: median depth {med:.3f} m (true {DEPTH}), converged "
           f"{share:.3f} on the [40:-40] crop; banded gate {gates[0]}, rotated frame "
-          f"gate {gates[1]}; frame ms {[round(x, 3) for x in frame_ms]}; peak "
-          f"device memory {peak:.2f} GiB")
-    print(f"  pose graph {N_NODES} KF (2 LM x 10 CG): residual norm {before:.4f} -> "
-          f"{after:.4f}; solve ms {[round(x, 1) for x in pg_ms]} (first, second)")
+          f"gate {gates[1]}; graphed frame ms {[round(x, 3) for x in frame_ms]} (the first "
+          f"captures); peak device memory {peak:.2f} GiB")
+    print(f"  pose graph {N_NODES} KF (2 LM x 10 CG), graphed: residual norm {before:.4f} -> "
+          f"{after:.4f}; solve ms {[round(x, 1) for x in pg_ms]} (the capturing call, a replay)")
     n_dense = N_FRAMES + 1      # the chain's banded frames and its one exact-warp frame
-    per_frame = {k: v / n_dense for k, v in counts.items()}
-    print(f"  launches on the dense path: {counts} over {n_dense} frames")
+    print(f"  launches on the dense path: {counts} over {n_dense} frames (a capture's "
+          f"warm-up call runs the kernels once)")
     check(abs(med - DEPTH) < 0.4, f"median depth {med} not within 0.4 m of {DEPTH}")
     check(gates == (True, False), f"gates {gates}: expected banded then exact")
     check(after <= before, f"pose graph residual grew: {before} -> {after}")
@@ -2912,7 +3273,7 @@ def main() -> int:
     for p in patches:
         p.start()
     try:
-        _, _, mu_twin, _, _ = dense_chain(dev, 0)
+        _, _, mu_twin, _, _ = dense_chain(dev, 0, graphed=False)
     finally:
         for p in patches:
             p.stop()
@@ -2926,6 +3287,14 @@ def main() -> int:
           f"{frac:.4%} of pixels beyond 1e-5 (tolerance 0.1 %)")
     splat_check(dev)
     profile_slice(dev)
+    frames = graph_frame_checks(dev)
+    solve = solve_checks(dev)
+    host = frames["graph"]["host_launches"]
+    check(host <= 8, f"a graphed dense frame makes {host} host launch calls, more than 8")
+    per_frame = frames["graph"]["kernel_launches"]
+    check(set(per_frame) == set(DENSE_KERNELS) and all(v >= 1 for v in per_frame.values()),
+          f"kernel launches per graphed frame {per_frame}")
+    print(json.dumps({"dense_frame": frames, "solve": solve}))
     print("phase 4 slice: ok")
 
     # phase 5: the collaborative server, counted
@@ -2957,14 +3326,19 @@ def main() -> int:
     # launches_phase8: the server fed by the agents' front-ends;
     # launches_phase9: the topology's server; launches_phase11: the dry
     # run's production dense step, summed over its ranks;
-    # launches_per_frame: per fuse_measurement of phase 4's chain; the
+    # launches_per_frame: kernel launches per graphed dense frame of phase
+    # 4's timed frames (replays count their captured kernels), and
+    # host_launches_per_frame: the host's launch calls in a profiled graphed
+    # and eager frame (HOST_LAUNCH_CALLS); the
     # Hamming kernel's launches_per_keyframe: of phase 6's stream.
     # floor_ms: the empty kernel through the same launch path, timed the same
     # way; share = bound / time, reach = max(bound, floor) / time;
     # profiler_ms: the device time of a kernel of microseconds in one profiled
     # call (null for the volume kernels: phase 4's profiled frame prints theirs).
     # library_ms: null, no single PyTorch call computes any of the six
-    rate = {k: {"launches_per_frame": v} for k, v in per_frame.items()}
+    rate = {k: {"launches_per_frame": v,
+                "host_launches_per_frame": {m: frames[m]["host_launches"] for m in frames}}
+            for k, v in per_frame.items()}
     rate["hamming_matrix"] = {"launches_per_keyframe":
                               pipe_counts["hamming_matrix"] / (PIPE_AGENTS * PIPE_KF)}
     floor = extras["floor_ms"]

@@ -8,6 +8,12 @@ fuses; `finalize` masks unconverged pixels. On the card, one
 `fuse_measurement` runs the alignment warp, the sweep, both SGM orientations,
 the WTA and the filter update as the five CUDA kernels of
 ``ops/cuda_kernels.py``.
+
+The reference compiles the frame into one XLA program per `(cfg,
+banded_warp)`. Its counterpart here is `DenseStep`: one client's state in
+buffers that outlive its references, and the frame over them replayed as
+one CUDA graph per `(cfg, banded_warp, sparse bias or not)`
+(`utils.cuda_graph.GraphedCall`), bit-equal to the eager frame.
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ import torch
 from ..ops import costvolume, cuda_kernels, depth_filter, sgm
 from ..ops.image import bilinear_sample, image_gradients
 
-__all__ = ["DenseConfig", "DenseState", "init_reference", "fuse_measurement",
-           "finalize", "splat_sparse"]
+__all__ = ["DenseConfig", "DenseState", "DenseStep", "init_reference",
+           "fuse_measurement", "finalize", "splat_sparse"]
 
 
 @dataclass(frozen=True)
@@ -72,20 +78,23 @@ class DenseState(NamedTuple):
 def init_reference(cfg: DenseConfig, ref_img: torch.Tensor,
                    sparse_uv: torch.Tensor | None = None,
                    sparse_inv_depth: torch.Tensor | None = None,
-                   sparse_valid: torch.Tensor | None = None) -> DenseState:
-    """Start a new reference keyframe on `ref_img`'s device."""
+                   sparse_valid: torch.Tensor | None = None,
+                   out: DenseState | None = None) -> DenseState:
+    """Start a new reference keyframe on `ref_img`'s device. With `out`, the
+    new state is written into `out`'s buffers (a bias into
+    `out.sparse_bias`, allocated if that is None) and returned in them."""
     h, w, d = cfg.height, cfg.width, cfg.num_depths
     dt = cfg.torch_dtype
     dev = ref_img.device
-    ref_img = ref_img.to(torch.float32)
     # no sparse landmarks -> no bias volume to read and add every frame
     bias = None
     if sparse_uv is not None:
         bias = splat_sparse(cfg, sparse_uv, sparse_inv_depth,
                             sparse_valid).to(dt)
-    grad = image_gradients(ref_img)
-    penalty = (penalty_map(grad) if cfg.use_penalty_map
-               else torch.ones((h, w), dtype=torch.float32, device=dev))
+    ref_img, grad, penalty = _reference_maps(cfg, ref_img)
+    filt = depth_filter.init_state(h, w, device=dev)
+    if out is not None:
+        return _reset(out, ref_img, grad, penalty, bias, filt)
     return DenseState(
         ref_img=ref_img,
         grad=grad,
@@ -93,8 +102,36 @@ def init_reference(cfg: DenseConfig, ref_img: torch.Tensor,
         count=torch.zeros((h, w, d), dtype=dt, device=dev),
         sparse_bias=bias,
         penalty=penalty,
-        filt=depth_filter.init_state(h, w, device=dev),
+        filt=filt,
         num_frames=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _reference_maps(cfg: DenseConfig, ref_img: torch.Tensor):
+    """(fp32 image, gradient magnitude, SGM penalty map) of a reference."""
+    ref_img = ref_img.to(torch.float32)
+    grad = image_gradients(ref_img)
+    penalty = (penalty_map(grad) if cfg.use_penalty_map
+               else torch.ones((cfg.height, cfg.width), dtype=torch.float32,
+                               device=ref_img.device))
+    return ref_img, grad, penalty
+
+
+def _reset(out: DenseState, ref_img, grad, penalty, bias, filt) -> DenseState:
+    """A new reference's state written into `out`'s buffers."""
+    out.ref_img.copy_(ref_img)
+    out.grad.copy_(grad)
+    out.penalty.copy_(penalty)
+    out.mean_cost.zero_()
+    out.count.zero_()
+    out.num_frames.zero_()
+    for dst, src in zip(out.filt, filt):
+        dst.copy_(src)
+    if bias is None:
+        return out._replace(sparse_bias=None)
+    if out.sparse_bias is None:
+        return out._replace(sparse_bias=bias.clone())
+    out.sparse_bias.copy_(bias)
+    return out
 
 
 def penalty_map(grad: torch.Tensor) -> torch.Tensor:
@@ -115,7 +152,7 @@ def splat_sparse(cfg: DenseConfig, uv: torch.Tensor, inv_depth: torch.Tensor,
     """
     h, w = cfg.height, cfg.width
     dev = uv.device
-    hyp = torch.as_tensor(cfg.inv_depths, device=dev)           # (D,)
+    hyp = _inv_depths(cfg, dev)                                  # (D,)
     n = h * w
     px = torch.round(uv[:, 0]).to(torch.int64)
     py = torch.round(uv[:, 1]).to(torch.int64)
@@ -151,6 +188,19 @@ def splat_sparse(cfg: DenseConfig, uv: torch.Tensor, inv_depth: torch.Tensor,
     return bias * cfg.sparse_ratio * torch.clamp(acc_w, max=1.0)[..., None]
 
 
+_INV_DEPTHS: dict = {}
+
+
+def _inv_depths(cfg: DenseConfig, device: torch.device) -> torch.Tensor:
+    """`cfg.inv_depths` on `device`, copied there once per (cfg, device):
+    the frame itself copies nothing from the host."""
+    key = (cfg, torch.device(device))
+    t = _INV_DEPTHS.get(key)
+    if t is None:
+        t = _INV_DEPTHS[key] = torch.as_tensor(cfg.inv_depths, device=device)
+    return t
+
+
 def fuse_measurement(cfg: DenseConfig, state: DenseState, meas_img: torch.Tensor,
                      a_mat: torch.Tensor, b_vec: torch.Tensor,
                      banded_warp: bool | None = None) -> DenseState:
@@ -162,11 +212,13 @@ def fuse_measurement(cfg: DenseConfig, state: DenseState, meas_img: torch.Tensor
     warp; hosts with the numpy a_mat in hand gate it on
     `costvolume.warp_shift_bounds_np`.
 
-    Updates `state.mean_cost` and `state.count` IN PLACE (the two (H, W, D)
-    volumes are not copied per frame); the returned state shares them.
+    Updates `state.mean_cost`, `state.count` and `state.num_frames` IN PLACE
+    (the two (H, W, D) volumes are not copied per frame); the returned state
+    shares them. It reads nothing back and copies nothing from the host, so
+    it can be captured (`DenseStep`).
     """
     dev = state.ref_img.device
-    inv_depths = torch.as_tensor(cfg.inv_depths, device=dev)
+    inv_depths = _inv_depths(cfg, dev)
     c, v = costvolume.plane_sweep_cost(state.ref_img, meas_img.to(torch.float32),
                                        a_mat, b_vec, inv_depths,
                                        out_dtype=cfg.torch_dtype,
@@ -187,8 +239,8 @@ def fuse_measurement(cfg: DenseConfig, state: DenseState, meas_img: torch.Tensor
                                     penalty_scale=state.penalty)
     tau2 = (cfg.dep_sample ** 2) / cfg.tau2_scale
     filt = cuda_kernels.depth_filter_update(state.filt, inv_depth, tau2, conf)
-    return state._replace(mean_cost=mean_cost, count=count, filt=filt,
-                          num_frames=state.num_frames + 1)
+    state.num_frames.add_(1)
+    return state._replace(mean_cost=mean_cost, count=count, filt=filt)
 
 
 def finalize(cfg: DenseConfig, state: DenseState,
@@ -204,16 +256,85 @@ def propagate_reference(cfg: DenseConfig, prev: DenseState,
                         new_ref_img: torch.Tensor,
                         r_no: torch.Tensor, t_no: torch.Tensor,
                         k_mat: torch.Tensor,
-                        sparse_bias: torch.Tensor | None = None) -> DenseState:
+                        sparse_bias: torch.Tensor | None = None,
+                        out: DenseState | None = None) -> DenseState:
     """Start a new reference keyframe seeded from the previous one's filter
     state, forward-warped through the relative transform old-cam -> new-cam,
-    so depth knowledge survives reference switches."""
-    st = init_reference(cfg, new_ref_img)
+    so depth knowledge survives reference switches. With `out` (which may
+    be `prev`'s own buffers), the new state is written into `out`'s
+    buffers, as `init_reference` writes them."""
     filt = depth_filter.propagate(prev.filt, r_no, t_no, k_mat,
                                   torch.linalg.inv(k_mat))
-    if sparse_bias is not None:
-        st = st._replace(sparse_bias=sparse_bias.to(cfg.torch_dtype))
-    return st._replace(filt=filt)
+    bias = None if sparse_bias is None else sparse_bias.to(cfg.torch_dtype)
+    if out is not None:
+        return _reset(out, *_reference_maps(cfg, new_ref_img), bias, filt)
+    st = init_reference(cfg, new_ref_img)
+    return st._replace(sparse_bias=bias, filt=filt)
+
+
+class DenseStep:
+    """One client's dense state in buffers that outlive its references, and
+    the frame over them as a CUDA graph per `(cfg, banded_warp, sparse bias
+    or not)`, the reference's jit signature (`cvids_tpu/dense/
+    estimator.py:164`).
+
+    `init_reference` and `propagate_reference` write a new reference into
+    the buffers (the first call allocates them), so the graphs stay valid
+    for the client's whole run; `fuse` copies the measurement image,
+    `a_mat` and `b_vec` into the graph's inputs and replays it, and the
+    frame's filter state lands in the bound filter buffers. `graphs` may be
+    shared by several steps (one pool for a server's dense graphs, see
+    `fuse_graphs`). On the CPU, and inside `utils.cuda_graph.
+    disable_graphs()`, `fuse` is the eager frame with the same effect."""
+
+    def __init__(self, cfg: DenseConfig, graphs=None):
+        self.cfg = cfg
+        self.graphs = graphs if graphs is not None else fuse_graphs()
+        self.state: DenseState | None = None
+        self._bias: torch.Tensor | None = None    # kept while a reference has none
+
+    def init_reference(self, ref_img: torch.Tensor, **sparse) -> DenseState:
+        st = init_reference(self.cfg, ref_img, **sparse, out=self._buffers())
+        if self.state is None:      # the step owns its buffers: not the caller's image
+            st = st._replace(ref_img=st.ref_img.clone())
+        return self._keep(st)
+
+    def propagate_reference(self, new_ref_img, r_no, t_no, k_mat,
+                            sparse_bias: torch.Tensor | None = None) -> DenseState:
+        return self._keep(propagate_reference(self.cfg, self.state, new_ref_img, r_no, t_no,
+                                              k_mat, sparse_bias, out=self._buffers()))
+
+    def fuse(self, meas_img: torch.Tensor, a_mat: torch.Tensor, b_vec: torch.Tensor,
+             banded_warp: bool | None = None) -> DenseState:
+        self.graphs(self.cfg, self.state, meas_img.to(torch.float32), a_mat, b_vec,
+                    banded_warp)
+        return self.state
+
+    def _buffers(self) -> DenseState | None:
+        return None if self.state is None else self.state._replace(sparse_bias=self._bias)
+
+    def _keep(self, state: DenseState) -> DenseState:
+        if state.sparse_bias is not None:
+            self._bias = state.sparse_bias
+        self.state = state
+        return state
+
+
+def _fuse_into(cfg: DenseConfig, state: DenseState, meas_img, a_mat, b_vec,
+               banded_warp) -> None:
+    """`fuse_measurement` with the new filter state copied into the
+    state's own filter buffers: the whole frame updates `state` in place."""
+    new = fuse_measurement(cfg, state, meas_img, a_mat, b_vec, banded_warp=banded_warp)
+    for dst, src in zip(state.filt, new.filt):
+        dst.copy_(src)
+
+
+def fuse_graphs():
+    """The graphed frame of `DenseStep`, with the state bound (captured over
+    the step's own buffers): one graph per state and signature, all in one
+    memory pool (`utils.cuda_graph.GraphedCall`)."""
+    from ..utils.cuda_graph import GraphedCall   # utils.config imports this module
+    return GraphedCall(_fuse_into, bound=(1,))
 
 
 def regularize_depth(state: DenseState, strength: float = 1.0) -> DenseState:

@@ -25,10 +25,12 @@ def entry(device=None):
     pass (2 LM x 10 CG) over a 256-keyframe graph — the two device-side hot
     paths of the server, on `device` (None: the card). The inputs are drawn
     as `__graft_entry__.entry()` draws them. `step(*args)` returns (the
-    filter's mean inverse depth, the solved translations); like the port's
-    `fuse_measurement` it updates the state's cost volumes in place. The
-    measurement's warp is the identity, inside the banded warp's band, so
-    the banded warp runs (the server's host gate decides so)."""
+    filter's mean inverse depth, the solved translations) and updates the
+    dense state in place. On the card both halves are replayed CUDA graphs,
+    as the server runs them (`estimator.fuse_graphs`,
+    `optimizer.optimize_pose_graph_graphed`): the reference jits this step.
+    The measurement's warp is the identity, inside the banded warp's band,
+    so the banded warp runs (the server's host gate decides so)."""
     from .dense import estimator
     from .server import optimizer as opt
 
@@ -56,11 +58,12 @@ def entry(device=None):
     edges = opt.make_sequential_edges(nodes.yaw, nodes.pr, nodes.t,
                                       torch.zeros(n, dtype=torch.int64, device=dev), nodes.valid)
 
+    dense = estimator.fuse_graphs()
+
     def step(state, meas, a_mat, b_vec, nodes, edges):
-        new_state = estimator.fuse_measurement(cfg, state, meas, a_mat, b_vec,
-                                               banded_warp=banded)
-        new_nodes = opt.optimize_pose_graph(nodes, edges, lm_iters=2, cg_iters=10)
-        return new_state.filt.mu, new_nodes.t
+        dense(cfg, state, meas, a_mat, b_vec, banded)
+        new_nodes = opt.optimize_pose_graph_graphed(nodes, edges, lm_iters=2, cg_iters=10)
+        return state.filt.mu.clone(), new_nodes.t
 
     return step, (state, meas, a_mat, b_vec, nodes, edges)
 

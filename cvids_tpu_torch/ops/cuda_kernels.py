@@ -19,7 +19,9 @@ Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
 tensors it launches its kernel, or raises on anything the kernel does not
 take. There is no fallback from a CUDA tensor to a twin. Each launch adds
 one to ``launches[name]``, so a run can show which kernels its path went
-through. Callers reach the wrappers as attributes of this module
+through; a CUDA-graph capture counts its calls apart (`counted_apart`) and
+each replay adds them (`add_launches`), since a capture runs no kernel.
+Callers reach the wrappers as attributes of this module
 (``cuda_kernels.plane_sweep(...)``).
 
 The volume kernels need D a multiple of 32 with D <= 256; the twins take any
@@ -35,6 +37,8 @@ packets, viewed as int32 (XOR and popcount ignore the sign).
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -51,7 +55,8 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "compiled_sgm_scan_plan", "compiled_plane_sweep_plan",
            "compiled_wta_plan", "hamming_plan", "compiled_hamming_plan",
            "kernel_work", "SgmScanPlan", "PlaneSweepPlan", "WtaPlan",
-           "HammingPlan", "MAX_DYNAMIC_SMEM", "empty_launch"]
+           "HammingPlan", "MAX_DYNAMIC_SMEM", "empty_launch", "counted_apart",
+           "add_launches"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
             "hamming_matrix": 0, "depth_filter_update": 0}
@@ -61,9 +66,39 @@ _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 MAX_DYNAMIC_SMEM = 232_448      # bytes a block can use on an H100 (227 KB)
 
 
+_tls = threading.local()     # .tally: this thread's capture count, if any
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Within (on this thread), launches are counted into the yielded dict
+    instead of `launches`: a CUDA-graph capture records kernels that have
+    not run, and its replays add the dict (`add_launches`)."""
+    saved = getattr(_tls, "tally", None)
+    _tls.tally = tally = dict.fromkeys(launches, 0)
+    try:
+        yield tally
+    finally:
+        _tls.tally = saved
+
+
+def add_launches(counts: dict) -> None:
+    for k, v in counts.items():
+        launches[k] += v
+
+
+def _scalar(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`torch.as_tensor(x, dtype=dtype, device=device)` for a Python scalar
+    or a tensor, but a Python scalar becomes a fill on the device rather
+    than a copy from host memory, which a CUDA graph cannot capture."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -122,7 +157,14 @@ def _launch(name: str | None, fn_name: str, device: torch.device, *args) -> None
         msg = lib.cvids_error_string(err).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
     if name is not None:
-        launches[name] += 1
+        _count(name)
+
+
+def _count(name: str) -> None:
+    """One launch of kernel `name`: into `launches`, or into this thread's
+    capture tally (`counted_apart`)."""
+    tally = getattr(_tls, "tally", None)
+    (launches if tally is None else tally)[name] += 1
 
 
 def empty_launch(device: torch.device | str) -> None:
@@ -376,7 +418,7 @@ def sgm_scan_bidir_twin(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
     rounded to the cost dtype, then added in the cost dtype."""
     c = torch.movedim(cost, axis, 0)
     p2 = torch.movedim(p2_eff, axis, 0)
-    p1 = torch.as_tensor(p1, device=cost.device).to(torch.float32)
+    p1 = _scalar(p1, cost.device).to(torch.float32)
     s = c.shape[0]
 
     def run(order):
@@ -454,7 +496,7 @@ def sgm_scan_bidir(cost: torch.Tensor, p2_eff: torch.Tensor, p1,
     is the cost itself; carries are fp32."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
-    p1_t = torch.as_tensor(p1, device=cost.device)
+    p1_t = _scalar(p1, cost.device)
     if not _on_cuda(cost, p2_eff, p1_t):
         return sgm_scan_bidir_twin(cost, p2_eff, p1_t, axis)
     if cost.ndim != 3:
@@ -687,7 +729,7 @@ def depth_filter_update_twin(state: depth_filter.FilterState, x: torch.Tensor,
                              ) -> depth_filter.FilterState:
     """Plain PyTorch twin of `depth_filter_update`: `depth_filter.update`
     with a scalar tau2 taken as a 0-d tensor."""
-    tau2 = torch.as_tensor(tau2, dtype=torch.float32, device=x.device)
+    tau2 = _scalar(tau2, x.device, torch.float32)
     return depth_filter.update(state, x, tau2, meas_valid, mu_range)
 
 

@@ -46,7 +46,7 @@ def _scan_bidir(cost: torch.Tensor, p1: torch.Tensor,
     carried in the cost dtype (the reference's lax.scan form), returned
     pre-summed: agg_fwd + agg_bwd."""
     s = cost.shape[0]
-    p1 = torch.as_tensor(p1, device=cost.device).to(cost.dtype)
+    p1 = cuda_kernels._scalar(p1, cost.device).to(cost.dtype)
 
     def run(order):
         out = torch.empty_like(cost)
@@ -87,10 +87,12 @@ def sgm_aggregate_parts(cost: torch.Tensor, grad: torch.Tensor,
     `penalty_scale` (H, W) multiplies both. P1 is the mean of its map."""
     big_jump = grad > tau_so
     dt = cost.dtype
-    p2_map = torch.where(big_jump, torch.tensor(pi2 / q2, device=cost.device),
-                         torch.tensor(pi2, device=cost.device)).to(dt)
-    p1_map = torch.where(big_jump, torch.tensor(pi1 / q1, device=cost.device),
-                         torch.tensor(pi1, device=cost.device)).to(dt)
+    # device fills, not host copies: the frame runs inside a CUDA graph
+    dev = cost.device
+    p2_map = torch.where(big_jump, torch.full((), pi2 / q2, device=dev),
+                         torch.full((), pi2, device=dev)).to(dt)
+    p1_map = torch.where(big_jump, torch.full((), pi1 / q1, device=dev),
+                         torch.full((), pi1, device=dev)).to(dt)
     if penalty_scale is not None:
         p2_map = p2_map * penalty_scale.to(dt)
         p1_map = p1_map * penalty_scale.to(dt)

@@ -198,11 +198,16 @@ def sharded_dense_fuse(mesh: Mesh, cfg):
     this rank's block of agents (sequences of `DenseState`s, (H, W) images,
     (3, 3) and (3,) tensors), running `dense.estimator.fuse_measurement`
     for each on the rank's device. `banded_warp` is the host gate's answer
-    (`fuse_measurement`'s). Issues no collective; like `fuse_measurement`
-    it updates each state's cost volumes in place."""
+    (`fuse_measurement`'s). Issues no collective, so on the card each
+    frame is the server's replayed CUDA graph (`estimator.fuse_graphs`, one
+    graph per state the callable is given, which it keeps alive); it
+    updates each state in place and returns the states."""
     from ..dense import estimator
 
+    graphs = estimator.fuse_graphs()
+
     def fuse(states, imgs, a_mats, b_vecs, banded_warp=None):
-        return [estimator.fuse_measurement(cfg, st, img, a, b, banded_warp=banded_warp)
-                for st, img, a, b in zip(states, imgs, a_mats, b_vecs, strict=True)]
+        for st, img, a, b in zip(states, imgs, a_mats, b_vecs, strict=True):
+            graphs(cfg, st, img.to(torch.float32), a, b, banded_warp)
+        return list(states)
     return fuse

@@ -4,9 +4,17 @@
 Per-keyframe yaw (angle-wrapped) + translation blocks, pitch/roll frozen from
 VIO. Residuals and hand-coded edge Jacobians are evaluated for all edges at
 once (gathers over node tensors), H·v products are two batched edge sweeps
-plus a segment sum (`index_add_`), and the linear solve is
-Jacobi-preconditioned conjugate gradients inside an LM loop. Everything
-stays on the nodes' device: no value is read back to the host.
+plus a segment sum (`torch.segment_reduce` over the edges sorted once a
+solve by node: each node's edges are added in edge order on the card as on
+the CPU, so a solve's bits do not depend on the order of atomic adds, as
+they would with `index_add_`), and the linear solve is Jacobi-preconditioned
+conjugate gradients inside an LM loop. Everything stays on the nodes'
+device: no value is read back to the host and none is copied from it, so
+an LM iteration can be captured. `optimize_pose_graph_graphed` replays that
+capture, one CUDA graph per tier shape and `cg_iters`: the counterpart of
+the reference's `lax.scan` body with its CG `fori_loop` under `jax.jit`
+(`cvids_tpu/server/optimizer.py:228,241`), which the server pads to
+power-of-two tiers so that it is captured O(log n) times.
 
 Cost semantics mirror `FourDOFError` / `FourDOFWeightError`
 (`server_pose_graph.h:313-401`).
@@ -21,7 +29,7 @@ import torch
 from ..geometry import wrap_angle, ypr_to_r
 
 __all__ = ["PoseGraphNodes", "PoseGraphEdges", "optimize_pose_graph",
-           "edge_residuals", "make_sequential_edges"]
+           "optimize_pose_graph_graphed", "edge_residuals", "make_sequential_edges"]
 
 
 class PoseGraphNodes(NamedTuple):
@@ -59,9 +67,30 @@ def _drot_dyaw(yaw, pr):
     return drz @ eps_rot
 
 
+class _Segments(NamedTuple):
+    """Edges grouped by node: `perm` sorts them by node (stably, so in edge
+    order within a node) and node v's run is perm[offsets[v]:offsets[v + 1]]."""
+    perm: torch.Tensor       # (E,) int64
+    offsets: torch.Tensor    # (N + 1,) int64
+
+
+def _segments(idx: torch.Tensor, n: int) -> _Segments:
+    """The grouping of edges by `idx` (values in [0, n)), on the device
+    with no read-back."""
+    key, perm = torch.sort(idx, stable=True)
+    return _Segments(perm, torch.searchsorted(
+        key, torch.arange(n + 1, dtype=key.dtype, device=key.device)))
+
+
+def _seg_sum(vals: torch.Tensor, seg: _Segments) -> torch.Tensor:
+    """Per node, the sum of its edges' `vals` rows in edge order (the bits
+    of `index_add_` on the CPU; 0 for a node without edges)."""
+    return torch.segment_reduce(vals[seg.perm], "sum", offsets=seg.offsets, axis=0,
+                                unsafe=True)
+
+
 def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
+    return _seg_sum(vals, _segments(idx, n))
 
 
 def _weighted_residuals(nodes: PoseGraphNodes, edges: PoseGraphEdges):
@@ -127,16 +156,17 @@ def _jvp(nodes, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, dyaw, dt):
     return torch.cat([rt, ry[:, None]], dim=-1)
 
 
-def _vjp(nodes, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, r, n_nodes):
-    """J^T @ r -> (dyaw (N,), dt (N, 3)) via segment sums."""
+def _vjp(jt_ti, jt_tj, jt_yi, scale_t, scale_y, r, seg_i, seg_j):
+    """J^T @ r -> (dyaw (N,), dt (N, 3)) via segment sums over the edges'
+    i and j ends (each end's translation and yaw rows summed in one pass)."""
     rt = r[:, :3] * scale_t[:, None]
     ry = r[:, 3] * scale_y
     gt_i = torch.einsum("eji,ej->ei", jt_ti, rt)
     gt_j = torch.einsum("eji,ej->ei", jt_tj, rt)
     gy_i = torch.einsum("ei,ei->e", jt_yi, rt) - ry
-    dt_out = _segment_sum(gt_i, edges.i, n_nodes) + _segment_sum(gt_j, edges.j, n_nodes)
-    dyaw_out = _segment_sum(gy_i, edges.i, n_nodes) + _segment_sum(ry, edges.j, n_nodes)
-    return dyaw_out, dt_out
+    at_i = _seg_sum(torch.cat([gt_i, gy_i[:, None]], 1), seg_i)
+    at_j = _seg_sum(torch.cat([gt_j, ry[:, None]], 1), seg_j)
+    return at_i[:, 3] + at_j[:, 3], at_i[:, :3] + at_j[:, :3]
 
 
 def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
@@ -158,83 +188,124 @@ def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
     (N, 4) buffer a CG step (the two segment sums of `_vjp`) and the trial
     cost. None: this process holds every edge.
     """
-    n = nodes.yaw.shape[0]
-    free = nodes.valid & ~nodes.fixed
-    zero = torch.zeros((), dtype=nodes.t.dtype, device=nodes.t.device)
+    seg_i, seg_j, lam, cost = _solve_start(nodes, edges, init_lambda, reduce)
+    nd = nodes
+    for _ in range(lm_iters):
+        nd, lam, cost = _lm_step(nd, lam, cost, edges, seg_i, seg_j, cg_iters, reduce)
+    return nd
 
-    def total_cost(nd):
-        cost = 0.5 * torch.sum(edge_residuals(nd, edges) ** 2)
-        return cost if reduce is None else reduce(cost.reshape(1))[0]
+
+def _total_cost(nd: PoseGraphNodes, edges: PoseGraphEdges, reduce=None) -> torch.Tensor:
+    cost = 0.5 * torch.sum(edge_residuals(nd, edges) ** 2)
+    return cost if reduce is None else reduce(cost.reshape(1))[0]
+
+
+def _solve_start(nodes, edges, init_lambda, reduce=None):
+    """(segments of the i and j ends, the first lambda, the first cost)."""
+    n = nodes.yaw.shape[0]
+    lam = torch.full((), init_lambda, dtype=nodes.t.dtype, device=nodes.t.device)
+    return (_segments(edges.i, n), _segments(edges.j, n), lam,
+            _total_cost(nodes, edges, reduce))
+
+
+def _lm_step(nd: PoseGraphNodes, lam: torch.Tensor, cost: torch.Tensor,
+             edges: PoseGraphEdges, seg_i: _Segments, seg_j: _Segments, cg_iters: int,
+             reduce=None) -> tuple[PoseGraphNodes, torch.Tensor, torch.Tensor]:
+    """One LM iteration (`cg_iters` PCG steps, the accept test, the lambda
+    update): (nodes, lambda, cost) -> the next three, with no read-back."""
+    free = nd.valid & ~nd.fixed
+    zero = torch.zeros((), dtype=nd.t.dtype, device=nd.t.device)
 
     def dot(a, b):
         return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
 
-    nd = nodes
-    lam = torch.tensor(init_lambda, dtype=nodes.t.dtype, device=nodes.t.device)
-    cost = total_cost(nodes)
-    for _ in range(lm_iters):
-        jt_ti, jt_tj, jt_yi = _edge_jacobians(nd, edges)
-        scale_t, scale_y = _row_scales(nd, edges)
-        r = edge_residuals(nd, edges)
+    jt_ti, jt_tj, jt_yi = _edge_jacobians(nd, edges)
+    scale_t, scale_y = _row_scales(nd, edges)
+    r = edge_residuals(nd, edges)
 
-        g_yaw, g_t = _vjp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, r, n)
+    g_yaw, g_t = _vjp(jt_ti, jt_tj, jt_yi, scale_t, scale_y, r, seg_i, seg_j)
 
-        # Jacobi preconditioner: diag(J^T J) per node from edge blocks
-        st2 = scale_t ** 2
-        sy2 = scale_y ** 2
-        d_t = (_segment_sum(torch.einsum("eij,eij->ej", jt_ti, jt_ti) * st2[:, None],
-                            edges.i, n)
-               + _segment_sum(torch.einsum("eij,eij->ej", jt_tj, jt_tj) * st2[:, None],
-                              edges.j, n))
-        d_yaw = (_segment_sum(torch.sum(jt_yi ** 2, -1) * st2 + sy2, edges.i, n)
-                 + _segment_sum(sy2, edges.j, n))
+    # Jacobi preconditioner: diag(J^T J) per node from edge blocks
+    st2 = scale_t ** 2
+    sy2 = scale_y ** 2
+    d_t = (_seg_sum(torch.einsum("eij,eij->ej", jt_ti, jt_ti) * st2[:, None], seg_i)
+           + _seg_sum(torch.einsum("eij,eij->ej", jt_tj, jt_tj) * st2[:, None], seg_j))
+    d_yaw = (_seg_sum(torch.sum(jt_yi ** 2, -1) * st2 + sy2, seg_i)
+             + _seg_sum(sy2, seg_j))
+    if reduce is not None:
+        packed = reduce(torch.cat([g_yaw[:, None], g_t, d_yaw[:, None], d_t], 1))
+        g_yaw, g_t, d_yaw, d_t = packed[:, 0], packed[:, 1:4], packed[:, 4], packed[:, 5:]
+    g_yaw = torch.where(free, g_yaw, zero)
+    g_t = torch.where(free[:, None], g_t, zero)
+    d_t = torch.where(free[:, None], d_t, torch.ones((), device=d_t.device)) + 1e-8
+    d_yaw = torch.where(free, d_yaw, torch.ones((), device=d_yaw.device)) + 1e-8
+    lam_d_t = d_t * (1.0 + lam)
+    lam_d_yaw = d_yaw * (1.0 + lam)
+
+    def hvp(dyaw, dt):
+        dyaw = torch.where(free, dyaw, zero)
+        dt = torch.where(free[:, None], dt, zero)
+        jv = _jvp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, dyaw, dt)
+        hy, ht = _vjp(jt_ti, jt_tj, jt_yi, scale_t, scale_y, jv, seg_i, seg_j)
         if reduce is not None:
-            packed = reduce(torch.cat([g_yaw[:, None], g_t, d_yaw[:, None], d_t], 1))
-            g_yaw, g_t, d_yaw, d_t = packed[:, 0], packed[:, 1:4], packed[:, 4], packed[:, 5:]
-        g_yaw = torch.where(free, g_yaw, zero)
-        g_t = torch.where(free[:, None], g_t, zero)
-        d_t = torch.where(free[:, None], d_t, torch.ones((), device=d_t.device)) + 1e-8
-        d_yaw = torch.where(free, d_yaw, torch.ones((), device=d_yaw.device)) + 1e-8
-        lam_d_t = d_t * (1.0 + lam)
-        lam_d_yaw = d_yaw * (1.0 + lam)
+            packed = reduce(torch.cat([hy[:, None], ht], 1))
+            hy, ht = packed[:, 0], packed[:, 1:]
+        hy = torch.where(free, hy + lam * d_yaw * dyaw, zero)
+        ht = torch.where(free[:, None], ht + lam * d_t * dt, zero)
+        return hy, ht
 
-        def hvp(dyaw, dt):
-            dyaw = torch.where(free, dyaw, zero)
-            dt = torch.where(free[:, None], dt, zero)
-            jv = _jvp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, dyaw, dt)
-            hy, ht = _vjp(nd, edges, jt_ti, jt_tj, jt_yi, scale_t, scale_y, jv, n)
-            if reduce is not None:
-                packed = reduce(torch.cat([hy[:, None], ht], 1))
-                hy, ht = packed[:, 0], packed[:, 1:]
-            hy = torch.where(free, hy + lam * d_yaw * dyaw, zero)
-            ht = torch.where(free[:, None], ht + lam * d_t * dt, zero)
-            return hy, ht
-
-        # PCG solve H dx = -g
-        rr = (-g_yaw, -g_t)
-        x = (torch.zeros_like(g_yaw), torch.zeros_like(g_t))
+    # PCG solve H dx = -g
+    rr = (-g_yaw, -g_t)
+    x = (torch.zeros_like(g_yaw), torch.zeros_like(g_t))
+    z = (rr[0] / lam_d_yaw, rr[1] / lam_d_t)
+    p = z
+    rz = dot(rr, z)
+    for _ in range(cg_iters):
+        hp = hvp(*p)
+        alpha = rz / torch.clamp(dot(p, hp), min=1e-20)
+        x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
+        rr = (rr[0] - alpha * hp[0], rr[1] - alpha * hp[1])
         z = (rr[0] / lam_d_yaw, rr[1] / lam_d_t)
-        p = z
-        rz = dot(rr, z)
-        for _ in range(cg_iters):
-            hp = hvp(*p)
-            alpha = rz / torch.clamp(dot(p, hp), min=1e-20)
-            x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
-            rr = (rr[0] - alpha * hp[0], rr[1] - alpha * hp[1])
-            z = (rr[0] / lam_d_yaw, rr[1] / lam_d_t)
-            rz_new = dot(rr, z)
-            beta = rz_new / torch.clamp(rz, min=1e-20)
-            p = (z[0] + beta * p[0], z[1] + beta * p[1])
-            rz = rz_new
-        dyaw, dt = x
-        nd_new = nd._replace(yaw=wrap_angle(nd.yaw + torch.where(free, dyaw, zero)),
-                             t=nd.t + torch.where(free[:, None], dt, zero))
-        cost_new = total_cost(nd_new)
-        accept = cost_new < cost
-        nd = PoseGraphNodes(*(torch.where(accept, a, b) for a, b in zip(nd_new, nd)))
-        lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
-                          torch.clamp(lam * 4.0, max=1e6))
-        cost = torch.where(accept, cost_new, cost)
+        rz_new = dot(rr, z)
+        beta = rz_new / torch.clamp(rz, min=1e-20)
+        p = (z[0] + beta * p[0], z[1] + beta * p[1])
+        rz = rz_new
+    dyaw, dt = x
+    nd_new = nd._replace(yaw=wrap_angle(nd.yaw + torch.where(free, dyaw, zero)),
+                         t=nd.t + torch.where(free[:, None], dt, zero))
+    cost_new = _total_cost(nd_new, edges, reduce)
+    accept = cost_new < cost
+    nd = PoseGraphNodes(*(torch.where(accept, a, b) for a, b in zip(nd_new, nd)))
+    lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
+                      torch.clamp(lam * 4.0, max=1e6))
+    cost = torch.where(accept, cost_new, cost)
+    return nd, lam, cost
+
+
+_GRAPHED = None
+
+
+def optimize_pose_graph_graphed(nodes: PoseGraphNodes, edges: PoseGraphEdges,
+                                lm_iters: int = 12, cg_iters: int = 50,
+                                init_lambda: float = 1e-4) -> PoseGraphNodes:
+    """`optimize_pose_graph` on one process's edges (`reduce` None) with its
+    LM iteration (`cg_iters` PCG steps and the accept test, ~4,400 kernels
+    at 60 CG steps) replayed as a CUDA graph `lm_iters` times: the
+    reference's `lax.scan` body compiled once. One graph per node and edge
+    shape and `cg_iters`, shared by every caller in the process
+    (`utils.cuda_graph.GraphedCall`: thread-local captures, calls
+    serialized), so a new tier costs the capture of one iteration, not of
+    the whole loop. The same kernels in the same order as the eager solve,
+    so its bits. On the CPU, and inside `disable_graphs()`, the eager
+    solve."""
+    global _GRAPHED
+    if _GRAPHED is None:
+        from ..utils.cuda_graph import GraphedCall
+        _GRAPHED = GraphedCall(_lm_step)
+    seg_i, seg_j, lam, cost = _solve_start(nodes, edges, init_lambda)
+    nd = nodes
+    for _ in range(lm_iters):
+        nd, lam, cost = _GRAPHED(nd, lam, cost, edges, seg_i, seg_j, cg_iters)
     return nd
 
 

@@ -14,6 +14,11 @@ heavy stage is tensor work on `device`, queued on its stream. On a CUDA
 device the dense step runs the warp, sweep, SGM, WTA and filter kernels,
 each loop verification the Hamming kernel, and the TSDF pool and the mesh
 gather stay on the card.
+
+Each client's dense state lives in one `estimator.DenseStep` for the whole
+run: a reference roll writes into its buffers, so the frame's CUDA graphs
+(one per warp and bias variant, picked by the host's banded gate) stay
+valid, and every dense graph of the server shares one memory pool.
 """
 
 from __future__ import annotations
@@ -57,8 +62,8 @@ class PipelineConfig:
 
 @dataclass
 class _DenseClientState:
+    step: estimator.DenseStep       # the client's buffers and graphs
     ref_index: int = -1             # store index of the current reference KF
-    state: object = None            # estimator.DenseState
     fused: int = 0
     since_ref: int = 0
     # last fused measurement frame + its ref->meas mapping, retained for the
@@ -66,6 +71,10 @@ class _DenseClientState:
     last_meas: object = None
     last_a: object = None
     last_b: object = None
+
+    @property
+    def state(self) -> estimator.DenseState:
+        return self.step.state
 
 
 class CollaborativeServer:
@@ -85,6 +94,7 @@ class CollaborativeServer:
         self.queue: deque[KeyframePacket] = deque()
         self.images: dict[int, np.ndarray] = {}   # store index -> image
         self.dense_state: dict[int, _DenseClientState] = {}
+        self._dense_graphs = estimator.fuse_graphs()   # one pool for every client's graphs
         self.depth_maps_published = 0
         self.last_depth: dict[int, dict] = {}   # client -> latest depth record
         self.depth_records: list[dict] = []     # all published (capped at 64)
@@ -249,8 +259,11 @@ class CollaborativeServer:
                 f"images, got {pkt.image.shape} (client {cid})")
         ds = self.dense_state.get(cid)
         k = self._k_matrix(pkt)
-        if ds is None or ds.ref_index < 0:
-            self.dense_state[cid] = self._new_reference(pkt, idx)
+        if ds is None:
+            ds = self.dense_state[cid] = _DenseClientState(
+                estimator.DenseStep(cfg.dense, self._dense_graphs))
+        if ds.ref_index < 0:
+            self._new_reference(ds, pkt, idx)
             return
         # fuse the current frame into the client's reference keyframe
         r_wc_ref, t_wc_ref = self._world_cam_pose(ds.ref_index)
@@ -268,19 +281,20 @@ class CollaborativeServer:
         banded = bool(dx < 88.0 and dy < 40.0)
         meas_t = self._undistort(cid, pkt.image)
         a_t, b_t = self._tensor(a_mat), self._tensor(b_vec)
-        ds.state = estimator.fuse_measurement(cfg.dense, ds.state, meas_t, a_t, b_t,
-                                              banded_warp=banded)
+        ds.step.fuse(meas_t, a_t, b_t, banded_warp=banded)
         ds.last_meas, ds.last_a, ds.last_b = meas_t, a_t, b_t
         ds.fused += 1
         ds.since_ref += 1
         if ds.fused >= cfg.min_fused_frames and ds.since_ref >= cfg.ref_advance:
             with self.tracer.span("fuse"):
                 self._finalize_and_integrate(cid, ds, k)
-            self.dense_state[cid] = self._new_reference(pkt, idx, prev=ds, k=k)
+            self._new_reference(ds, pkt, idx, k=k)
 
-    def _new_reference(self, pkt: KeyframePacket, idx: int,
-                       prev: _DenseClientState | None = None,
-                       k: np.ndarray | None = None) -> _DenseClientState:
+    def _new_reference(self, ds: _DenseClientState, pkt: KeyframePacket, idx: int,
+                       k: np.ndarray | None = None) -> None:
+        """Start client `ds`'s next reference on keyframe `idx`, in its
+        step's buffers: from scratch, or with `k` (a roll) seeded from the
+        current reference's filter."""
         cfg = self.cfg.dense
         img = pkt.image
         if img.shape != (cfg.height, cfg.width):
@@ -296,10 +310,10 @@ class CollaborativeServer:
             sp_args = dict(sparse_uv=self._tensor(sp[0]),
                            sparse_inv_depth=self._tensor(sp[1]),
                            sparse_valid=self._tensor(sp[2], torch.bool))
-        if prev is not None and k is not None:
+        if k is not None:
             # seed the new reference's filter from the previous one
             # (`PropogateFromPreviousFrame`)
-            r_wc_old, t_wc_old = self._world_cam_pose(prev.ref_index)
+            r_wc_old, t_wc_old = self._world_cam_pose(ds.ref_index)
             r_wc_new, t_wc_new = self._world_cam_pose(idx)
             r_no = r_wc_new.T @ r_wc_old
             t_no = r_wc_new.T @ (t_wc_old - t_wc_new)
@@ -307,12 +321,12 @@ class CollaborativeServer:
                                            sp_args["sparse_inv_depth"],
                                            sp_args["sparse_valid"])
                     if sp is not None else None)
-            state = estimator.propagate_reference(
-                cfg, prev.state, img_t, self._tensor(r_no), self._tensor(t_no),
-                self._tensor(k), sparse_bias=bias)
+            ds.step.propagate_reference(img_t, self._tensor(r_no), self._tensor(t_no),
+                                        self._tensor(k), sparse_bias=bias)
         else:
-            state = estimator.init_reference(cfg, img_t, **sp_args)
-        return _DenseClientState(ref_index=idx, state=state, fused=0, since_ref=0)
+            ds.step.init_reference(img_t, **sp_args)
+        ds.ref_index, ds.fused, ds.since_ref = idx, 0, 0
+        ds.last_meas = ds.last_a = ds.last_b = None
 
     def _finalize_and_integrate(self, cid: int, ds: _DenseClientState,
                                 k: np.ndarray):

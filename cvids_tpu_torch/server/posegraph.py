@@ -14,7 +14,9 @@ compute-heavy steps as tensor code on the server's device:
 - submap alignment on the first inter-agent loop (`AlignSubMaps`);
 - PCM outlier rejection per client pair (`pcm_graph.cpp`);
 - periodic 4-DoF optimization + drift propagation (`:1107-1815`), inline
-  or on a worker thread.
+  or on a worker thread, replayed as one CUDA graph per tier
+  (`optimizer.optimize_pose_graph_graphed`). The worker solves on a stream
+  of its own, so ingest never waits on its captures or replays.
 
 Pose algebra on the host is float64 numpy (`geometry.hostmath`). Device
 results are fetched where the JAX package calls ``np.asarray``/``bool()``:
@@ -29,6 +31,7 @@ dispatched cascade: first for the F stage, then for PnP.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -238,6 +241,8 @@ class CollaborativePoseGraph:
         self._opt_stop = False
         self._opt_paused = False   # set by flush(); cleared by ingest wake
         if self.cfg.async_optimize:
+            self._opt_stream = (torch.cuda.Stream(self.device)
+                                if self.device.type == "cuda" else None)
             self._opt_thread = threading.Thread(
                 target=self._opt_loop, name="optimize4dof", daemon=True)
             self._opt_thread.start()
@@ -260,7 +265,9 @@ class CollaborativePoseGraph:
             self._opt_wake.clear()
             try:
                 if self.loop_count > 0 and self.store.count >= 2:
-                    self.optimize()
+                    with (torch.cuda.stream(self._opt_stream) if self._opt_stream is not None
+                          else contextlib.nullcontext()):
+                        self.optimize()
             except Exception:   # never kill the worker; surface and continue
                 import traceback
                 traceback.print_exc()
@@ -851,7 +858,7 @@ class CollaborativePoseGraph:
             yaw_weight=const(cfg.loop_yaw_weight), valid=_upload(lval, dev),
             huber=const(cfg.loop_huber))
         edges = opt.PoseGraphEdges(*[torch.cat([a, b]) for a, b in zip(seq, loops)])
-        out = opt.optimize_pose_graph(nodes, edges, cfg.lm_iters, cfg.cg_iters)
+        out = opt.optimize_pose_graph_graphed(nodes, edges, cfg.lm_iters, cfg.cg_iters)
         new_yaw, new_t = _fetch(out.yaw[:wn], out.t[:wn])
         return pcm_ok, types.SimpleNamespace(
             lo=lo, wn=wn, upd=valid[:wn], vio_yaw=vio_yaw,

@@ -17,7 +17,7 @@ import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
 
-__all__ = ["Tracer", "STAGES"]
+__all__ = ["Tracer", "STAGES", "global_tracer", "span"]
 
 STAGES = ("ingest", "loop", "align", "optimize", "depth", "fuse", "mesh",
           "publish")
@@ -63,3 +63,16 @@ class Tracer:
         self.totals.clear()
         self.counts.clear()
         self.samples.clear()
+
+
+_GLOBAL = Tracer()
+
+
+def global_tracer() -> Tracer:
+    """The process-wide tracer that `span` records into."""
+    return _GLOBAL
+
+
+def span(name: str):
+    """`global_tracer().span(name)`."""
+    return _GLOBAL.span(name)

@@ -1,6 +1,7 @@
-"""The six CUDA kernels against their PyTorch twins, the front-end's CUDA
-graphs against its eager calls, the deployment topology and the multi-GPU
-dry run on two ranks that share the card, on a CUDA card.
+"""The six CUDA kernels against their PyTorch twins, the front-end's and
+the server's CUDA graphs (the dense frame, the 4-DoF solve) against their
+eager calls, the deployment topology and the multi-GPU dry run on two ranks
+that share the card, on a CUDA card.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
 
@@ -276,3 +277,122 @@ def test_two_gloo_ranks_on_one_card(dev):
 
     res = dryrun_multichip(2, backend="gloo", device=dev, production=False)
     cs.multichip_checks(res, dryrun_problems(2, dev, production=False), 2, dev)
+
+
+def _dense_inputs(dev, h=48, w=64, d=32):
+    """A small textured plane (chip_smoke's), its config, and its warp and
+    a rotation, each with its warp choice: banded, and the exact warp."""
+    from cvids_tpu_torch.dense import estimator
+
+    rng = np.random.default_rng(4)
+    focal = 40.0
+    cfg = estimator.DenseConfig(height=h, width=w, num_depths=d,
+                                dep_sample=1.0 / (cs.BASELINE * focal * 2))
+    ref, meas, a, b, k = cs.textured_plane(rng, h, w, focal=focal)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)  # noqa: E731
+    a_rot = cs.rotation_homography(k, 0.25)
+    return cfg, t(ref), t(meas), (t(a), True), (t(a_rot), False), t(b), t(k)
+
+
+def _same_bits(x, y):
+    return torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+
+def test_graphed_dense_frames_equal_eager(dev):
+    """Five graphed dense frames (`DenseStep`) equal five eager ones bit for
+    bit: both warps, and a reference roll with a sparse bias between."""
+    from cvids_tpu_torch.dense import estimator
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+    cfg, ref, meas, (a, gate), (a_rot, gate_rot), b, k = _dense_inputs(dev)
+    uv = torch.tensor([[10.0, 10.0], [30.0, 20.0], [50.0, 40.0]], device=dev)
+    bias = estimator.splat_sparse(cfg, uv, torch.full((3,), 0.3, device=dev),
+                                  torch.ones(3, dtype=torch.bool, device=dev))
+    eager, graphed = estimator.DenseStep(cfg), estimator.DenseStep(cfg)
+    for step in (eager, graphed):
+        step.init_reference(ref)
+    frames = [(a, gate), (a_rot, gate_rot), "roll", (a, gate), (a_rot, gate_rot), (a, gate)]
+    for frame in frames:
+        if frame == "roll":
+            for step in (eager, graphed):
+                step.propagate_reference(ref, torch.eye(3, device=dev),
+                                         torch.zeros(3, device=dev), k, sparse_bias=bias)
+            continue
+        with disable_graphs():
+            eager.fuse(meas, frame[0], b, frame[1])
+        graphed.fuse(meas, frame[0], b, frame[1])
+        for x, y in zip((eager.state.mean_cost, eager.state.count, *eager.state.filt,
+                         eager.state.num_frames),
+                        (graphed.state.mean_cost, graphed.state.count, *graphed.state.filt,
+                         graphed.state.num_frames)):
+            assert _same_bits(x, y)
+    # one graph per (warp, bias) variant, all four used
+    assert len(graphed.graphs.graphs) == 4 and graphed.graphs.replays == 5
+
+
+def test_graphed_dense_frame_counts_its_launches(dev):
+    """A replay adds its capture's kernel launches to `cuda_kernels.launches`
+    (the capture itself adds none): six a banded frame."""
+    from cvids_tpu_torch.dense import estimator
+
+    cfg, ref, meas, (a, gate), _, b, _ = _dense_inputs(dev)
+    step = estimator.DenseStep(cfg)
+    step.init_reference(ref)
+    step.fuse(meas, a, b, gate)        # the capture: its warm-up ran the kernels once
+    ck.reset_launches()
+    for _ in range(3):
+        step.fuse(meas, a, b, gate)
+    assert ck.launches == {"warp_banded": 3, "plane_sweep": 3, "sgm_scan": 6, "wta": 3,
+                           "hamming_matrix": 0, "depth_filter_update": 3}
+
+
+def _solve_problem(dev, n, seed):
+    from cvids_tpu_torch.entry import _graph
+
+    rng = np.random.default_rng(seed)
+    m = n - n // 8
+    loops = (np.array([0, 3]), np.array([m - 1, m - 4]), rng.normal(0, 1, (2, 3)),
+             rng.normal(0, 0.1, 2))
+    nodes, edges = _graph(rng.uniform(-3, 3, n), rng.normal(size=(n, 3)), dev, loops)
+    return nodes._replace(valid=torch.arange(n, device=dev) < m), edges
+
+
+def test_graphed_solve_equals_eager_at_two_tiers(dev):
+    """`optimize_pose_graph_graphed` equals `optimize_pose_graph` bit for
+    bit at two tier sizes, one graph each."""
+    from cvids_tpu_torch.server import optimizer as opt
+
+    for n in (64, 128):
+        nodes, edges = _solve_problem(dev, n, n)
+        got = opt.optimize_pose_graph_graphed(nodes, edges, 3, 15)
+        again = opt.optimize_pose_graph_graphed(nodes, edges, 3, 15)
+        want = opt.optimize_pose_graph(nodes, edges, 3, 15)
+        for x, y, z in zip(got, again, want):
+            assert _same_bits(x, z) and _same_bits(y, z)
+
+
+def test_capture_on_a_worker_thread(dev):
+    """A solve captured on a worker thread, on its own stream, while the
+    main thread keeps allocating and launching, equals the eager solve."""
+    import threading
+
+    from cvids_tpu_torch.server import optimizer as opt
+
+    nodes, edges = _solve_problem(dev, 256, 7)
+    got = {}
+
+    def worker():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            got["out"] = [x.cpu() for x in opt.optimize_pose_graph_graphed(nodes, edges, 4, 25)]
+
+    th = threading.Thread(target=worker)
+    th.start()
+    busy = 0
+    while th.is_alive() or busy == 0:
+        # no random draws: PyTorch forbids them on any thread during a capture
+        x = torch.full((512, 512), 1.0 + busy % 7, device=dev)
+        float((x @ x).sum())
+        busy += 1
+    th.join()
+    want = opt.optimize_pose_graph(nodes, edges, 4, 25)
+    assert all(_same_bits(x, y.cpu()) for x, y in zip(got["out"], want))
