@@ -1,9 +1,11 @@
-"""GPU smoke run of the PyTorch/CUDA port: builds the six CUDA kernels
+"""GPU smoke run of the PyTorch/CUDA port: builds the seven CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
-hamming_matrix), holds each against its PyTorch twin on the card at its
-path's shapes (beside the launch floor: an empty kernel through the same
-launch path, timed the same way), then drives the port's paths at full width
-and checks that every kernel of each path ran:
+hamming_matrix for the Pallas kernels, and small_eig, the 8-point F's
+eigensolver, which has no Pallas counterpart), holds each against its
+PyTorch twin on the card at its path's shapes (beside the launch floor: an
+empty kernel through the same launch path, timed the same way), then drives
+the port's paths at full width and checks that every kernel of each path
+ran:
 
 - phase 4, the server step of `__graft_entry__.entry()`: dense fusion at
   640x480x128 in bf16 (warp, sweep, SGM, WTA, filter kernels), then the
@@ -40,7 +42,11 @@ and checks that every kernel of each path ran:
   4)`, held to test_full_system.py's bounds (VI-initialized, >= 8 packets an
   agent, aligned, a loop, ATE < 10 cm, depth RMS < 0.12, mesh < 0.15 m),
   with the front-end's times per frame and keyframe, its host syncs and its
-  device activities per frame; four Hamming calls and two graphed dense
+  device activities per frame; the front-end's CUDA graphs (the track step
+  with its F-RANSAC, the re-detection, the packet's image program, the
+  preintegration, the window solve, the marginalization's Schur
+  complement) each captured, replayed and equal to its eager call, which
+  reads nothing back; four Hamming calls and two graphed dense
   frames of that server run (480x752x128 volumes) are kept, the frames
   rerun eagerly through the kernels (equal to the graph's, each kernel call
   held against its twin) and through the twins;
@@ -63,7 +69,15 @@ and checks that every kernel of each path ran:
   on four ranks, NCCL with a card a rank where the machine has four cards,
   else gloo with the four sharing this card; each rank's dense step and TSDF
   block bit-equal to one process's on the card, the sharded solve and window
-  within their bounds of one card's, the collectives by their formulas.
+  within their bounds of one card's, the collectives by their formulas;
+- phase 12, the fisheye rig (test_fisheye_e2e.py): two agents with an
+  equidistant camera, EuRoC-format sequences written and read back, through
+  `AgentFrontend` and `CollaborativePoseGraph`, to that test's bounds, the
+  front-end's graphs held to the eager calls;
+- phase 13, a checkpoint resumed in a fresh process (test_checkpoint_e2e.py):
+  the pose graph on the card saved mid-mission, restored in a spawned
+  process on the card and in one on the CPU, both ending with the
+  uninterrupted card run's map.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
@@ -138,13 +152,18 @@ SOURCES = {
                             "cvids_tpu/ops/pallas_kernels.py:146"),
     "hamming_matrix": ("cvids_tpu_torch/csrc/hamming.cu",
                        "cvids_tpu/ops/pallas_kernels.py:65"),
+    # no Pallas counterpart: the 8-point F's eigh and svd, which the JAX
+    # package leaves to XLA (and the port's torch.linalg waited for the card)
+    "small_eig": ("cvids_tpu_torch/csrc/small_eig.cu", "cvids_tpu/ops/ransac.py:181"),
 }
 # each kernel's wrapper in cuda_kernels (its twin: the same name + "_twin")
 WRAPPERS = {"warp_banded": "projective_warp_banded", "plane_sweep": "plane_sweep",
             "sgm_scan": "sgm_scan_bidir", "wta": "wta",
-            "depth_filter_update": "depth_filter_update", "hamming_matrix": "hamming_matrix"}
+            "depth_filter_update": "depth_filter_update", "hamming_matrix": "hamming_matrix",
+            "small_eig": "small_eigh"}
 DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
 SERVER_KERNELS = ("hamming_matrix",)
+RANSAC_KERNELS = ("small_eig",)     # every F-RANSAC: the agents' track step, the servers' cascade
 # the server slice: run_synthetic.py's circles for 4 agents, 1 Hz keyframes
 SERVER_AGENTS = 4
 SERVER_DURATION = 125.0     # s per agent: 126 keyframes each, 504 in all
@@ -161,10 +180,12 @@ SHORT_KF = 12               # the kernel-vs-twin stream: agent 0's first keyfram
 # the same order with no FMA contraction, so at most 2 ulp apart
 FILTER_MAX_ULP = 2
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
-# and fp32 rate outside the tensor cores; the roofline bounds are held
-# against these whatever the card's power limit, which is printed beside them
+# and fp32 and fp64 rates outside the tensor cores; the roofline bounds are
+# held against these whatever the card's power limit, which is printed
+# beside them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_FP64_PER_S = 34e12
 
 
 def _sync(device) -> None:
@@ -198,7 +219,7 @@ def time_ms(fn, runs: int) -> float:
 # revisions before the fused warp, which `--package` may point at
 KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
                   "plane_sweep_kernel", "sgm_scan_kernel", "wta_kernel",
-                  "depth_filter_kernel", "hamming_kernel", "empty_kernel")
+                  "depth_filter_kernel", "hamming_kernel", "small_eig_kernel", "empty_kernel")
 
 
 def print_ptxas_summary(log: str) -> None:
@@ -294,14 +315,16 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def roofline(name: str, calls: int = 1, **shape) -> tuple[float, str]:
+def roofline(name: str, calls: int = 1, peak_ops: float = PEAK_FP32_PER_S,
+             **shape) -> tuple[float, str]:
     """(bound ms, "bytes" or "operations"): the least time an H100 could
     take for `calls` calls of kernel `name` at `shape`, from the bytes and
-    operations `cuda_kernels.kernel_work` counts and the published peaks."""
+    operations `cuda_kernels.kernel_work` counts and the published peaks
+    (`peak_ops`: the rate of the operations' type)."""
     from cvids_tpu_torch.ops.cuda_kernels import kernel_work
     nbytes, ops = kernel_work(name, **shape)
     t_bytes = calls * nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = calls * ops / PEAK_FP32_PER_S * 1e3
+    t_ops = calls * ops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -376,6 +399,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     st, x, valid = filter_inputs(rng, dev, h, w)
     ha, hb, hav, hbv = hamming_inputs(rng, dev, 160, 512)
     ha2, hb2, _, _ = hamming_inputs(rng, dev, 2048, 2048)
+    ata, ftf, f3 = eight_point_systems(rng, dev)
     if timed:
         # the kernels of microseconds under the profiler, before the volume
         # kernels and the twins run: each call must be one kernel launch and
@@ -388,7 +412,8 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                 ("depth_filter_update", "depth_filter_kernel",
                  lambda: ck.depth_filter_update(st, x, 0.013, valid)),
                 ("hamming_matrix", "hamming_kernel", lambda: ck.hamming_matrix(ha, hb, hav, hbv)),
-                ("hamming_2048", "hamming_kernel", lambda: ck.hamming_matrix(ha2, hb2)))}
+                ("hamming_2048", "hamming_kernel", lambda: ck.hamming_matrix(ha2, hb2)),
+                ("small_eig", "small_eig_kernel", lambda: ck.small_eigh(ata)))}
         print(f"  launch floor: an empty kernel through cuda_kernels._launch {extras['floor_ms']:.4f} "
               f"ms between CUDA events (median of {runs}), "
               f"{extras['profiler_ms']['empty']:.4f} ms under the profiler; the host "
@@ -503,6 +528,29 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                               "bound_ms": bound2, "bound_by": by2}
     print(f"  hamming_matrix 160x512 masked and 2048x2048: max |err| {e1}, {e2} "
           f"(tolerance: exact)")
+
+    # --- small_eig at the F-RANSAC's shapes: 128 8-point systems AᵀA (9x9)
+    # and their FᵀF (3x3) in fp64, one fundamental_ransac's eigen work; the
+    # edges
+    e_small = small_eig_edges(rng, dev)
+    pair = (lambda: (ck.small_eigh(ata), ck.small_eigh(ftf)))
+    ms = time_ms(pair, runs) if timed else 0.0
+    pms = time_ms(lambda: (ck.small_eigh_twin(ata), ck.small_eigh_twin(ftf)),
+                  twin_runs) if timed else 0.0
+    # the library calls it replaced: torch.linalg.eigh of the 9x9 systems and
+    # svd of the 3x3 F (each checks its errors on the host)
+    extras["library_ms"] = {"small_eig": time_ms(lambda: (torch.linalg.eigh(ata),
+                                                          torch.linalg.svd(f3)), runs)
+                            if timed else float("nan")}
+    (b9, by9), (b3, _) = (roofline("small_eig", batch=128, n=9, itemsize=8,
+                                   peak_ops=PEAK_FP64_PER_S),
+                          roofline("small_eig", batch=128, n=3, itemsize=8,
+                                   peak_ops=PEAK_FP64_PER_S))
+    out["small_eig"] = (e_small, ms, pms, b9 + b3, by9)
+    print(f"  small_eig, one F-RANSAC's eigen work (128 x 9x9 and 128 x 3x3, fp64, bound "
+          f"at {PEAK_FP64_PER_S / 1e12:.0f} TFLOP/s fp64): library torch.linalg.eigh + svd "
+          f"{extras['library_ms']['small_eig']:.4f} ms")
+
     floor = extras["floor_ms"]
     rows = list(out.items()) + [("hamming_matrix at 2048x2048",
                                  (e2, ms2, pms2, bound2, by2))]
@@ -512,11 +560,57 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
         key = "hamming_2048" if "2048" in name else name
         prof = extras["profiler_ms"].get(key)
         prof_txt = "" if prof is None else f", {prof:.4f} ms under the profiler"
+        peak = (f"{PEAK_FP64_PER_S / 1e12:.0f} TFLOP/s fp64" if name == "small_eig"
+                else f"{PEAK_FP32_PER_S / 1e12:.0f} TFLOP/s fp32")
         print(f"  time {name}: kernel {ms:.4f} ms{prof_txt}, twin {pms:.4f} ms; bound {bound:.4f} "
-              f"ms ({by}; {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {PEAK_FP32_PER_S / 1e12:.0f} "
-              f"TFLOP/s fp32), launch floor {floor:.4f} ms; share of bound {share}, of "
-              f"max(bound, floor) {reach}")
+              f"ms ({by}; {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {peak}), launch floor "
+              f"{floor:.4f} ms; share of bound {share}, of max(bound, floor) {reach}")
     return out, extras
+
+
+def eight_point_systems(rng, dev, k=128):
+    """One fundamental_ransac's eigenproblems on `dev`, in fp64 as
+    `ransac._eight_point` poses them on the card: the 8-point systems AᵀA
+    (k, 9, 9) of noisy two-view samples, their least eigenvectors' FᵀF
+    (k, 3, 3), and F itself (k, 3, 3, for the library's svd)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    pts = rng.uniform(-2, 2, (k, 8, 3)).astype(np.float32)
+    pts[..., 2] += 6.0
+    pc2 = pts + np.array([0.4, 0.1, 0.05], np.float32)
+    x1 = pts[..., :2] / pts[..., 2:3] + rng.normal(size=(k, 8, 2)) * 1e-3
+    x2 = pc2[..., :2] / pc2[..., 2:3] + rng.normal(size=(k, 8, 2)) * 1e-3
+    x1, x2 = (torch.from_numpy(x.astype(np.float32)).to(dev).double() for x in (x1, x2))
+    a = torch.stack([x2[..., 0] * x1[..., 0], x2[..., 0] * x1[..., 1], x2[..., 0],
+                     x2[..., 1] * x1[..., 0], x2[..., 1] * x1[..., 1], x2[..., 1],
+                     x1[..., 0], x1[..., 1], torch.ones_like(x1[..., 0])], -1)
+    ata = (a.transpose(-1, -2) @ a).contiguous()
+    f = ck.small_eigh_twin(ata)[1][..., :, 0].reshape(k, 3, 3).contiguous()
+    return ata, (f.transpose(-1, -2) @ f).contiguous(), f
+
+
+def small_eig_edges(rng, dev) -> float:
+    """small_eig against its twin, bit for bit, at the edge shapes n = 1, 3,
+    9 and 12 (random symmetric positive semi-definite batches of 128, odd
+    batch sizes) in fp32 and fp64, a diagonal matrix with tied eigenvalues
+    and a zero matrix. Returns the largest |difference| (0)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    cases = []
+    for n, b in ((1, 5), (3, 128), (9, 128), (9, 3), (12, 128), (12, 7)):
+        x = torch.from_numpy(rng.normal(size=(b, n, n))).to(dev)
+        for dtype in (torch.float32, torch.float64):
+            cases.append((f"{b} x {n}x{n} {str(dtype)[6:]}",
+                          (x @ x.transpose(-1, -2)).to(dtype).contiguous()))
+    cases.append(("ties", torch.diag(torch.tensor([3.0, 1.0, 1.0, 2.0], device=dev))[None]
+                  .contiguous()))
+    cases.append(("zero", torch.zeros((4, 9, 9), device=dev)))
+    for what, a in cases:
+        got, ref = ck.small_eigh(a), ck.small_eigh_twin(a)
+        check(all(_same_bits(x, y) for x, y in zip(got, ref)),
+              f"small_eig {what}: the kernel's eigenpairs differ from the twin's")
+    print(f"  small_eig at {', '.join(c[0] for c in cases)}: kernel == twin bit for bit")
+    return 0.0
 
 
 def plan_checks() -> None:
@@ -855,12 +949,12 @@ class GuardedTorch:
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """The tensor's bit patterns, so NaNs compare as values."""
-    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32, torch.bfloat16: torch.int16}
     return t.view(ints[t.dtype]) if t.dtype in ints else t
 
 
 def memory_checks(device, rng, repeats=3) -> int:
-    """An audit of the six kernels' memory accesses that needs no sanitizer:
+    """An audit of the seven kernels' memory accesses that needs no sanitizer:
     each kernel runs at the path's shapes and at ragged ones with its inputs
     and outputs guarded (`GuardedTorch`), and must give the bits of its
     unguarded run every time, with every red zone intact. An out-of-bounds
@@ -901,6 +995,11 @@ def memory_checks(device, rng, repeats=3) -> int:
         a, b, av, bv = hamming_inputs(rng, dev, n, m_)
         cases.append(("hamming_matrix", ck.hamming_matrix, (a, b, av, bv)))
         cases.append(("hamming_matrix", ck.hamming_matrix, (a, b)))
+    for b, n in ((128, 9), (128, 3), (5, 12), (3, 1)):
+        x = torch.from_numpy(rng.normal(size=(b, n, n))).to(dev)
+        for dtype in (torch.float32, torch.float64):
+            cases.append(("small_eig", ck.small_eigh,
+                          ((x @ x.transpose(-1, -2)).to(dtype).contiguous(),)))
 
     def flat(out):
         return [t for o in (out if isinstance(out, tuple) else (out,))
@@ -927,7 +1026,7 @@ def memory_checks(device, rng, repeats=3) -> int:
             check(all(torch.equal(_bits(o), _bits(r)) for o, r in zip(out, ref)),
                   f"{name} {shape}: a guarded run differs from the unguarded one")
             check(g.red_zones_intact(), f"{name} {shape}: a red zone was written")
-    print(f"  memory audit: {n_launches} guarded launches of the six kernels (path and ragged "
+    print(f"  memory audit: {n_launches} guarded launches of the seven kernels (path and ragged "
           f"shapes, {RED_ZONE} B red zones, {repeats} runs each): every run bit-identical "
           f"to the unguarded one, every red zone intact")
     return n_launches
@@ -2441,34 +2540,81 @@ def agents_run(device, seqs, cfg):
     return fes, packets, rows, tracer, syncs, profiled
 
 
-def graph_checks(fe, seq) -> None:
-    """The front-end's CUDA graphs against the eager calls on the same
-    inputs: one KLT call on the agent's last two frames, one window solve on
-    its final window. The same kernels in the same order: the same bits
-    (checked to 1e-6 relative, and the largest difference printed)."""
+def frame_imu(seq, fi):
+    """(gyro, accelerometer, dts) that frame `fi` of an agent sequence
+    (`agent_sequences`) brings, as `agents_run` feeds it."""
+    t0, t1 = seq["cam_t"][fi - 1], seq["cam_t"][fi]
+    sel = (seq["imu_t"] >= t0) & (seq["imu_t"] < t1)
+    return seq["gyr"][sel], seq["acc"][sel], np.diff(np.append(seq["imu_t"][sel], t1))
+
+
+def graph_checks(fe, img0, img1, imu) -> None:
+    """The front-end's CUDA graphs, each of which must have been captured and
+    replayed in the run, against the eager calls on the same inputs: the
+    track step (KLT, lifts, F-RANSAC, its gate) on the frames img0 -> img1,
+    the re-detection and the packet's image program on img1, one
+    preintegration of `imu` (gyro, accelerometer, dts), the window solve and
+    the marginalization's Schur complement on the final window. The same
+    kernels in the same order: the same bits (checked to 1e-6 relative,
+    integers exactly, and the largest difference printed). Each eager call
+    runs under torch's sync debug mode "error": none reads a value back to
+    the host (fundamental_ransac, FAST, BRIEF and the blur included). The
+    eager track step's small_eig calls are held to the twin."""
+    from torch.utils import _pytree as pytree
+
     from cvids_tpu_torch.vio import frontend, window_ba
 
-    img0, img1 = (fe._t(fe._preprocess(seq["images"][i])) for i in (-2, -1))
-    args = (img0, img1, fe._t(fe.feat_xy), fe._t(fe.feat_valid, torch.bool), fe._t(fe.feat_xy), 1.5)
-    graphed, eager = fe._track(*args), frontend._track_points(*args)
+    calls = {"track": fe._track, "detect": fe._redetect_call, "describe": fe._describe,
+             "preintegrate": fe._preint, "solve": fe._solve_fast, "marginalize": fe._marg}
+    ran = {n: (len(c.graphs), c.replays) for n, c in calls.items()}
+    check(all(g and r for g, r in ran.values()),
+          f"a front-end program was not captured and replayed as a CUDA graph: {ran}")
+    cfg, mf, thr = fe.cfg, fe.MAX_FEAT, float(fe.cfg.fast_threshold)
+    a0, a1 = (fe._t(fe._preprocess(i)) for i in (img0, img1))
+    buf = np.zeros((fe.MAX_IMU, 8), np.float32)
+    n = min(len(imu[0]), fe.MAX_IMU)
+    buf[:n, 0:3], buf[:n, 3:6], buf[:n, 6], buf[:n, 7] = imu[0][:n], imu[1][:n], imu[2][:n], 1.0
     meas = fe._build_meas()
-    iters = fe.cfg.max_solver_iterations
-    (s_g, c_g), (s_e, c_e) = (fe._solve_fast(fe.state, meas, iters),
-                              window_ba.solve_window_fast(fe.state, meas, iters=iters))
+    dying = fe._t(fe.vis[0] & ~fe.vis[1:].any(axis=0), torch.bool)
+    progs = {
+        "track": (frontend._track_step, (
+            a0, a1, fe._stage("track", fe._feats(fe.feat_xy)), fe._stage("noise", fe._gumbel(mf)),
+            fe.cam, 1.5, (3.0 / fe._fx) ** 2)),
+        "detect": (frontend._redetect_step, (a1, fe._stage("detect", fe._feats()), thr, mf,
+                                             cfg.min_feature_dist, float(cfg.min_feature_dist))),
+        "describe": (frontend._describe_step, (a1, fe._stage("describe", fe.feat_xy), fe.cam, thr,
+                                               fe._max_ext, fe._cell)),
+        "preintegrate": (frontend._preintegrate_step, (fe._stage("imu", buf), fe.state.bg[0],
+                                                       fe.state.ba[0], cfg.imu)),
+        "solve": (frontend._solve_window_fast, (fe.state, meas, cfg.max_solver_iterations)),
+        "marginalize": (window_ba.marg_schur_cam, (fe.state, meas, dying)),
+    }
+    rec = KernelRecorder(RANSAC_KERNELS, calls=None)
     diffs = {}
-    for name, a, b in ([("klt " + f, x, y) for f, x, y in zip(graphed._fields, graphed, eager)]
-                       + [("solve " + f, x, y) for f, x, y in zip(s_g._fields, s_g, s_e)]
-                       + [("solve cost", c_g, c_e)]):
-        a, b = a.float(), b.float()
-        diffs[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    for name, (fn, args) in progs.items():
+        graphed = calls[name](*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with rec if name == "track" else contextlib.nullcontext():
+                eager = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for i, (a, b) in enumerate(zip(pytree.tree_leaves(graphed), pytree.tree_leaves(eager))):
+            if a.is_floating_point():
+                a, b = a.float(), b.float()
+                d = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) if a.numel() else 0.0
+            else:
+                d = 0.0 if torch.equal(a, b) else float("inf")
+            diffs[f"{name} output {i}"] = d
     worst = max(diffs, key=diffs.get)
-    check(all(call.graphs and call.replays for call in (fe._track, fe._solve_fast)),
-          "a front-end call was not replayed as a CUDA graph")
     check(diffs[worst] <= 1e-6, f"graph replay differs from the eager call: {diffs}")
-    print(f"  CUDA graphs: {len(fe._track.graphs)} KLT and {len(fe._solve_fast.graphs)} solve "
-          f"graph(s) captured, {fe._track.replays} and {fe._solve_fast.replays} replays; one "
-          f"KLT call and one solve replayed against the eager calls: largest relative "
-          f"difference {diffs[worst]:.3g} ({worst}; tolerance 1e-6)")
+    compared = rec.compare()
+    check(compared.get("small_eig", 0) >= 2, f"the track step's small_eig calls {compared}")
+    print(f"  CUDA graphs (captured, replays) in the run: {ran}; each replayed against its "
+          f"eager call: largest relative difference {diffs[worst]:.3g} ({worst}; tolerance "
+          f"1e-6); every eager call, fundamental_ransac, FAST, BRIEF and the blur included, "
+          f"ran under sync debug mode \"error\": no host sync")
 
 
 def agents_score(server, seqs, cfg, dense_h, dense_w, n_agents):
@@ -2568,9 +2714,11 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
         print(f"  an AgentFrontend built with no device argument: state and camera on {fe.device}")
         torch.cuda.reset_peak_memory_stats()
 
+    ck.reset_launches()
     t0 = time.perf_counter()
     fes, packets, rows, tracer, syncs, profiled = agents_run(dev, seqs, cfg)
     fe_s = time.perf_counter() - t0
+    fe_counts = dict(ck.launches)
     peak_fe = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
     frame_ms = [r[3] for r in rows if not r[2]]
     kf_ms = [r[3] for r in rows if r[2]]
@@ -2592,8 +2740,12 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
               f"share {sum(busy) / sum(wall):.3f}")
     print(f"  host syncs per frame (agent 0 frames {AGENT_SYNC_WINDOW[0]}-"
           f"{AGENT_SYNC_WINDOW[1] - 1}): {syncs:.1f}; track stats {fes[0].track_stats}")
+    print(f"  front-ends' kernel launches (graph replays count their kernels): {fe_counts}")
     if dev.type == "cuda":
-        graph_checks(fes[0], seqs[0])
+        check(all(fe_counts[n] > 0 for n in RANSAC_KERNELS),
+              f"a kernel of the front-ends did not run: {fe_counts}")
+        graph_checks(fes[0], seqs[0]["images"][-2], seqs[0]["images"][-1],
+                     frame_imu(seqs[0], len(seqs[0]["cam_t"]) - 1))
     check(all(f.vi_initialized for f in fes), "an agent never VI-initialized")
     check(min(n_pk) >= 8, f"packets per agent {n_pk}: fewer than 8")
 
@@ -2611,7 +2763,8 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     ck.reset_launches()
     kf_ms_srv = []
     on_card = dev.type == "cuda"
-    recorder = KernelRecorder(SERVER_KERNELS) if on_card else contextlib.nullcontext()
+    recorder = (KernelRecorder(SERVER_KERNELS + RANSAC_KERNELS) if on_card
+                else contextlib.nullcontext())
     frames = FrameRecorder() if on_card else contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
@@ -2644,6 +2797,10 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
           f"{server.depth_maps_published}, inverse-depth RMS median {med_rms:.4f} over "
           f"{len(rmses)} maps (overlap max {max(overlaps, default=0):.3f}); mesh {n_tri} "
           f"triangles, median scene distance {dist:.4f} m; launches {counts}")
+    print(f"  scores against test_full_system.py's bounds: packets {n_pk} (>= 8 each), loops "
+          f"{g.loop_count} (>= 1), aligned {[cl.aligned for cl in g.clients[:n_agents]]}, ATE "
+          f"sim3 cm {[round(a * 100, 2) for a in ates]} (< 10), inverse-depth RMS median "
+          f"{med_rms:.4f} (< 0.12), mesh median scene distance {dist:.4f} m (< 0.15)")
     check(g.loop_count >= 1, "no loop closure between the agents")
     check(all(cl.aligned for cl in g.clients[:n_agents]), "a client never aligned")
     check(all(a < 0.10 for a in ates), f"ATE sim3 {ates} m: not all < 0.10")
@@ -2659,7 +2816,8 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
         print(f"  launches: every kernel of the path ran; the banded warp {counts['warp_banded']} "
               f"times (its host gate)")
     print("phase 8 agents: ok")
-    return counts, seqs, {"ate_cm": [a * 100 for a in ates], "rms": med_rms, "mesh_m": dist}
+    return counts, seqs, {"ate_cm": [a * 100 for a in ates], "rms": med_rms, "mesh_m": dist,
+                          "frontend_launches": fe_counts, "frames": len(rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -3188,6 +3346,134 @@ def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:
     return {k: sum(r["dense"]["launches"][k] for r in res["ranks"]) for k in SOURCES}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the fisheye rig through the front-end (test_fisheye_e2e.py)
+# ---------------------------------------------------------------------------
+
+
+def repo_test_module(name: str):
+    """The repo's tests/<name>.py, imported by its own name as pytest
+    imports it (a spawned process finds it the same way): phases 12 and 13
+    run the port tests' own flows on the card. The directory goes last on
+    sys.path, so it shadows nothing."""
+    import importlib
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    return importlib.import_module(name)
+
+
+def fisheye_phase(device) -> dict:
+    """Phase 12: tests/test_torch_fisheye_e2e.py's `run_fisheye_rig` on the
+    card: two agents' EuRoC-format sequences of a mild equidistant fisheye
+    (320x240, 10 Hz), written and read back, through `AgentFrontend` (the
+    camera's lift inside the graphs) into `CollaborativePoseGraph`, held to
+    the reference test's bounds (>= 6 packets an agent, >= 1 loop, both
+    aligned, ATE sim3 < 15 cm); `graph_checks` on agent 0's equidistant
+    front-end; the Hamming kernel's kept calls of the run against the twin.
+    Returns the run's kernel launches."""
+    import tempfile
+
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    rig = repo_test_module("test_torch_fisheye_e2e")
+    run_fisheye_rig, fisheye_ate_cm = rig.run_fisheye_rig, rig.fisheye_ate_cm
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    rec = KernelRecorder(SERVER_KERNELS + RANSAC_KERNELS) if on_card else None
+    with tempfile.TemporaryDirectory(prefix="cvids_fisheye_") as root, \
+            rec or contextlib.nullcontext():
+        fes, seqs, packets, server = run_fisheye_rig(root, dev)
+        try:
+            _sync(dev)
+            counts = dict(ck.launches)
+            n_pk = [len(p) for p in packets]
+            ates = fisheye_ate_cm(server, seqs)
+            aligned = [bool(server.clients[c].aligned) for c in range(2)]
+            print(f"phase 12 fisheye rig: {type(fes[0].cam).__name__} agents, "
+                  f"{[len(s_.cam_t) for s_ in seqs]} frames of 320x240 at 10 Hz; scores against "
+                  f"test_fisheye_e2e.py's bounds: packets {n_pk} (>= 6 each), loops "
+                  f"{server.loop_count} (>= 1), aligned {aligned}, ATE sim3 cm "
+                  f"{[round(a, 2) for a in ates]} (< 15); launches {counts}")
+            check(all(n >= 6 for n in n_pk), f"packets per agent {n_pk}: fewer than 6")
+            check(server.loop_count >= 1, "no loop closures on the fisheye rig")
+            check(all(aligned), f"aligned {aligned}")
+            check(all(a < 15.0 for a in ates), f"fisheye ATE {ates} cm")
+            check(not on_card or all(counts[n] > 0 for n in SERVER_KERNELS + RANSAC_KERNELS),
+                  f"a kernel of the rig did not run: {counts}")
+            seq0 = seqs[0]
+            last = len(seq0.cam_t) - 1
+            sel = (seq0.imu_t >= seq0.cam_t[last - 1]) & (seq0.imu_t < seq0.cam_t[last])
+            imu = (seq0.gyr[sel], seq0.acc[sel],
+                   np.diff(np.append(seq0.imu_t[sel], seq0.cam_t[last])))
+            if on_card:
+                graph_checks(fes[0], seq0.load_image(last - 1), seq0.load_image(last), imu)
+        finally:
+            server.close()
+    if on_card:
+        compared = rec.compare()
+        check(compared.get("hamming_matrix", 0) == len(KernelRecorder.CALLS)
+              or counts["hamming_matrix"] <= max(KernelRecorder.CALLS),
+              f"Hamming calls held against the twin {compared}, launches {counts}")
+    print(f"phase 12 fisheye rig: ok in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: a checkpoint restored in fresh processes (test_checkpoint_e2e.py)
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_phase(device) -> None:
+    """Phase 13: tests/test_torch_checkpoint_e2e.py's flow with the pose
+    graph on the card (graphed solves): an uninterrupted run; a run that
+    ingests half the packets, saves and is discarded; a spawned process that
+    restores the file on the card and one that restores it on the CPU, each
+    finishing the mission. Both must reproduce the uninterrupted card run:
+    the same keyframe count, loop count and alignment, world positions and
+    yaws within 1e-4. The capacities (128 keyframes, 64 loops) hold the
+    mission without growing (a store that grew cannot be restored in place,
+    in either package)."""
+    import tempfile
+
+    from cvids_tpu_torch.utils import checkpoint
+
+    e2e = repo_test_module("test_torch_checkpoint_e2e")
+    _world, _make_server, _finish = e2e._world, e2e._make_server, e2e._finish
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    packets, _, descs = _world()
+    split = len(packets) // 2
+    server = _make_server(descs, dev)
+    ref = _finish(server, packets, 0)
+    server.close()
+    check(ref["loop_count"] >= 1 and all(ref["aligned"]), f"the uninterrupted run: {ref}")
+    check(ref["count"] <= 128 and ref["loop_count"] <= 64, "the mission outgrows the capacities")
+    with tempfile.TemporaryDirectory(prefix="cvids_ckpt_") as root:
+        server = _make_server(descs, dev)
+        for _, _, _, pkt in packets[:split]:
+            server.add_keyframe(pkt)
+        ckpt = f"{root}/mid.npz"
+        checkpoint.save_server(ckpt, server)
+        server.close()
+        del server
+        worst = {}
+        for where in (("cuda", "cpu") if dev.type == "cuda" else ("cpu",)):
+            res = e2e.resume_in_fresh_process(ckpt, f"{root}/resumed_{where}.npz", split, where)
+            e2e.assert_same_map(res, ref)
+            worst[where] = (float(np.abs(res["world_p"] - ref["world_p"]).max()),
+                            float(np.abs(np.unwrap(res["world_yaw"])
+                                         - np.unwrap(ref["world_yaw"])).max()))
+    print(f"phase 13 checkpoint: {len(packets)} packets, saved after {split} on {dev}, "
+          f"restored in a fresh process on {' and on '.join(worst)}: {ref['count']} "
+          f"keyframes, {ref['loop_count']} loops, aligned {ref['aligned']} as the uninterrupted "
+          f"run; largest |dp| m, |dyaw| rad (bound 1e-4): {worst}; ok in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def _page_state(path: str) -> dict:
     """The state JSON embedded in an exported viewer page."""
     html = open(path).read()
@@ -3321,11 +3607,17 @@ def main() -> int:
     # phase 11: the sharded server step on 4 ranks, against one process
     multi_counts = multichip_phase(dev)
 
+    # phase 12: the fisheye rig through the front-ends; phase 13: a
+    # checkpoint restored in fresh processes on the card and on the CPU
+    fish_counts = fisheye_phase(dev)
+    checkpoint_phase(dev)
+
     # launches: the whole server's run (phase 6), which drives all six;
     # launches_phase7: the distorted clients' run, which drives them again;
     # launches_phase8: the server fed by the agents' front-ends;
     # launches_phase9: the topology's server; launches_phase11: the dry
-    # run's production dense step, summed over its ranks;
+    # run's production dense step, summed over its ranks; launches_phase12:
+    # the fisheye rig (front-ends and pose graph);
     # launches_per_frame: kernel launches per graphed dense frame of phase
     # 4's timed frames (replays count their captured kernels), and
     # host_launches_per_frame: the host's launch calls in a profiled graphed
@@ -3336,24 +3628,32 @@ def main() -> int:
     # profiler_ms: the device time of a kernel of microseconds in one profiled
     # call (null for the volume kernels: phase 4's profiled frame prints theirs).
     # library_ms: null, no single PyTorch call computes any of the six
+    # ported kernels; for small_eig the torch.linalg calls it replaced.
+    # small_eig's launches_frontend_phase8: phase 8's front-ends (graph
+    # replays count their kernels), and per camera frame
     rate = {k: {"launches_per_frame": v,
                 "host_launches_per_frame": {m: frames[m]["host_launches"] for m in frames}}
             for k, v in per_frame.items()}
     rate["hamming_matrix"] = {"launches_per_keyframe":
                               pipe_counts["hamming_matrix"] / (PIPE_AGENTS * PIPE_KF)}
+    fe_small = agent_scores["frontend_launches"]["small_eig"]
+    rate["small_eig"] = {"launches_frontend_phase8": fe_small,
+                         "launches_per_frame_phase8": fe_small / agent_scores["frames"]}
     floor = extras["floor_ms"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],
                 "launches_phase7": dist_counts[name],
                 "launches_phase8": agent_counts[name],
                 "launches_phase9": topo_counts[name],
-                "launches_phase11": multi_counts[name], **rate[name],
+                "launches_phase11": multi_counts[name],
+                "launches_phase12": fish_counts[name], **rate[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],
                 "plain_ms": checks[name][2], "bound_ms": checks[name][3],
                 "bound_by": checks[name][4], "floor_ms": floor,
                 "share": checks[name][3] / checks[name][1],
                 "reach": max(checks[name][3], floor) / checks[name][1],
-                "profiler_ms": extras["profiler_ms"].get(name), "library_ms": None}
+                "profiler_ms": extras["profiler_ms"].get(name),
+                "library_ms": extras["library_ms"].get(name)}
                for name in SOURCES]
     big = extras["hamming_2048"]
     next(k for k in kernels if k["name"] == "hamming_matrix")["at_2048x2048"] = {

@@ -55,6 +55,7 @@ SIGNATURES = {
     "cvids_hamming_plan": [_I, _I, ctypes.POINTER(_I)],
     "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _F, _P, _F, _F, _F,
                            _P, _P, _P, _P, ctypes.c_long, _P],
+    "cvids_small_eig": [_P, _P, _P, _I, _I, _I, _I, _P],
     "cvids_empty": [_P],
 }
 

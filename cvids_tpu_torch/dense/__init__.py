@@ -1,0 +1,1 @@
+from . import estimator  # noqa: F401

@@ -5,3 +5,5 @@ transport (`transport`), the synthetic sequences and multi-agent streams
 (`euroc`, and `euroc_synth`, which writes one) with the port's own PNG
 codec (`png`) and sensor.yaml reader (`sensor_yaml`), and TUM trajectory
 files (`tum`)."""
+
+from . import synthetic  # noqa: F401

@@ -1,0 +1,1 @@
+from . import brief, fast, hamming, image, klt, ransac  # noqa: F401

@@ -13,7 +13,11 @@ Each kernel has a wrapper and a twin with the same contract:
 - `hamming_matrix` — pairwise Hamming distances of 256-bit descriptors with
   validity masks, the loop verification's matcher (``csrc/hamming.cu``);
 - `depth_filter_update` — the fused Gaussian×Beta filter step of the dense
-  path (``csrc/depth_filter.cu``).
+  path (``csrc/depth_filter.cu``);
+- `small_eigh` — batched symmetric eigendecomposition of matrices up to
+  12×12 by cyclic Jacobi, the 8-point fundamental matrix's eigensolver
+  (``csrc/small_eig.cu``; no Pallas counterpart: it replaces torch.linalg
+  calls that wait for the card).
 
 Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
 tensors it launches its kernel, or raises on anything the kernel does not
@@ -47,10 +51,10 @@ from . import depth_filter
 from .image import warp_pass_positions
 
 __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
-           "hamming_matrix", "depth_filter_update",
+           "hamming_matrix", "depth_filter_update", "small_eigh",
            "projective_warp_banded_twin", "plane_sweep_twin",
            "sgm_scan_bidir_twin", "wta_twin", "hamming_matrix_twin",
-           "depth_filter_update_twin", "popcount32", "launches",
+           "depth_filter_update_twin", "small_eigh_twin", "popcount32", "launches",
            "reset_launches", "sgm_scan_plan", "plane_sweep_plan", "wta_plan",
            "compiled_sgm_scan_plan", "compiled_plane_sweep_plan",
            "compiled_wta_plan", "hamming_plan", "compiled_hamming_plan",
@@ -59,7 +63,7 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "add_launches"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
-            "hamming_matrix": 0, "depth_filter_update": 0}
+            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0}
 
 _BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
@@ -771,6 +775,75 @@ def depth_filter_update(state: depth_filter.FilterState, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Batched small symmetric eigendecomposition (cyclic Jacobi)
+# ---------------------------------------------------------------------------
+
+SMALL_EIG_MAX_N = 12
+SMALL_EIG_SWEEPS = 8    # cyclic sweeps: off-diagonals of a 12x12 reach rounding in ~6
+
+
+def small_eigh_twin(a: torch.Tensor):
+    """Plain PyTorch twin of `small_eigh`: the same rotations in the same
+    order, one pair (p, q) at a time over the whole batch."""
+    b, n = a.shape[0], a.shape[-1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=a.device).tril()
+    m = torch.where(lower, a, a.transpose(-1, -2)).clone()
+    v = torch.eye(n, dtype=a.dtype, device=a.device).expand(b, n, n).clone()
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    for _ in range(SMALL_EIG_SWEEPS):
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                app, aqq, apq = m[:, p, p], m[:, q, q], m[:, p, q]
+                theta = (aqq - app) / (2.0 * apq)
+                sign = torch.where(theta >= 0.0, one, -one)
+                t = sign / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0))
+                c = one / torch.sqrt(t * t + 1.0)
+                s = t * c
+                rot = apq != 0.0
+                c = torch.where(rot, c, one)[:, None]
+                s = torch.where(rot, s, 0.0 * one)[:, None]
+                for x in (m, v):           # columns p and q
+                    kp, kq = x[:, :, p].clone(), x[:, :, q]
+                    x[:, :, p] = c * kp - s * kq
+                    x[:, :, q] = s * kp + c * kq
+                pk, qk = m[:, p, :].clone(), m[:, q, :]   # rows p and q
+                m[:, p, :] = c * pk - s * qk
+                m[:, q, :] = s * pk + c * qk
+    d = torch.diagonal(m, dim1=-2, dim2=-1)
+    key = torch.where(torch.isnan(d), torch.full((), float("inf"), dtype=d.dtype,
+                                                 device=a.device), d)
+    idx = torch.arange(n, device=a.device)
+    kj, kk = key[:, None, :], key[:, :, None]          # [b, k, j]: j ranks before k?
+    rank = ((kj < kk) | ((kj == kk) & (idx[None, :] < idx[:, None]))).sum(-1)
+    order = torch.argsort(rank, dim=-1)                 # rank -> index
+    return d.gather(1, order), v.gather(2, order[:, None, :].expand(b, n, n))
+
+
+def small_eigh(a: torch.Tensor):
+    """Eigendecomposition of a batch of symmetric matrices, a (B, n, n)
+    float32 or float64 with n <= 12, read from its lower triangle as torch.linalg.eigh
+    reads it -> (eigenvalues (B, n) ascending, eigenvectors (B, n, n), column
+    k for eigenvalue k; each column's sign is the rotations' and is free).
+    SMALL_EIG_SWEEPS cyclic Jacobi sweeps, whatever the convergence;
+    nothing is read back to the host, so a call can be captured in a CUDA
+    graph."""
+    if not _on_cuda(a):
+        return small_eigh_twin(a)
+    if a.ndim != 3 or a.shape[1] != a.shape[2] or not 1 <= a.shape[1] <= SMALL_EIG_MAX_N:
+        raise ValueError(f"small_eigh takes (B, n, n) with 1 <= n <= {SMALL_EIG_MAX_N}, "
+                         f"got {tuple(a.shape)}")
+    b, n = a.shape[0], a.shape[1]
+    _require(a, "a", (b, n, n), (torch.float32, torch.float64))
+    w = torch.empty((b, n), dtype=a.dtype, device=a.device)
+    v = torch.empty((b, n, n), dtype=a.dtype, device=a.device)
+    if b == 0:
+        return w, v
+    _launch("small_eig", "cvids_small_eig", a.device, a.data_ptr(), w.data_ptr(),
+            v.data_ptr(), b, n, SMALL_EIG_SWEEPS, int(a.dtype == torch.float64))
+    return w, v
+
+
+# ---------------------------------------------------------------------------
 # The least work of a call, for a roofline bound
 # ---------------------------------------------------------------------------
 
@@ -788,7 +861,8 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
     Shapes: warp_banded h, w; plane_sweep h, w, d, itemsize; sgm_scan s, x,
     d, itemsize (one launch: one axis, both directions); wta h, w, d,
     itemsize, parts; depth_filter_update h, w, tau2_map (False: a scalar);
-    hamming_matrix n, m, a_mask, b_mask (True: the validity mask is given)."""
+    hamming_matrix n, m, a_mask, b_mask (True: the validity mask is given);
+    small_eig batch, n, itemsize (4 or 8: its operations are fp64 at 8)."""
     g = shape.get
     if name == "warp_banded":
         px = g("h") * g("w")
@@ -823,4 +897,11 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
         # 8 words a descriptor; xor, popcount and add per word pair
         masks = (n if g("a_mask", True) else 0) + (m if g("b_mask", True) else 0)
         return 32 * (n + m) + 4 * n * m + masks, 24 * n * m
+    if name == "small_eig":
+        b, n, es = g("batch"), g("n"), g("itemsize")
+        # the matrix in; eigenvalues and eigenvectors out. Per rotation: its
+        # angle ~15, then rows and columns p, q of the matrix and columns p,
+        # q of the eigenvectors, 6 a row each; the sort's rank n² compares
+        per_matrix = SMALL_EIG_SWEEPS * n * (n - 1) // 2 * (18 * n + 15) + n * n
+        return es * b * (2 * n * n + n), b * per_matrix
     raise KeyError(f"no kernel named {name!r}")

@@ -52,7 +52,9 @@ def fast_score_map(img: torch.Tensor, threshold: float = 20.0,
     img = img.to(torch.float32)
     taps = _shifts(img, _CIRCLE)
     circle = torch.stack(taps)                                   # (16, ..., H, W)
-    thr = torch.as_tensor(threshold, dtype=torch.float32, device=img.device)
+    thr = (threshold.to(device=img.device, dtype=torch.float32)
+           if isinstance(threshold, torch.Tensor)       # a float: a fill, no host copy
+           else torch.full((), threshold, dtype=torch.float32, device=img.device))
     bright = circle > img + thr
     dark = circle < img - thr
 

@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from . import cuda_kernels
 
 __all__ = ["hamming_distance_matrix", "match_descriptors", "MatchResult",
            "pack_bits", "unpack_bits", "descriptors_to_torch"]
@@ -46,6 +45,8 @@ def hamming_distance_matrix(a: torch.Tensor, b: torch.Tensor,
                             b_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Pairwise Hamming distances: a (N, 8), b (M, 8) -> (N, M) int32.
     Invalid rows and columns get distance 512 (> any real 256-bit distance)."""
+    from . import cuda_kernels     # as the reference's `ops` binds no kernel module
+
     return cuda_kernels.hamming_matrix(a, b, a_valid, b_valid)
 
 

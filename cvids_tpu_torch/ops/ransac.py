@@ -11,10 +11,15 @@ noise + log(valid) — the Gumbel-top-k draw of the JAX package with the noise
 supplied by the caller (`gumbel_noise` draws its uniforms from a CPU
 `torch.Generator`), so the same noise tensor gives the same hypotheses on the
 CPU, on the card and in `cvids_tpu`. Nothing here reads a device value back to the host, except the
-error checks inside torch.linalg's `eigh` and `svd`.
+error checks inside torch.linalg's `eigh` and `svd` in the PnP's DLT and
+the essential matrix's decomposition: on the card the 8-point F of
+`fundamental_ransac` takes its eigenvectors in float64 from the Jacobi
+kernel `cuda_kernels.small_eigh`, so that call reads nothing back and can be
+captured in a CUDA graph; on the CPU it keeps the JAX package's float32
+LAPACK `eigh`.
 
 All functions operate on normalized (undistorted) image coordinates. The
-batched `eigh`, `svd`, `det` and `solve` are torch.linalg's.
+other batched `eigh`, `svd`, `det` and `solve` are torch.linalg's.
 """
 
 from __future__ import annotations
@@ -186,10 +191,30 @@ def refine_pose_gn(r0, t0, pts3d, obs, weight_mask, iters: int = 5):
     return r, t
 
 
-def _eight_point(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+def _eight_point(p1: torch.Tensor, p2: torch.Tensor, jacobi: bool | None = None) -> torch.Tensor:
     """Normalized 8-point algorithm per hypothesis: (K, S>=8, 2)
     correspondences -> F (K, 3, 3). F's sign is free (the Sampson error
-    does not see it)."""
+    does not see it).
+
+    `jacobi` (None: whether p1 lies on the card) picks the eigensolver. True:
+    float64 throughout, the eigenproblems through `cuda_kernels.small_eigh`,
+    the Jacobi kernel on the card (its twin on the CPU), which reads nothing
+    back; where a sample determines F (not all on one plane, not a pure
+    image translation), F is then that of the points but for its rounding
+    to float32, whichever eigensolver computes it. False: float32 through
+    LAPACK, the JAX package's arithmetic on the CPU: AᵀA squares the
+    system's condition, so its F is ~1e-3 off (`tests/test_torch_small_eig.py`),
+    and the JAX parity tests hold inliers and cheirality votes that sit on
+    their thresholds."""
+    from . import cuda_kernels     # as the reference's `ops` binds no kernel module
+
+    if jacobi is None:
+        jacobi = p1.is_cuda
+    eigh = cuda_kernels.small_eigh if jacobi else torch.linalg.eigh
+    out_dtype = p1.dtype
+    if jacobi:
+        p1, p2 = p1.double(), p2.double()
+
     def normalize(p):
         c = torch.mean(p, dim=1)                                        # (K, 2)
         d = torch.mean(torch.linalg.vector_norm(p - c[:, None], dim=-1), dim=1)
@@ -206,12 +231,15 @@ def _eight_point(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     x2, y2 = n2[..., 0], n2[..., 1]
     a = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
                      torch.ones_like(x1)], dim=-1)                      # (K, S, 9)
-    _, v = torch.linalg.eigh(a.transpose(-1, -2) @ a)
+    _, v = eigh(a.transpose(-1, -2) @ a)
     f = v[..., :, 0].reshape(-1, 3, 3)
-    u, s, vt = torch.linalg.svd(f)                                      # rank-2 projection
-    s = torch.stack([s[:, 0], s[:, 1], torch.zeros_like(s[:, 2])], dim=-1)
-    f2 = (u * s[:, None, :]) @ vt
-    return t2.transpose(-1, -2) @ f2 @ t1
+    # the rank-2 projection U diag(s1, s2, 0) Vᵀ of F's SVD is F (I - v3 v3ᵀ),
+    # v3 the right singular vector of the least singular value: the
+    # eigenvector of FᵀF with the least eigenvalue
+    _, vf = eigh(f.transpose(-1, -2) @ f)
+    v3 = vf[..., :, 0:1]                                                # (K, 3, 1)
+    f2 = f - (f @ v3) @ v3.transpose(-1, -2)
+    return (t2.transpose(-1, -2) @ f2 @ t1).to(out_dtype)
 
 
 def _sampson_error(f: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,1 @@
+from . import keyframe, optimizer, pcm, pipeline, posegraph, vocab  # noqa: F401

@@ -455,7 +455,7 @@ class CollaborativePoseGraph:
         pts_b = (pts_l - st.vio_p[j]) @ r_wb  # world->body (row-vector form)
         pts_cam = (pts_b - cj.p_bc) @ np.asarray(cj.r_cb).T
         n = st.max_win
-        gumbel_f, gumbel_p = (g if g.device == self.device else _upload(g, self.device)
+        gumbel_f, gumbel_p = (_upload(g, self.device) if g.device.type == "cpu" else g
                               for g in (self._noise(NUM_HYP, n), self._noise(NUM_HYP, n)))
         _, _, _, wdj, wvj, wuj = self._feats(j)
         edi, evi, eui, _, _, _ = self._feats(i)

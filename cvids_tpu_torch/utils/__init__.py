@@ -1,1 +1,1 @@
-from . import checkpoint, config, metrics, tracing  # noqa: F401
+from . import checkpoint, config, metrics, tracing, viewer  # noqa: F401

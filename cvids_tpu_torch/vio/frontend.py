@@ -21,14 +21,21 @@ bookkeeping stays in host numpy, as in the JAX package, so each frame reads
 its tracking results back to the host. RANSAC takes its Gumbel noise from
 `_gumbel`, which draws from the front-end's CPU `torch.Generator`; the JAX
 package splits a `jax.random` key at the same points, and a test can
-replace `_gumbel` to feed the port the JAX draws. On the card the KLT
-tracker and the window solve (fixed shapes, fixed iteration counts, no read
-back inside) each replay as a CUDA graph, captured at their first call
-(`utils.cuda_graph.GraphedCall`): the same kernels as the eager call, one
-launch from the host. With a `Tracer`, the
-stages are spans: `track` (KLT + F-RANSAC), `detect` (re-detection),
-`describe` (the packet's blur, BRIEF, FAST and lift), `preintegrate`,
-`solve`, `marginalize`.
+replace `_gumbel` to feed the port the JAX draws.
+
+On the card the JAX package's compiled programs replay as CUDA graphs,
+each captured at its first call per shape (`utils.cuda_graph.GraphedCall`):
+the same kernels as the eager call, one launch from the host, no read back
+inside. They are the track step (KLT, both lifts, the F-RANSAC gate and its
+inlier mask: `_track_step`), the re-detection (`_redetect_step`, JAX
+`_redetect_compute`), the packet's image program (`_describe_step`, JAX
+`_emit_compute`), the preintegration (`_preintegrate_step`), the window
+solve and the marginalization up to its float64 `eigh`
+(`window_ba.marg_schur_cam`). The camera is a bound argument of the graphs
+that lift, so they are keyed by the camera as well as by shape. Host arrays
+cross to the card through pinned memory without a sync; each graph's result
+comes back in one packed read. With a `Tracer`, the stages are spans:
+`track`, `detect`, `describe`, `preintegrate`, `solve`, `marginalize`.
 """
 
 from __future__ import annotations
@@ -71,6 +78,53 @@ def _track_points(prev, img, xy, valid, init_xy, fb_thresh):
     forward-backward gate, photometric residual < 35."""
     return klt.track_points(prev, img, xy, valid, levels=4, iters=15, fb_thresh=fb_thresh,
                             max_residual=35.0, init_xy=init_xy)
+
+
+def _track_step(prev, img, feats, noise, cam, fb_thresh, inlier_thresh):
+    """One frame's tracking without a read back: KLT of the features
+    feats[:, 0:2] (valid where feats[:, 2] > 0, seeded at feats[:, 3:5]),
+    then VINS rejectWithF: both point sets lifted, F-RANSAC over the frame
+    pair with `noise`, its inliers kept where at least 12 tracks and 12
+    inliers. Returns (N, 4): tracked x, y, KLT's valid, valid after the
+    gate (1.0 / 0.0)."""
+    xy, valid, init_xy = feats[:, 0:2], feats[:, 2] > 0, feats[:, 3:5]
+    res = _track_points(prev, img, xy, valid, init_xy, fb_thresh)
+    fr = ransac.fundamental_ransac(cam.lift(xy), cam.lift(res.xy), res.valid, noise,
+                                   inlier_thresh=inlier_thresh)
+    take = (torch.sum(res.valid) >= 12) & (fr.num_inliers >= 12)
+    gated = torch.where(take, res.valid & fr.inliers, res.valid)
+    return torch.cat([res.xy, res.valid[:, None].to(xy.dtype), gated[:, None].to(xy.dtype)], 1)
+
+
+def _redetect_step(img, feats, threshold, max_num, cell, min_dist):
+    """FAST re-detection with a fixed candidate budget away from the
+    tracked features feats[:, 0:2] (valid where feats[:, 2] > 0): (max_num,
+    3) x, y, valid (JAX `_redetect_compute`)."""
+    score = fast.fast_score_map(img, threshold)
+    kps = fast.select_keypoints(score, max_num=max_num, cell=cell, existing_xy=feats[:, 0:2],
+                                existing_valid=feats[:, 2] > 0, min_dist=min_dist)
+    return torch.cat([kps.xy, kps.valid[:, None].to(kps.xy.dtype)], 1)
+
+
+def _describe_step(img, win_px, cam, threshold, max_ext, cell):
+    """The packet's image program (JAX `_emit_compute`): blur, BRIEF at the
+    window features' pixels `win_px`, full-image FAST and selection, their
+    BRIEF and lift. One int32 vector: the window descriptors (N x 8 words),
+    then per extra feature its 8 words and the bits of x, y, valid, u, v."""
+    blurred = gaussian_blur(img, 2.0, radius=4)
+    wdesc = brief.compute_brief(blurred, win_px, pre_blurred=True)
+    kps = fast.select_keypoints(fast.fast_score_map(img, threshold), max_num=max_ext, cell=cell)
+    edesc = brief.compute_brief(blurred, kps.xy, pre_blurred=True)
+    ext = torch.cat([kps.xy, kps.valid[:, None].to(kps.xy.dtype), cam.lift(kps.xy)], 1)
+    return torch.cat([wdesc.reshape(-1), edesc.reshape(-1),
+                      ext.contiguous().view(torch.int32).reshape(-1)])
+
+
+def _preintegrate_step(buf, bg, ba, noise):
+    """`imu.preintegrate` of a padded buffer (M, 8): gyro, accelerometer,
+    dt, valid."""
+    return imu_mod.preintegrate(buf[:, 0:3], buf[:, 3:6], buf[:, 6], bg, ba, noise=noise,
+                                sample_valid=buf[:, 7] > 0)
 
 
 def _solve_window_fast(state, meas, iters):
@@ -157,11 +211,18 @@ class AgentFrontend:
         self._kf_norm: dict = {}
         self._kf_state = None
 
-        # the tracker and the window solve are fixed-shape, sync-free and
-        # thousands of small launches each: on the card each replays as one
-        # CUDA graph per shape (`utils.cuda_graph`); on the CPU they run as is
-        self._track = GraphedCall(_track_points)
+        # the JAX package's compiled programs: fixed-shape, sync-free and
+        # hundreds to thousands of small launches each; on the card each
+        # replays as one CUDA graph per shape (`utils.cuda_graph`), over
+        # bound buffers that one pinned copy fills (`_stage`); on the CPU
+        # they run as is. The camera is bound: its graphs are this camera's
+        self._track = GraphedCall(_track_step, bound=(2, 3, 4))
+        self._redetect_call = GraphedCall(_redetect_step, bound=(1,))
+        self._describe = GraphedCall(_describe_step, bound=(1, 2))
+        self._preint = GraphedCall(_preintegrate_step, bound=(0,))
         self._solve_fast = GraphedCall(_solve_window_fast)
+        self._marg = GraphedCall(ba.marg_schur_cam)
+        self._staged: dict = {}
 
         self._cell = max(8, cfg.min_feature_dist // 2)
         # loop-closure features, budgeted apart from the tracker
@@ -177,7 +238,25 @@ class AgentFrontend:
         return ransac.gumbel_noise(NUM_HYP, n, self._gen, self.device)
 
     def _t(self, a, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+        """A host array on the front-end's device; to the card through
+        pinned memory, without waiting for the copy."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage(self, name: str, a) -> torch.Tensor:
+        """The front-end's persistent float32 device buffer `name`, filled
+        with `a` (a host array, or a tensor) by one copy: a graph's bound
+        input, the same storage at every call."""
+        t = (a if isinstance(a, torch.Tensor)
+             else torch.as_tensor(np.asarray(a), dtype=torch.float32))
+        buf = self._staged.get(name)
+        if buf is None or buf.shape != t.shape:
+            buf = self._staged[name] = torch.empty(t.shape, device=self.device)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return buf.copy_(t, non_blocking=self.device.type == "cuda")
 
     def _lift_np(self, xy: np.ndarray) -> np.ndarray:
         return _np(self.cam.lift(self._t(xy)))
@@ -185,17 +264,11 @@ class AgentFrontend:
     def _preintegrate(self, gyr, acc, dts, bg, ba_) -> imu_mod.Preintegrated:
         """Preintegrate up to MAX_IMU samples, padded to MAX_IMU as in the
         JAX package (the last valid sample pairs with a padding sample)."""
-        m = self.MAX_IMU
-        g = np.zeros((m, 3), np.float32)
-        a = np.zeros((m, 3), np.float32)
-        dt = np.zeros(m, np.float32)
-        vmask = np.zeros(m, bool)
-        n = min(len(gyr), m)
-        g[:n], a[:n], dt[:n], vmask[:n] = gyr[:n], acc[:n], dts[:n], True
+        buf = np.zeros((self.MAX_IMU, 8), np.float32)       # gyro, accel, dt, valid
+        n = min(len(gyr), self.MAX_IMU)
+        buf[:n, 0:3], buf[:n, 3:6], buf[:n, 6], buf[:n, 7] = gyr[:n], acc[:n], dts[:n], 1.0
         with self._span("preintegrate"):
-            return imu_mod.preintegrate(self._t(g), self._t(a), self._t(dt), bg, ba_,
-                                        noise=self.cfg.imu,
-                                        sample_valid=self._t(vmask, torch.bool))
+            return self._preint(self._stage("imu", buf), bg, ba_, self.cfg.imu)
 
     # ---------- feature maintenance ----------
 
@@ -248,15 +321,19 @@ class AgentFrontend:
         ok = fv & (pt_c1[:, 2] > 0.1) & np.isfinite(px).all(axis=1)
         return np.where(ok[:, None], px, self.feat_xy).astype(np.float32)
 
-    def _redetect(self, img: torch.Tensor) -> fast.Keypoints:
+    def _feats(self, *cols) -> np.ndarray:
+        """The tracked features as one (MAX_FEAT, 3 + ...) float32 array: x,
+        y, valid, then `cols`."""
+        return np.concatenate([self.feat_xy, self.feat_valid[:, None], *cols],
+                              axis=1).astype(np.float32)
+
+    def _redetect(self, img: torch.Tensor) -> np.ndarray:
         """FAST re-detection with a fixed candidate budget, away from the
-        tracked features."""
+        tracked features: (MAX_FEAT, 3) x, y, valid on the host."""
         cfg = self.cfg
-        score = fast.fast_score_map(img, float(cfg.fast_threshold))
-        return fast.select_keypoints(score, max_num=self.MAX_FEAT, cell=cfg.min_feature_dist,
-                                     existing_xy=self._t(self.feat_xy),
-                                     existing_valid=self._t(self.feat_valid, torch.bool),
-                                     min_dist=float(cfg.min_feature_dist))
+        return _np(self._redetect_call(img, self._stage("detect", self._feats()),
+                                       float(cfg.fast_threshold), self.MAX_FEAT,
+                                       cfg.min_feature_dist, float(cfg.min_feature_dist)))
 
     def _track_and_detect(self, image: np.ndarray, init_xy: np.ndarray | None = None,
                           fb_thresh: float = 1.5):
@@ -264,27 +341,26 @@ class AgentFrontend:
         img_t = self._t(image)
         if self.prev_image is not None and self.feat_valid.any():
             with self._span("track"):
-                prev_xy = self.feat_xy.copy()
                 n0 = int(self.feat_valid.sum())
-                xy = self._t(self.feat_xy)
-                res = self._track(self.prev_image, img_t, xy,
-                                  self._t(self.feat_valid, torch.bool),
-                                  xy if init_xy is None else self._t(init_xy), fb_thresh)
-                self.feat_xy = _np(res.xy).copy()
-                self.feat_valid = _np(res.valid).copy()
-                stats["klt_killed"] += n0 - int(self.feat_valid.sum())
+                # the noise is drawn before the step, which decides on the
+                # device whether the gate runs; where it does not (fewer than
+                # 12 tracks), the draw is undone, as the JAX package draws
+                # only past that test
+                gen_state = self._gen.get_state()
+                noise = self._stage("noise", self._gumbel(self.MAX_FEAT))
+                feats = self._feats(self.feat_xy if init_xy is None else init_xy)
+                out = _np(self._track(self.prev_image, img_t, self._stage("track", feats),
+                                      noise, self.cam, fb_thresh, (3.0 / self._fx) ** 2))
+                self.feat_xy = out[:, 0:2].copy()
+                tracked = out[:, 2] > 0
+                self.feat_valid = out[:, 3] > 0
+                n1 = int(tracked.sum())
+                stats["klt_killed"] += n0 - n1
+                if n1 < 12:
+                    self._gen.set_state(gen_state)
                 # VINS rejectWithF: fundamental-matrix RANSAC over the frame
                 # pair kills KLT locks onto the wrong structure
-                if self.feat_valid.sum() >= 12:
-                    uv0 = self.cam.lift(self._t(prev_xy))
-                    uv1 = self.cam.lift(self._t(self.feat_xy))
-                    fr = ransac.fundamental_ransac(
-                        uv0, uv1, self._t(self.feat_valid, torch.bool),
-                        self._gumbel(self.MAX_FEAT), inlier_thresh=(3.0 / self._fx) ** 2)
-                    if int(fr.num_inliers) >= 12:
-                        n1 = int(self.feat_valid.sum())
-                        self.feat_valid &= _np(fr.inliers)
-                        stats["ransac_killed"] += n1 - int(self.feat_valid.sum())
+                stats["ransac_killed"] += n1 - int(self.feat_valid.sum())
         # drop features too close to the border for BRIEF
         b = brief.PATCH_HALF + 1
         inb = ((self.feat_xy[:, 0] >= b) & (self.feat_xy[:, 0] < image.shape[1] - b)
@@ -298,9 +374,8 @@ class AgentFrontend:
         n_free = int((~self.feat_valid).sum())
         if n_free > 0:
             with self._span("detect"):
-                kps = self._redetect(img_t)
-                new_xy = _np(kps.xy)
-                new_ok = _np(kps.valid).copy()
+                det = self._redetect(img_t)
+                new_xy, new_ok = det[:, 0:2], det[:, 2] > 0
             new_ok &= ((new_xy[:, 0] >= b) & (new_xy[:, 0] < image.shape[1] - b)
                        & (new_xy[:, 1] >= b) & (new_xy[:, 1] < image.shape[0] - b))
             if self._mask_r2 is not None:
@@ -333,17 +408,17 @@ class AgentFrontend:
             meas = self._build_meas()
             k = self.WINDOW
             dying = self.vis[0] & ~self.vis[1:].any(axis=0)
-            j, r0 = ba.marginalize_prior_cam(st, meas, self._t(dying, torch.bool))
-            j_np, r0_np = _np(j), _np(r0)
-        if not (np.isfinite(j_np).all() and np.isfinite(r0_np).all()):
-            return None
-        # re-index columns into the post-shift layout: kf slot s -> s-1
-        # within each of the 5 camera blocks; the newest slot unconstrained
-        jn = np.zeros_like(j_np)
-        for b in range(5):
-            o = 3 * k * b
-            jn[:, o:o + 3 * (k - 1)] = j_np[:, o + 3:o + 3 * k]
-        return ba.CamPriorFactor(j=self._t(jn), r0=r0, p=_roll(st.p), q=_roll(st.q),
+            # the Schur complement as a graph, its float64 square root eager
+            j, r0 = ba.sqrt_prior(*self._marg(st, meas, self._t(dying, torch.bool)))
+            if not bool(torch.isfinite(j).all() & torch.isfinite(r0).all()):
+                return None
+            # re-index columns into the post-shift layout: kf slot s -> s-1
+            # within each of the 5 camera blocks; the newest slot unconstrained
+            jn = torch.zeros_like(j)
+            for b in range(5):
+                o = 3 * k * b
+                jn[:, o:o + 3 * (k - 1)] = j[:, o + 3:o + 3 * k]
+        return ba.CamPriorFactor(j=jn, r0=r0, p=_roll(st.p), q=_roll(st.q),
                                  v=_roll(st.v), bg=_roll(st.bg), ba=_roll(st.ba))
 
     def _shift_window(self):
@@ -788,18 +863,13 @@ class AgentFrontend:
         px_pad = np.zeros((self.MAX_FEAT, 2), np.float32)
         px_pad[:len(px)] = px
         with self._span("describe"):
-            img_t = self._t(image)
-            blurred = gaussian_blur(img_t, 2.0, radius=4)
-            wdesc = brief.compute_brief(blurred, self._t(px_pad), pre_blurred=True)
-            score = fast.fast_score_map(img_t, float(self.cfg.fast_threshold))
-            kps = fast.select_keypoints(score, max_num=self._max_ext, cell=self._cell)
-            edesc = brief.compute_brief(blurred, kps.xy, pre_blurred=True)
-            euv = self.cam.lift(kps.xy)
-            desc = _np(wdesc)[:len(px)].view(np.uint32)
-            ext_xy = _np(kps.xy)
-            ext_ok = _np(kps.valid).copy()
-            ext_desc = _np(edesc).view(np.uint32)
-            ext_uv = _np(euv)
+            mf, ne = self.MAX_FEAT, self._max_ext
+            out = _np(self._describe(self._t(image), self._stage("describe", px_pad), self.cam,
+                                     float(self.cfg.fast_threshold), ne, self._cell))
+            desc = out[:8 * mf].reshape(mf, 8)[:len(px)].view(np.uint32)
+            ext_desc = out[8 * mf:8 * (mf + ne)].reshape(ne, 8).view(np.uint32)
+            ext = out[8 * (mf + ne):].view(np.float32).reshape(ne, 5)
+            ext_xy, ext_ok, ext_uv = ext[:, 0:2], ext[:, 2] > 0, ext[:, 3:5]
         bmargin = brief.PATCH_HALF + 1
         ext_ok &= ((ext_xy[:, 0] >= bmargin) & (ext_xy[:, 0] < image.shape[1] - bmargin)
                    & (ext_xy[:, 1] >= bmargin) & (ext_xy[:, 1] < image.shape[0] - bmargin))

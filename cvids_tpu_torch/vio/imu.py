@@ -73,21 +73,20 @@ def stack_preintegrated(pres) -> Preintegrated:
     return Preintegrated(*(torch.stack(xs) for xs in zip(*pres)))
 
 
-# q1 ⊗ q2 = L(q1) q2 with L(q1)[r, c] = sign[r, c] * q1[idx[r, c]]
-_QIDX = (0, 1, 2, 3, 1, 0, 3, 2, 2, 3, 0, 1, 3, 2, 1, 0)
-_QSIGN = (1.0, -1.0, -1.0, -1.0, 1.0, 1.0, -1.0, 1.0,
-          1.0, 1.0, 1.0, -1.0, 1.0, -1.0, 1.0, 1.0)
+def _quat_left(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 16), the rows of L(q) with q1 ⊗ q2 = L(q1) q2
+    (no constant tensor from the host: capturable in a CUDA graph)."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([w, -x, -y, -z, x, w, -z, y, y, z, w, -x, z, -y, x, w], -1)
 
 
 def _quat_prefix(h: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix products h_0 ⊗ ... ⊗ h_k along axis -2 of (B, N, 4),
     normalized (w >= 0) after each of the log2 N rounds."""
-    idx = torch.tensor(_QIDX, device=h.device)
-    sign = torch.tensor(_QSIGN, dtype=h.dtype, device=h.device)
     b, n = h.shape[:2]
     s = 1
     while s < n:
-        left = torch.index_select(h[:, :-s], -1, idx) * sign          # L(h_{i-s})
+        left = _quat_left(h[:, :-s])                                   # L(h_{i-s})
         prod = (left.reshape(b, n - s, 4, 4) @ h[:, s:, :, None])[..., 0]
         h = torch.cat([h[:, :s], quat_normalize(prod)], dim=1)
         s *= 2
@@ -132,7 +131,7 @@ def preintegrate(gyr: torch.Tensor, acc: torch.Tensor, dts: torch.Tensor,
 
     # rotation before (r0) and after (r1) each step
     q_after = _quat_prefix(so3_exp(w_mid * dt[..., None]))
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=f32, device=dev).expand(b, 1, 4)
+    ident = torch.nn.functional.pad(torch.ones((b, 1, 1), dtype=f32, device=dev), (0, 3))
     r0 = quat_to_matrix(torch.cat([ident, q_after[:, :-1]], dim=1))
     r1 = quat_to_matrix(q_after)
     dtv = dt[..., None]
@@ -168,7 +167,8 @@ def preintegrate(gyr: torch.Tensor, acc: torch.Tensor, dts: torch.Tensor,
     g_mat = torch.cat([torch.cat([r_mid * 0.5 * dtm * dtm, z3], -1),
                        torch.cat([z3, eye_n * dtm], -1),
                        torch.cat([r_mid * dtm, z3], -1)], -2)                 # (B, N, 9, 6)
-    q_diag = torch.tensor([noise.acc_n ** 2] * 3 + [noise.gyr_n ** 2] * 3, dtype=f32, device=dev)
+    q_diag = torch.cat([torch.full((3,), noise.acc_n ** 2, dtype=f32, device=dev),
+                        torch.full((3,), noise.gyr_n ** 2, dtype=f32, device=dev)])
     q = (g_mat * q_diag / torch.clamp(dtm, min=1e-9)) @ g_mat.transpose(-1, -2)
     width = 1 << max(n - 1, 0).bit_length()
     if width > n:       # identity steps pad the tree

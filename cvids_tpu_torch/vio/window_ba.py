@@ -18,10 +18,13 @@ Jacobians are closed form, per observation a 2×6 pose block and a 2×3
 landmark block (Huber weight included), held to `torch.func.jacfwd` in the
 tests; the camera-only factors (IMU, anchors, bias priors, prior) are
 differentiated by `torch.func.jacfwd` over the 15K camera tangent. The
-marginalization and the dense and Schur reference solvers differentiate by
-`jacfwd` over a flat tangent, in the JAX package's `ravel_pytree` order
-(dba, dbg, dlm, dp, dth, dv) for the full tangent and [dp, dth, dv, dbg,
-dba] for the camera tangent. Positive-definite solves use `cholesky_ex`; a
+camera-only marginalization (`marginalize_prior_cam`) assembles its normal
+equations the same way (`marg_normal_equations`), held to `jacfwd` over the
+whole tangent in the tests, and eliminates the landmarks block by block.
+The full-tangent marginalization and the dense and Schur reference solvers
+differentiate by `jacfwd` over a flat tangent, in the JAX package's
+`ravel_pytree` order (dba, dbg, dlm, dp, dth, dv) for the full tangent and
+[dp, dth, dv, dbg, dba] for the camera tangent. Positive-definite solves use `cholesky_ex`; a
 failed factorization gives a NaN step, which the cost test rejects, as the
 JAX package's Cholesky does.
 """
@@ -42,7 +45,8 @@ __all__ = ["WindowState", "WindowMeasurements", "PriorFactor",
            "CamPriorFactor", "solve_window", "solve_window_schur",
            "solve_window_fast", "triangulate", "reprojection_residuals",
            "reprojection_jacobians", "landmark_quality",
-           "marginalize_prior", "marginalize_prior_cam", "retract", "retract_cam"]
+           "marginalize_prior", "marginalize_prior_cam", "marg_normal_equations",
+           "marg_schur_cam", "sqrt_prior", "retract", "retract_cam"]
 
 
 class WindowState(NamedTuple):
@@ -490,6 +494,15 @@ def _schur_prior(h, g, m, eig_floor, keep_cols=None):
     g_new = g_k - h_km @ sol[:, -1]
     if keep_cols is not None:
         h_new, g_new = h_new[:keep_cols, :keep_cols], g_new[:keep_cols]
+    return sqrt_prior(h_new, g_new, eig_floor)
+
+
+def sqrt_prior(h_new: torch.Tensor, g_new: torch.Tensor, eig_floor: float = 1e-8
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A prior's square root (j, r0) from its Schur-complemented normal
+    equations: jᵀj = h_new and jᵀ r0 = g_new on the range of h_new, by
+    eigenvalue flooring. The float64 `eigh` checks its errors on the host:
+    after `marg_schur_cam`'s graph on the card, this is the eager step."""
     # the eigendecomposition in float64: float32 `syevd` fails to converge
     # on some of these matrices (rows of zeros beside a 1e6 anchor scale);
     # where float64 fails too, the prior is NaN and the caller drops it
@@ -503,7 +516,7 @@ def _schur_prior(h, g, m, eig_floor, keep_cols=None):
     inv_sqrt = torch.where(sqrt_w > eig_floor, 1.0 / torch.clamp(sqrt_w, min=eig_floor),
                            torch.zeros((), dtype=w.dtype, device=w.device))
     r0 = (v * inv_sqrt[None, :]) @ (v.T @ g_new.to(torch.float64))
-    return j_prior.to(h.dtype), r0.to(h.dtype)
+    return j_prior.to(h_new.dtype), r0.to(h_new.dtype)
 
 
 def marginalize_prior(state: WindowState, meas: WindowMeasurements,
@@ -526,23 +539,96 @@ def marginalize_prior(state: WindowState, meas: WindowMeasurements,
     return _schur_prior(jmat.T @ jmat, jmat.T @ r0, marg_mask_flat, eig_floor)
 
 
-def _slot0_residuals(state: WindowState, meas: WindowMeasurements,
-                     dying: torch.Tensor) -> torch.Tensor:
-    """The VINS marginalization factor set, compactly: slot-0 reprojections
-    of dying landmarks only (2L rows), the slot-0/1 preintegration factor,
-    the slot-0 bias prior and the previous camera-only prior."""
-    r_bw0 = quat_to_matrix(quat_inverse(state.q[0]))
-    pts_b = (state.lm - state.p[0][None]) @ r_bw0.T
-    pts_c = (pts_b - meas.p_bc[None]) @ meas.r_cb.T
-    z = pts_c[:, 2]
-    proj = pts_c[:, :2] / _safe(z)[:, None]
-    valid = meas.vis[0] & dying & (z > 0.05) & state.kf_valid[0] & state.lm_valid
-    r = (proj - torch.nan_to_num(meas.obs[0])) * meas.pix_weight
-    rn = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
-    w = torch.sqrt(torch.clamp(meas.huber_delta / torch.clamp(rn, min=1e-9), max=1.0))
-    r_proj = torch.where(valid[:, None], r * w,
-                         torch.zeros((), dtype=r.dtype, device=r.device)).reshape(-1)
-    return torch.cat([r_proj] + _slot0_imu_and_bias(state, meas))
+def _slot0_state(state: WindowState, meas: WindowMeasurements, dying: torch.Tensor):
+    """The window cut to slot 0 with only the dying landmarks' observations:
+    `reprojection_residuals` of it are the marginalization's reprojection
+    rows (slot-0 observations of the landmarks that leave with slot 0)."""
+    st0 = state._replace(p=state.p[:1], q=state.q[:1], v=state.v[:1], bg=state.bg[:1],
+                         ba=state.ba[:1], kf_valid=state.kf_valid[:1])
+    return st0, meas._replace(obs=meas.obs[:1], vis=meas.vis[:1] & dying[None])
+
+
+def marg_normal_equations(state: WindowState, meas: WindowMeasurements,
+                          dying: torch.Tensor):
+    """JᵀJ and Jᵀr0 of the VINS marginalization factor set over the camera
+    tangent ([dp, dth, dv, dbg, dba], 15K) and every landmark, by blocks:
+    (h_cc (15K, 15K), g_c (15K,), h_pl (6, L, 3), h_ll (L, 3, 3),
+    g_l (L, 3)). The factors: slot-0 reprojections of the dying landmarks
+    (2L rows, closed form by `reprojection_jacobians`, as the window solve
+    takes them: they touch [dp_0, dθ_0] and their landmark), the slot-0/1
+    preintegration factor, the slot-0 bias prior and the previous camera-only
+    prior (`jacfwd` over the 15K camera tangent). h_pl couples the rows of
+    [dp_0, dθ_0] (camera columns 0-2 and 3K..3K+2) with each landmark; no
+    other camera column sees a landmark."""
+    k = state.p.shape[0]
+    zc = torch.zeros(15 * k, dtype=state.p.dtype, device=state.p.device)
+
+    def cam_res(dc):
+        return torch.cat(_slot0_imu_and_bias(retract_cam(state, dc), meas))
+
+    r_cam = cam_res(zc)
+    j_cam = jacfwd(cam_res)(zc)
+    r, j_pose, j_lm = (x[0] for x in reprojection_jacobians(*_slot0_state(state, meas, dying)))
+    h_cc = j_cam.T @ j_cam
+    g_c = j_cam.T @ r_cam
+    pose = _pose_columns(k, state.p.device)
+    h_cc[pose[:, None], pose[None, :]] += torch.einsum("lra,lrb->ab", j_pose, j_pose)
+    g_c[pose] += torch.einsum("lra,lr->a", j_pose, r)
+    h_pl = torch.einsum("lra,lrb->alb", j_pose, j_lm)
+    h_ll = torch.einsum("lra,lrb->lab", j_lm, j_lm)
+    g_l = torch.einsum("lra,lr->la", j_lm, r)
+    return h_cc, g_c, h_pl, h_ll, g_l
+
+
+def _pose_columns(k: int, device) -> torch.Tensor:
+    """Camera-tangent columns of [dp_0, dθ_0] (made on the device: a CUDA
+    graph cannot capture a copy from host memory)."""
+    i = torch.arange(3, device=device)
+    return torch.cat([i, i + 3 * k])
+
+
+def marg_schur_cam(state: WindowState, meas: WindowMeasurements,
+                   dying: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Schur complement of slot 0's camera columns and every landmark
+    out of `marg_normal_equations`: (H_new (15K, 15K), g_new (15K,)), zero in
+    slot 0's rows and columns. No host read: on the card the front-end
+    replays it as a CUDA graph, and `sqrt_prior` takes its square root.
+
+    The reference eliminates all of them in one dense float32 solve with a
+    Tikhonov diagonal τ = 1e-7 max(1, the largest marginalized diagonal
+    entry); here the landmarks' 3×3 blocks go first (batched inverses; no
+    kept column sees a landmark), then slot 0's 15 columns (one 15×15
+    Cholesky): the same Schur complement with the same τ, in float64 (in
+    float32 either order of elimination is ~1e-4 off the float64 result,
+    the anchor and bias scales beside the pixel ones), rounded to the
+    state's dtype at the end."""
+    k = state.p.shape[0]
+    pc = 15 * k
+    h, g, h_pl, h_ll, g_l = (x.to(torch.float64)
+                             for x in marg_normal_equations(state, meas, dying))
+    dev, dt = h.device, h.dtype
+    keep = torch.arange(pc, device=dev) % (3 * k) >= 3      # all but slot 0 of each block
+    slot0 = (torch.arange(5, device=dev)[:, None] * (3 * k)
+             + torch.arange(3, device=dev)[None, :]).reshape(15)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    tau = 1e-7 * torch.clamp(torch.maximum(
+        torch.amax(torch.abs(torch.diagonal(h)[slot0])),
+        torch.amax(torch.abs(torch.diagonal(h_ll, dim1=-2, dim2=-1)))), min=1.0)
+    d_inv = torch.linalg.inv_ex(h_ll + tau * eye3)[0]
+    w_pl = torch.einsum("alb,lbc->alc", h_pl, d_inv)
+    pose = _pose_columns(k, dev)
+    h = h.clone()
+    g = g.clone()
+    h[pose[:, None], pose[None, :]] -= torch.einsum("alc,dlc->ad", w_pl, h_pl)
+    g[pose] -= torch.einsum("alc,lc->a", w_pl, g_l)
+    a = h[slot0[:, None], slot0[None, :]] + tau * torch.eye(15, dtype=dt, device=dev)
+    chol = torch.linalg.cholesky_ex(a)[0]
+    sol = torch.cholesky_solve(torch.cat([h[slot0], g[slot0][:, None]], dim=1), chol)
+    h_new = h - h[:, slot0] @ sol[:, :pc]
+    g_new = g - h[:, slot0] @ sol[:, pc]
+    zero = torch.zeros((), dtype=dt, device=dev)
+    return (torch.where(keep[:, None] & keep[None, :], h_new, zero).to(state.p.dtype),
+            torch.where(keep, g_new, zero).to(state.p.dtype))
 
 
 def marginalize_prior_cam(state: WindowState, meas: WindowMeasurements,
@@ -551,27 +637,10 @@ def marginalize_prior_cam(state: WindowState, meas: WindowMeasurements,
     """Schur-marginalize slot 0 (and the landmarks dying with it) into a
     camera-only sqrt-information prior (j (15K, 15K), r0) over the
     [dp, dth, dv, dbg, dba] layout at the current window indexing (the
-    caller shifts columns when it rolls the window). The Jacobian is
-    `jacfwd` over the camera tangent and every landmark; the eigenvectors'
-    signs are free, so jᵀj and jᵀr0 are what is defined."""
-    k, l = state.p.shape[0], state.lm.shape[0]
-    pc = 15 * k
-
-    def res_of(dcl):
-        st = retract_cam(state, dcl[:pc])
-        return _slot0_residuals(st._replace(lm=st.lm + dcl[pc:].reshape(l, 3)), meas, dying)
-
-    z = torch.zeros(pc + 3 * l, dtype=state.p.dtype, device=state.p.device)
-    r0 = res_of(z)
-    jmat = jacfwd(res_of)(z)
-    # marginalize the slot-0 columns of every camera block and all landmark
-    # columns (dying ones carry the folded factors; surviving ones have no
-    # information here, so eliminating them changes nothing)
-    m = torch.zeros(pc + 3 * l, dtype=torch.bool, device=z.device)
-    for b in range(5):
-        m[b * 3 * k:b * 3 * k + 3] = True
-    m[pc:] = True
-    return _schur_prior(jmat.T @ jmat, jmat.T @ r0, m, eig_floor, keep_cols=pc)
+    caller shifts columns when it rolls the window): `marg_schur_cam`, then
+    `sqrt_prior`. The eigenvectors' signs are free, so jᵀj and
+    jᵀr0 are what is defined."""
+    return sqrt_prior(*marg_schur_cam(state, meas, dying), eig_floor)
 
 
 def _to_cam(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -16,17 +16,25 @@ sequences, writes them once, and then:
   timestamp order, once with inline solves (phase 8's server) and once with
   background solves.
 
-One JSON line a run on standard output.
+One JSON line a run on standard output, with each agent's host ms a plain
+frame and a keyframe (medians). `--no-replays` skips the replays;
+`--package DIR` imports `cvids_tpu_torch` from DIR (an unpacked `git
+archive` of another commit; the agent processes inherit it) and `--cache
+FILE` keeps the rendered sequences, so that two trees run in turns in one
+call:
 
-    python3 dev/torch_probe_topology.py [--repeats 3] [--imu-decimals]
+    python3 dev/torch_probe_topology.py [--repeats 3] [--imu-decimals] [--no-replays]
+        [--package DIR] [--cache build/frames.pkl]
 
-About 4 minutes on an H100.
+About 4 minutes on an H100 (one repeat without replays: ~1.5 minutes after
+the rendering).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -85,15 +93,34 @@ def main() -> int:
     ap.add_argument("--imu-decimals", action="store_true",
                     help="write the IMU with the JAX writer's 9 decimals instead of 17 "
                          "significant digits (phase 9's default)")
+    ap.add_argument("--no-replays", action="store_true")
+    ap.add_argument("--package", default=None)
+    ap.add_argument("--cache", default=None)
     args = ap.parse_args()
+    if args.package:
+        sys.path.insert(0, str(Path(args.package).resolve()))
+    import numpy as np
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = cs.agent_config()
     dense = cs.agent_dense(cfg.camera)
     t0 = time.perf_counter()
-    seqs = cs.agent_sequences(cfg)
-    emit({"card": smi, "rendered_s": time.perf_counter() - t0,
+    cache = Path(args.cache) if args.cache else None
+    if cache is not None and cache.exists():
+        seqs = pickle.loads(cache.read_bytes())
+    else:
+        seqs = cs.agent_sequences(cfg)
+        for s_ in seqs:
+            s_["images"] = [im.astype(np.uint8) for im in s_["images"]]
+        if cache is not None:
+            cache.parent.mkdir(parents=True, exist_ok=True)
+            cache.write_bytes(pickle.dumps(seqs))
+    for s_ in seqs:
+        s_["images"] = [im.astype(np.float32) for im in s_["images"]]
+    import cvids_tpu_torch
+    emit({"card": smi, "package": str(Path(cvids_tpu_torch.__file__).parent),
+          "rendered_s": time.perf_counter() - t0,
           "imu": "9 decimals" if args.imu_decimals else "17 significant digits"})
     with tempfile.TemporaryDirectory(prefix="cvids_topology_probe_") as root:
         roots = cs.write_sequences(seqs, cfg, root, exact=not args.imu_decimals)
@@ -109,8 +136,12 @@ def main() -> int:
             emit({"run": f"topology {rep}", "card": smi, **scores(run["server"], roots, cfg, dense),
                   "packets": [len(p) for p in sent], "same_packets_as_run_0": same if rep else None,
                   "order": "".join(map(str, run["order"])), "stream_s": run["stream_s"],
+                  "agent_plain_ms": [float(np.median(np.asarray(f)[~np.asarray(k, bool)]))
+                                     for f, k in zip(run["frame_ms"], run["keyframe"])],
+                  "agent_keyframe_ms": [float(np.median(np.asarray(f)[np.asarray(k, bool)]))
+                                        for f, k in zip(run["frame_ms"], run["keyframe"])],
                   "wall_s": time.perf_counter() - t0})
-        for async_optimize in (False, True):
+        for async_optimize in (() if args.no_replays else (False, True)):
             emit({"run": f"run 0's packets in timestamp order, one thread, "
                          f"{'background' if async_optimize else 'inline'} solves", "card": smi,
                   **replay(dev, first, roots, cfg, dense, async_optimize)})

@@ -1,6 +1,7 @@
-"""The six CUDA kernels against their PyTorch twins, the front-end's and
-the server's CUDA graphs (the dense frame, the 4-DoF solve) against their
-eager calls, the deployment topology and the multi-GPU dry run on two ranks
+"""The seven CUDA kernels against their PyTorch twins, the front-end's and
+the server's CUDA graphs (the front-end's track step, re-detection, packet
+image program, preintegration, window solve and marginalization; the dense
+frame, the 4-DoF solve) against their eager calls, the deployment topology and the multi-GPU dry run on two ranks
 that share the card, on a CUDA card.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
@@ -118,6 +119,109 @@ def test_hamming_kernel(kind, dev):
     a, b, av, bv = cs.hamming_inputs(rng, dev, n, m)
     for masks in ((None, None), (av, None), (None, bv), (av, bv)):
         _same(ck.hamming_matrix(a, b, *masks), ck.hamming_matrix_twin(a, b, *masks))
+
+
+@pytest.mark.parametrize("n", [1, 3, 9, 12])
+def test_small_eig_kernel(n, dev):
+    rng = np.random.default_rng(n)
+    for b in (128, 5):
+        x = torch.from_numpy(rng.normal(size=(b, n, n))).to(dev)
+        for dtype in (torch.float32, torch.float64):
+            a = (x @ x.transpose(-1, -2)).to(dtype).contiguous()
+            got, want = ck.small_eigh(a), ck.small_eigh_twin(a)
+            assert all(g.dtype == dtype for g in got)
+            assert all(cs._same_bits(g, w) for g, w in zip(got, want))
+
+
+def test_fundamental_ransac_reads_nothing_back(dev):
+    """The F-RANSAC (the Jacobi kernel for its float64 eigenproblems) under
+    sync debug mode "error": a host sync would raise. Its hypotheses are
+    the CPU's float64 ones (`_eight_point(..., jacobi=False)` on float64
+    points) but for rounding, on two views of a scene in depth, where every
+    8-point sample determines its F."""
+    from cvids_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-2, 2, (150, 3))
+    pts[:, 2] += 6.0
+    yaw = 0.1
+    r = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]])
+    pc2 = pts @ r.T + np.array([0.4, 0.1, 0.05])
+    p1, p2 = (torch.from_numpy((x[:, :2] / x[:, 2:3]).astype(np.float32)).to(dev)
+              for x in (pts, pc2))
+    valid = torch.ones(150, dtype=torch.bool, device=dev)
+    noise = torch.from_numpy(rng.gumbel(size=(128, 150)).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fr = ransac.fundamental_ransac(p1, p2, valid, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(fr.num_inliers) > 100
+    idx = ransac._sample_indices(noise, valid, 8)
+    f = ransac._eight_point(p1[idx], p2[idx])
+    ref = ransac._eight_point(p1[idx].double().cpu(), p2[idx].double().cpu(), jacobi=False)
+    f, ref = (x / x.flatten(1).norm(dim=1)[:, None, None] for x in (f.double().cpu(), ref))
+    err = torch.minimum((f - ref).abs().amax((1, 2)), (f + ref).abs().amax((1, 2)))
+    # the twin on the CPU: median 1.0e-8, largest 9.5e-7 (a sample near a
+    # degenerate one)
+    assert float(err.median()) < 1e-7 and float(err.max()) < 1e-5
+
+
+def test_graphed_marginalization_equals_eager(dev):
+    """The marginalization's Schur complement replayed as a CUDA graph
+    gives the eager call's bits."""
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall
+    from cvids_tpu_torch.vio import window_ba as tba
+
+    st, m = _window_problem(dev)
+    dying = m.vis[0] & ~m.vis[1:].any(0)
+    call = GraphedCall(tba.marg_schur_cam)
+    for shift in (0.0, 0.05):
+        s = st._replace(p=st.p + shift)
+        _same(call(s, m, dying), tba.marg_schur_cam(s, m, dying))
+    assert len(call.graphs) == 1 and call.replays == 2
+
+
+def test_frontend_graphs_equal_eager(dev):
+    """test_frontend.py's blob world (12 keyframes at 320x240, made by the
+    port alone) through an `AgentFrontend` on the card: every compiled
+    program of the front-end (track step, re-detection, packet image
+    program, preintegration, window solve, marginalization) is captured and
+    replayed, each replay gives its eager call's bits, and no eager call
+    reads a value back (`chip_smoke.graph_checks`)."""
+    from cvids_tpu_torch.geometry.hostmath import quat_to_matrix_np
+    from cvids_tpu_torch.io import render, synthetic
+    from cvids_tpu_torch.utils.config import AgentConfig, CameraConfig
+    from cvids_tpu_torch.vio.frontend import AgentFrontend
+
+    rng = np.random.default_rng(0)
+    traj = synthetic.Trajectory.circle(radius=4.0, omega=0.35, height_amp=0.2, speed_mod=0.3,
+                                       speed_mod_freq=0.9)
+    seq = synthetic.generate_sequence(traj, duration=6.0, kf_rate=2.0, imu_rate=200.0,
+                                      num_landmarks=0, gyr_noise=0.0005, acc_noise=0.01,
+                                      bg=(0.001, -0.001, 0.0005), ba=(0.005, -0.01, 0.02))
+    lms = np.stack([rng.uniform(-12, 12, 400), rng.uniform(-12, 12, 400),
+                    rng.uniform(0.0, 3.5, 400)], -1)
+    intens = rng.uniform(80, 200, 400)
+    cam = CameraConfig(fx=200.0, fy=200.0, cx=160.0, cy=120.0, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
+                       width=320, height=240)
+    cfg = AgentConfig(camera=cam, fast_threshold=12.0, min_feature_dist=24,
+                      max_solver_iterations=10)
+    fe = AgentFrontend(cfg, device=dev)
+    cpu_cam = AgentFrontend(cfg, device="cpu").cam
+    g, a, dt, vmask = synthetic.imu_slices(seq)
+    r_cb, p_bc = np.asarray(cfg.r_cb, np.float32), np.asarray(cfg.p_bc, np.float32)
+    frames = []
+    for i in range(len(seq.times_kf)):
+        r_wb = quat_to_matrix_np(seq.q_gt[i].astype(np.float32)).astype(np.float32)
+        img = render.render_blobs(cpu_cam, lms, intens, r_wb, seq.p_gt[i], r_cb, p_bc)
+        imu = ((np.zeros((0, 3)), seq.acc[:5], np.zeros(0)) if i == 0 else
+               (g[i - 1][vmask[i - 1]], a[i - 1][vmask[i - 1]], dt[i - 1][vmask[i - 1]]))
+        fe.process_keyframe(seq.times_kf[i], img, *imu)
+        frames.append((img, imu))
+    assert fe.vi_initialized and fe._prior is not None
+    cs.graph_checks(fe, frames[-2][0], frames[-1][0], frames[-1][1])
 
 
 def test_launch_takes_a_device_without_an_index(dev):
@@ -343,7 +447,7 @@ def test_graphed_dense_frame_counts_its_launches(dev):
     for _ in range(3):
         step.fuse(meas, a, b, gate)
     assert ck.launches == {"warp_banded": 3, "plane_sweep": 3, "sgm_scan": 6, "wta": 3,
-                           "hamming_matrix": 0, "depth_filter_update": 3}
+                           "hamming_matrix": 0, "depth_filter_update": 3, "small_eig": 0}
 
 
 def _solve_problem(dev, n, seed):

@@ -271,6 +271,28 @@ def test_frontend_tracks_trajectory():
     assert last.win_desc.dtype == np.uint32
 
 
+def test_track_step_draws_noise_only_past_the_gate():
+    """The track step draws its RANSAC noise before it knows whether the
+    F-RANSAC gate runs (the decision is on the device); with fewer than 12
+    tracks the draw is undone, as the JAX package draws only past that
+    test, so the generator's stream is the reference's either way."""
+    from cvids_tpu_torch.ops.image import gaussian_blur
+
+    fe = TFrontend(_cfg(tconfig), device="cpu")
+    rng = np.random.default_rng(1)
+    img = gaussian_blur(torch.from_numpy(rng.uniform(0, 255, (240, 320)).astype(np.float32)),
+                        1.5).numpy()
+    for n, drawn in ((6, False), (40, True)):
+        fe.prev_image = torch.from_numpy(img)
+        fe.feat_valid[:] = False
+        fe.feat_valid[:n] = True
+        fe.feat_xy[:n] = np.stack([rng.uniform(60, 260, n), rng.uniform(60, 180, n)], -1)
+        before = fe._gen.get_state().clone()
+        fe._track_and_detect(img)                 # the same frame: every track survives
+        assert fe.track_stats["klt_killed"] == 0
+        assert torch.equal(before, fe._gen.get_state()) != drawn, n
+
+
 def test_fisheye_mask_gates_features():
     """`fisheye: 1` image-circle mask: features outside the circle die."""
     cam = tconfig.CameraConfig(fx=150.0, fy=150.0, cx=160.0, cy=120.0, width=320, height=240)

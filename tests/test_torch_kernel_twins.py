@@ -341,9 +341,13 @@ def test_cpu_dispatch_routes_to_twins(rng):
     for o, r in zip(ck.depth_filter_update(st, x, 0.01, valid),
                     ck.depth_filter_update_twin(st, x, 0.01, valid)):
         np.testing.assert_array_equal(_np(o), _np(r))
+    sym = _t(rng.normal(size=(4, 5, 5)).astype(np.float32))
+    for o, r in zip(ck.small_eigh(sym @ sym.transpose(-1, -2)),
+                    ck.small_eigh_twin(sym @ sym.transpose(-1, -2))):
+        np.testing.assert_array_equal(_np(o), _np(r))
     # nothing was launched: the CPU tensors went to the twins
     assert ck.launches == {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
-                           "hamming_matrix": 0, "depth_filter_update": 0}
+                           "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -558,6 +562,10 @@ _WORK = {
     "depth_filter_update": (dict(h=480, w=640), 9 * 1_228_800 + 307_200, 60 * 307_200),
     # descriptors (160 + 512) x 32; distances 160 x 512 x 4; masks 672
     "hamming_matrix": (dict(n=160, m=512), 21_504 + 327_680 + 672, 24 * 81_920),
+    # 128 fp64 9x9 systems in, their eigenvalues and eigenvectors out; a
+    # matrix: 8 sweeps x 36 rotations x (18 x 9 + 15) and 81 rank compares
+    "small_eig": (dict(batch=128, n=9, itemsize=8), 8 * 128 * (81 + 9 + 81),
+                  128 * (8 * 36 * 177 + 81)),
 }
 
 
@@ -569,9 +577,9 @@ def test_kernel_work(name):
     assert got == (want_bytes, want_ops)
     assert all(isinstance(v, int) for v in got)
     # in MB: 3.7, 83.4, 157.9 (315.8 for a frame's two launches), 158.8, 11.4,
-    # 0.35
+    # 0.35, 0.18
     mb = {"warp_banded": 3.7, "plane_sweep": 83.4, "sgm_scan": 157.9, "wta": 158.8,
-          "depth_filter_update": 11.4, "hamming_matrix": 0.35}[name]
+          "depth_filter_update": 11.4, "hamming_matrix": 0.35, "small_eig": 0.18}[name]
     assert abs(got[0] / 1e6 - mb) < 0.06
     if name == "plane_sweep":
         # the weights and in-bounds tests of one coordinate are counted per

@@ -10,7 +10,11 @@ residuals and the bootstrap within 1e-4 relative; triangulation within 5e-4
 relative, landmark parallax within 1e-3 rad; the solvers' poses within 1e-3 m, landmarks within 1e-2 m and costs
 within 1e-3 relative after 12 iterations; the marginalization priors as
 JᵀJ and Jᵀr0 (their square roots' eigenvector signs are free) within 1e-3
-relative. The host copies (synthetic sequences, metrics) are equal.
+relative. The camera-only marginalization's normal equations, assembled
+from the closed-form Jacobians block by block, are held to `jacfwd` over
+the whole tangent (the form it replaced) within 1e-6 relative, and its
+prior to the dense elimination of the `jacfwd` system within 1e-3. The
+host copies (synthetic sequences, metrics) are equal.
 """
 
 import jax
@@ -310,6 +314,73 @@ def test_marginalization_priors_match():
     _close(jt.T @ jt, jj.T @ jj, 1e-3)
     _close(jt.T @ rt, jj.T @ rj, 1e-3)
     assert np.abs(jt[:, mask]).max() < 1e-3 * max(1.0, np.abs(jt).max())
+
+
+def _slot0_residuals_jacfwd_form(state, meas, dying):
+    """The marginalization's factor set as one residual vector, as the
+    port computed it before its Jacobians became closed form: slot-0
+    reprojections of the dying landmarks, then the slot-0 IMU, bias and
+    prior rows."""
+    from cvids_tpu_torch.geometry import quat_to_matrix
+
+    r_bw0 = quat_to_matrix(quat_inverse(state.q[0]))
+    pts_c = ((state.lm - state.p[0][None]) @ r_bw0.T - meas.p_bc[None]) @ meas.r_cb.T
+    z = pts_c[:, 2]
+    proj = pts_c[:, :2] / tba._safe(z)[:, None]
+    valid = meas.vis[0] & dying & (z > 0.05) & state.kf_valid[0] & state.lm_valid
+    r = (proj - torch.nan_to_num(meas.obs[0])) * meas.pix_weight
+    rn = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
+    w = torch.sqrt(torch.clamp(meas.huber_delta / torch.clamp(rn, min=1e-9), max=1.0))
+    r_proj = torch.where(valid[:, None], r * w, torch.zeros(())).reshape(-1)
+    return torch.cat([r_proj] + tba._slot0_imu_and_bias(state, meas))
+
+
+@pytest.mark.parametrize("with_prior", [False, True])
+def test_cam_marginalization_closed_form_matches_jacfwd(with_prior):
+    """`marg_normal_equations` (closed-form reprojection blocks, `jacfwd`
+    over the camera tangent only) against `jacfwd` over the camera tangent
+    and every landmark, as JᵀJ and Jᵀr0 [measured: JᵀJ equal, Jᵀr0 8e-8];
+    the block-wise float64 Schur complement's prior against the dense
+    float32 one's [1.7e-4, the dense float32 elimination's own distance
+    from float64]. With a previous prior in the factor set too."""
+    _, _, _, st, m = _problem(seed=5, perturb=0.05, duration=3.0, n_lm=30)
+    st, _ = tba.solve_window_fast(st, m, iters=8)
+    dying = m.vis[0] & ~m.vis[1:].any(0)
+    if with_prior:
+        j0, r0 = tba.marginalize_prior_cam(st, m, dying)
+        m = m._replace(prior=tba.CamPriorFactor(j=j0, r0=r0, p=st.p, q=st.q, v=st.v,
+                                                bg=st.bg, ba=st.ba))
+        st = st._replace(p=st.p + 0.01)
+    k, l = st.p.shape[0], st.lm.shape[0]
+    pc = 15 * k
+
+    def res_of(dcl):
+        s_ = tba.retract_cam(st, dcl[:pc])
+        return _slot0_residuals_jacfwd_form(s_._replace(lm=s_.lm + dcl[pc:].reshape(l, 3)),
+                                            m, dying)
+
+    z = torch.zeros(pc + 3 * l)
+    jmat = jacfwd(res_of)(z)
+    h_ref, g_ref = jmat.T @ jmat, jmat.T @ res_of(z)
+    h_cc, g_c, h_pl, h_ll, g_l = tba.marg_normal_equations(st, m, dying)
+    h, g = torch.zeros_like(h_ref), torch.zeros_like(g_ref)
+    h[:pc, :pc], g[:pc] = h_cc, g_c
+    pose = torch.tensor([0, 1, 2, 3 * k, 3 * k + 1, 3 * k + 2])
+    for i in range(l):
+        blk = slice(pc + 3 * i, pc + 3 * i + 3)
+        h[blk, blk], g[blk] = h_ll[i], g_l[i]
+        h[pose[:, None], torch.arange(blk.start, blk.stop)[None]] = h_pl[:, i]
+        h[torch.arange(blk.start, blk.stop)[:, None], pose[None]] = h_pl[:, i].T
+    _close(h.numpy(), h_ref.numpy(), 1e-6)
+    _close(g.numpy(), g_ref.numpy(), 1e-6)
+    marg = torch.zeros(pc + 3 * l, dtype=torch.bool)
+    for b in range(5):
+        marg[3 * k * b:3 * k * b + 3] = True
+    marg[pc:] = True
+    jr, rr = (x.double().numpy() for x in tba._schur_prior(h_ref, g_ref, marg, 1e-8, keep_cols=pc))
+    jt, rt = (x.double().numpy() for x in tba.marginalize_prior_cam(st, m, dying))
+    _close(jt.T @ jt, jr.T @ jr, 1e-3)
+    _close(jt.T @ rt, jr.T @ rr, 1e-3)
 
 
 def test_window_ba_converges_to_ground_truth():
