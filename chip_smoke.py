@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the seven CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
-hamming_matrix for the Pallas kernels, and small_eig, the 8-point F's
-eigensolver, which has no Pallas counterpart), holds each against its
+hamming_matrix for the Pallas kernels, and small_eig, the eigensolver of
+the 8-point F and of the PnP's DLT, which has no Pallas counterpart),
+holds each against its
 PyTorch twin on the card at its path's shapes (beside the launch floor: an
 empty kernel through the same launch path, timed the same way), then drives
 the port's paths at full width and checks that every kernel of each path
@@ -15,13 +16,19 @@ ran:
   side (wall per frame, device busy, device activities, host launch calls),
   and the 1024-keyframe / 6400-edge solve (12 LM x 60 CG) eager against
   graphed, seconds and bit equality;
-- phase 5, the collaborative pose-graph server: 4 agents streaming ~500
+- phase 5, the collaborative pose-graph server: each BoW database's
+  query-and-insert program through three store growths (one capture a
+  capacity tier, replays equal to an eager database's, superseded tiers
+  released); 4 agents streaming ~500
   keyframes (160 window / 512 extra features each) through
   `CollaborativePoseGraph` with a 10^6-word tree vocabulary and the
-  background solver (the Hamming kernel in every loop verification; the
-  graphed solve on the worker's stream), then the same stream's loop edges
-  through the kernel and through its twin with inline solves, and the two
-  ingest medians;
+  background solver (the Hamming kernel and small_eig in every loop
+  verification, the cascade one graph, the BoW step one graph; the
+  graphed solve on the worker's stream), every replay of the two ingest
+  programs rerun eagerly and equal bit for bit, then the same stream's loop
+  edges through the kernels (graphs) and through their twins (eager) with
+  inline solves, the ingest medians, and host launch calls, device
+  activities and host syncs a keyframe;
 - phase 6, the whole collaborative server: 4 agents' keyframe packets
   with 640x480 images rendered in `default_scene()`'s room through
   `CollaborativeServer` (pose graph, per-client dense depth at 640x480x128
@@ -46,10 +53,11 @@ ran:
   with its F-RANSAC, the re-detection, the packet's image program, the
   preintegration, the window solve, the marginalization's Schur
   complement) each captured, replayed and equal to its eager call, which
-  reads nothing back; four Hamming calls and two graphed dense
-  frames of that server run (480x752x128 volumes) are kept, the frames
-  rerun eagerly through the kernels (equal to the graph's, each kernel call
-  held against its twin) and through the twins;
+  reads nothing back; four loop-verification cascades (their Hamming
+  and small_eig calls) and two graphed dense
+  frames of that server run (480x752x128 volumes) are kept, each rerun
+  eagerly through the kernels (equal to the graph's, each kernel call held
+  against its twin), the frames also through the twins;
 - phase 9, the reference's deployment topology (test_full_topology.py):
   phase 8's frames written as two EuRoC-format sequences (PNG, CSV with the
   IMU at 17 significant digits, sensor.yaml) and read back bit-equal, two
@@ -57,7 +65,7 @@ ran:
   (`apps.agent_process`) streaming AgentMsg and image frames over TCP into
   `CollaborativeSocketServer` -> `CollaborativeServer` with background
   solves; every packet received equal to what was sent, the topology
-  test's bounds, four Hamming calls and two graphed dense frames held
+  test's bounds, four cascades and two graphed dense frames held
   against the twins as in phase 8;
 - phase 10, the apps and the viewers: `apps.run_synthetic` at its
   defaults, `apps.run_euroc` on phase 9's sequences, one call of
@@ -82,6 +90,7 @@ ran:
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
     python3 chip_smoke.py --dense-probe [--package DIR]   # the dense frame's times only
+    python3 chip_smoke.py --server-probe [--package DIR]  # ingest and whole-server times only
     python3 chip_smoke.py --multichip       # phases 1, 2 and 11 only
 
 The banded warp is one kernel that computes its own sample positions from
@@ -100,6 +109,14 @@ dense path is measured, e.g.
     git archive HEAD~1 cvids_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
         python3 chip_smoke.py --dense-probe --package $t; done
+
+`--server-probe` (~1 min) prints one JSON line for the package on sys.path
+(`--package DIR` as above): phase 5's ingest host ms a keyframe with
+background solves and host syncs a keyframe, the 100-keyframe stream's
+inline ingest ms with host launch calls and device activities a keyframe
+(30 keyframes profiled one by one), and phase 6's whole-server host ms a
+keyframe, with each stream's keyframes a second; run it on parent, change,
+change, parent inside one call.
 
 `--kernels-only` is the run to put under compute-sanitizer (memcheck,
 initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
@@ -179,6 +196,10 @@ SHORT_KF = 12               # the kernel-vs-twin stream: agent 0's first keyfram
 # the filter kernel against its twin, per field: the same fp32 operations in
 # the same order with no FMA contraction, so at most 2 ulp apart
 FILTER_MAX_ULP = 2
+# phase 6's whole-server host ms a keyframe (median) of the tree before the
+# pose graph's ingest programs ran as CUDA graphs, in two `--server-probe`
+# runs on an H100 at 700 W (PERF.md section 6): printed beside this run's
+PARENT_WHOLE_SERVER_MS = "27.1-33.0"
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and fp32 and fp64 rates outside the tensor cores; the roofline bounds are
 # held against these whatever the card's power limit, which is printed
@@ -550,6 +571,32 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     print(f"  small_eig, one F-RANSAC's eigen work (128 x 9x9 and 128 x 3x3, fp64, bound "
           f"at {PEAK_FP64_PER_S / 1e12:.0f} TFLOP/s fp64): library torch.linalg.eigh + svd "
           f"{extras['library_ms']['small_eig']:.4f} ms")
+    # --- and at the PnP DLT's: 128 6-point systems AᵀA (12x12) and the
+    # MᵀM (3x3) of their P[:, :3], fp64, one pnp_ransac's eigen work
+    dlt_ata, dlt_mtm, dlt_m = dlt_systems(rng, dev)
+    got = (ck.small_eigh(dlt_ata), ck.small_eigh(dlt_mtm))
+    ref = (ck.small_eigh_twin(dlt_ata), ck.small_eigh_twin(dlt_mtm))
+    check(all(_same_bits(x, y) for a, b in zip(got, ref) for x, y in zip(a, b)),
+          "small_eig at the DLT's shapes: the kernel's eigenpairs differ from the twin's")
+    (b12, by12), (b3, _) = (roofline("small_eig", batch=128, n=12, itemsize=8,
+                                     peak_ops=PEAK_FP64_PER_S),
+                            roofline("small_eig", batch=128, n=3, itemsize=8,
+                                     peak_ops=PEAK_FP64_PER_S))
+    dlt = {"max_abs_err": 0.0,
+           "ms": time_ms(lambda: (ck.small_eigh(dlt_ata), ck.small_eigh(dlt_mtm)), runs)
+           if timed else 0.0,
+           "plain_ms": time_ms(lambda: (ck.small_eigh_twin(dlt_ata), ck.small_eigh_twin(dlt_mtm)),
+                               twin_runs) if timed else 0.0,
+           # the library calls the DLT made before: eigh of the 12x12 systems,
+           # svd of P[:, :3] (each checks its errors on the host)
+           "library_ms": time_ms(lambda: (torch.linalg.eigh(dlt_ata), torch.linalg.svd(dlt_m)),
+                                 runs) if timed else float("nan"),
+           "bound_ms": b12 + b3, "bound_by": by12}
+    extras["small_eig_dlt"] = dlt
+    print(f"  small_eig, one PnP DLT's eigen work (128 x 12x12 and 128 x 3x3, fp64): kernel == "
+          f"twin bit for bit; kernel {dlt['ms']:.4f} ms, twin {dlt['plain_ms']:.4f} ms, library "
+          f"torch.linalg.eigh + svd {dlt['library_ms']:.4f} ms; bound {dlt['bound_ms']:.6f} ms "
+          f"({by12}), share {dlt['bound_ms'] / dlt['ms'] if dlt['ms'] else float('nan'):.2%}")
 
     floor = extras["floor_ms"]
     rows = list(out.items()) + [("hamming_matrix at 2048x2048",
@@ -587,6 +634,29 @@ def eight_point_systems(rng, dev, k=128):
     ata = (a.transpose(-1, -2) @ a).contiguous()
     f = ck.small_eigh_twin(ata)[1][..., :, 0].reshape(k, 3, 3).contiguous()
     return ata, (f.transpose(-1, -2) @ f).contiguous(), f
+
+
+def dlt_systems(rng, dev, k=128):
+    """One pnp_ransac's eigenproblems on `dev`, in fp64 as `ransac._dlt_pose`
+    poses them on the card: the 6-point systems AᵀA (k, 12, 12) of noisy
+    samples of a posed camera, the MᵀM (k, 3, 3) of their least
+    eigenvectors' P[:, :3] = M, and M itself (for the library's svd)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    pts = rng.uniform(-2, 2, (k, 6, 3))
+    pts[..., 2] += 6.0
+    yaw = 0.2
+    r = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+    pc = pts @ r.T + np.array([0.3, -0.2, 0.1])
+    obs = pc[..., :2] / pc[..., 2:3] + rng.normal(size=(k, 6, 2)) * 1e-3
+    p3, ob = (torch.from_numpy(x).to(dev) for x in (pts, obs))
+    xh = torch.cat([p3, torch.ones_like(p3[..., :1])], -1)
+    z = torch.zeros_like(xh)
+    a = torch.cat([torch.cat([xh, z, -ob[..., :1] * xh], -1),
+                   torch.cat([z, xh, -ob[..., 1:] * xh], -1)], 1)
+    ata = (a.transpose(-1, -2) @ a).contiguous()
+    m = ck.small_eigh_twin(ata)[1][..., :, 0].reshape(k, 3, 4)[..., :3].contiguous()
+    return ata, (m.transpose(-1, -2) @ m).contiguous(), m
 
 
 def small_eig_edges(rng, dev) -> float:
@@ -1341,6 +1411,52 @@ def dense_probe(device) -> None:
         profile_slice(device)
 
 
+def server_probe(device) -> None:
+    """The ingest's and the whole server's host times, for the package on
+    sys.path (`--package`): phase 5's stream with background solves (host
+    ms a keyframe, host syncs a keyframe), its 100-keyframe stream with
+    inline solves (host ms, and keyframes 40-69 under the profiler one by
+    one: host launch calls and device activities a keyframe), then phase
+    6's whole server on its 4 x 36 rendered keyframes (host ms a
+    keyframe); keyframes a second of each stream, its final solve or sync
+    included. Uses only what the parent's package also has."""
+    import cvids_tpu_torch
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.server.pipeline import PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+
+    dev = torch.device(device)
+    print(f"server probe of {cvids_tpu_torch.__path__[0]}")
+    tree = vocab.synthesize_tree_vocabulary(*SERVER_TREE, seed=0)
+    packets, _ = server_stream(SERVER_AGENTS, SERVER_DURATION)
+    server, stats = server_run(dev, packets, tree)
+    ingest = np.asarray(stats["ingest_ms"])
+    cmp_packets, _ = server_stream(COMPARE_AGENTS, COMPARE_DURATION)
+    edges, inline_ms, prof = server_edges(dev, cmp_packets, tree, profile=(40, 70))
+    scene, _, k = scene_stream(PIPE_AGENTS, PIPE_KF)
+    cfg = PipelineConfig(server=ServerConfig(), dense=DenseConfig(), tsdf=TsdfConfig())
+    t0 = time.perf_counter()
+    _, kf_ms, _ = pipeline_run(dev, scene, tree, k, cfg)
+    whole_s = time.perf_counter() - t0
+    out = {"package": cvids_tpu_torch.__path__[0],
+           "ingest_ms": {"median": float(np.median(ingest)),
+                         "p90": float(np.percentile(ingest, 90)), "keyframes": len(ingest)},
+           "ingest_kf_per_s": len(ingest) / stats["stream_s"],
+           "loops": int(server.loop_count), "syncs_per_kf": stats["syncs_per_kf"],
+           "inline_ms": {"median": float(np.median(inline_ms)),
+                         "p90": float(np.percentile(inline_ms, 90))},
+           "inline_loops": len(edges),
+           "launch_calls_per_kf": float(np.median(prof["launch_calls"])),
+           "activities_per_kf": float(np.median(prof["activities"])),
+           "profiled_kf": len(prof["launch_calls"]),
+           "whole_server_ms": {"median": float(np.median(kf_ms)),
+                               "p90": float(np.percentile(kf_ms, 90)), "keyframes": len(kf_ms)},
+           "whole_server_kf_per_s": len(kf_ms) / whole_s}
+    print(json.dumps({"server_probe": out}))
+
+
 def twin_patches():
     """Context that routes the slice's kernel calls to the twins (used only
     for the comparison chain)."""
@@ -1428,6 +1544,66 @@ class KernelRecorder:
               f"exact, the filter {FILTER_MAX_ULP} ulp): "
               + "; ".join(f"{n} {', '.join(v)}" for n, v in seen.items()))
         return {n: len(v) for n, v in seen.items()}
+
+
+class CascadeRecorder:
+    """Keeps the pose graphs' loop-verification calls numbered `calls`
+    during a run (their arguments and the graph's outputs, no copy), then
+    reruns each eagerly under `disable_graphs()` through the kernels (equal
+    to the graph's outputs bit for bit) with every kernel call of the rerun
+    held against its twin (`KernelRecorder`): a replay calls no wrapper, so
+    the kept cascades stand in for the run's Hamming and small_eig calls. A
+    context manager around the run (it patches
+    `CollaborativePoseGraph._dispatch_verify`, so every server of the run is
+    seen)."""
+
+    def __init__(self, calls=KernelRecorder.CALLS):
+        from cvids_tpu_torch.server import posegraph
+
+        self.n, self.keep, self.kept = 0, calls, []
+        real, rec = posegraph.CollaborativePoseGraph._dispatch_verify, self
+
+        def dispatch(server, j, cands):
+            program = server._verify
+
+            def verify(*args):
+                out = program(*args)
+                if rec.n in rec.keep:
+                    rec.kept.append((args, out))
+                rec.n += 1
+                return out
+
+            server._verify = verify
+            try:
+                return real(server, j, cands)
+            finally:
+                server._verify = program
+
+        self._patch = mock.patch.object(posegraph.CollaborativePoseGraph, "_dispatch_verify",
+                                        dispatch)
+
+    def __enter__(self):
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def compare(self) -> dict:
+        from cvids_tpu_torch.server.posegraph import _match_and_pnp
+        from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+        leaves = torch.utils._pytree.tree_leaves
+        with disable_graphs(), KernelRecorder(SERVER_KERNELS + RANSAC_KERNELS,
+                                              calls=None) as kernels:
+            for i, (args, out) in enumerate(self.kept):
+                want = _match_and_pnp(*args)
+                check(all(_same_bits(x, y) for x, y in zip(leaves(out), leaves(want))),
+                      f"cascade call {self.keep[i]}: the graph's outputs differ from the eager "
+                      f"call's")
+        print(f"  {len(self.kept)} of {self.n} loop-verification cascades rerun eagerly with the "
+              f"kernels: equal to the graph's bit for bit")
+        return kernels.compare()
 
 
 def _clone_state(st):
@@ -1524,14 +1700,26 @@ class FrameRecorder:
         return counts
 
 
-def recorded_checks(recorder: KernelRecorder, frames: FrameRecorder, counts: dict) -> None:
-    """A server run's recorded calls against the twins: the Hamming
-    kernel's kept calls, and every dense kernel that the kept graphed
-    frames ran (the banded warp where its gate passed in them)."""
+def cascade_checks(recorder: CascadeRecorder, counts: dict) -> None:
+    """The kept cascades rerun eagerly and their kernel calls held against
+    the twins: every kept call (those of `recorder.keep` that the run
+    reached) one Hamming call and four small_eig calls (the 8-point F's
+    pair, the DLT's pair)."""
     compared = recorder.compare()
-    check(all(compared.get(n, 0) == len(KernelRecorder.CALLS) for n in SERVER_KERNELS
-              if counts[n] > max(KernelRecorder.CALLS)),
-          f"kernel calls held against the twins {compared}, launches {counts}")
+    kept = len(recorder.kept)
+    check(kept == sum(c < recorder.n for c in recorder.keep)
+          and compared.get("hamming_matrix", 0) == kept
+          and compared.get("small_eig", 0) == 4 * kept,
+          f"{kept} of {recorder.n} cascades kept, kernel calls held against the twins "
+          f"{compared}, launches {counts}")
+
+
+def recorded_checks(recorder: CascadeRecorder, frames: FrameRecorder, counts: dict) -> None:
+    """A server run's recorded calls against the twins: the Hamming
+    kernel's calls in the kept cascades, and every dense kernel that the
+    kept graphed frames ran (the banded warp where its gate passed in
+    them)."""
+    cascade_checks(recorder, counts)
     dense = frames.compare()
     banded = any(k[3][3] for k in frames.kept)
     check(len(frames.kept) == len(FrameRecorder.FRAMES)
@@ -1624,12 +1812,78 @@ def ate(server, gt, cid) -> float:
     return float(np.sqrt(np.mean(np.square(errs))))
 
 
-def server_run(device, packets, tree, sync_window=(200, 240)):
+class IngestRecorder:
+    """Keeps every call of a pose graph's two ingest programs during a run:
+    the verification cascade's arguments and outputs (`server._verify`,
+    `posegraph._match_and_pnp`), and each BoW `query_and_add`'s inputs, the
+    database's row count and capacity at the call and its outputs (device
+    handles, no copy: the inputs are the server's immutable feature
+    uploads). `compare()` reruns every call eagerly under `disable_graphs()`
+    and holds each replay's outputs, and the row it inserted, to the eager
+    call's bits. A BoW call's store before it is rebuilt from the final
+    store: rows below its count are never written again, rows from it on
+    hold their initial fill."""
+
+    def __init__(self, server):
+        self.server, self.db = server, server.db
+        self.verify_program = server._verify
+        self.bow_program = server.db._query_insert
+        self.verify, self.bow = [], []
+        self._query_and_add = server.db.query_and_add
+        server._verify = self._record_verify
+        server.db.query_and_add = self._record_bow
+
+    def _record_verify(self, *args):
+        out = self.verify_program(*args)
+        self.verify.append((args, out))
+        return out
+
+    def _record_bow(self, descriptors, client_id, exclude_recent=10, top_k=4, valid=None):
+        count = self.db.count
+        out = self._query_and_add(descriptors, client_id, exclude_recent, top_k, valid)
+        self.bow.append((descriptors, valid, client_id, count, max(count - exclude_recent, 0),
+                         top_k, len(self.db.client), out))
+        return out
+
+    def compare(self) -> dict:
+        from cvids_tpu_torch.server import posegraph, vocab
+        from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+        db = self.db
+        bad_verify = bad_bow = 0
+        with disable_graphs():
+            for args, out in self.verify:
+                want = posegraph._match_and_pnp(*args)
+                got_l, want_l = (torch.utils._pytree.tree_leaves(x) for x in (out, want))
+                bad_verify += not all(_same_bits(x, y) for x, y in zip(got_l, want_l))
+            for desc, valid, cid, count, cut, top_k, cap, out in self.bow:
+                ids, vals, cl = (x[:cap].clone() for x in (db.ids, db.vals, db.client_dev))
+                ids[count:], vals[count:], cl[count:] = -1, 0.0, -1
+                sc = torch.tensor([count, cid, cut], device=ids.device)
+                want = vocab._sparse_query_insert(db._dev, desc, valid, ids, vals, cl, sc[0],
+                                                  sc[1], sc[2], db.tree.levels, db.f,
+                                                  db.tree.num_words, top_k)
+                rows = ((ids, db.ids), (vals, db.vals), (cl, db.client_dev))
+                bad_bow += not (all(_same_bits(x, y) for x, y in zip(out, want))
+                                and all(_same_bits(a[count], b[count]) for a, b in rows))
+        return {"cascade_calls": len(self.verify), "cascade_differ": bad_verify,
+                "bow_calls": len(self.bow), "bow_differ": bad_bow,
+                "cascade_captures": self.verify_program.captures,
+                "cascade_replays": self.verify_program.replays,
+                "bow_captures": self.bow_program.captures,
+                "bow_replays": self.bow_program.replays,
+                "bow_graphs_held": len(self.bow_program.graphs),
+                "bow_tiers": int(np.log2(len(db.client) / self.bow[0][6])) + 1 if self.bow else 0,
+                "cascade_launches": next(iter(self.verify_program.graphs.values())).launches
+                if self.verify_program.graphs else {}}
+
+
+def server_run(device, packets, tree, sync_window=(200, 240), record=False):
     """Streams the packets through CollaborativePoseGraph (ServerConfig's
     reference defaults, background solves) and flushes with a final solve.
     Returns (server, stats): per-keyframe host ms of add_keyframe, solve ms,
     the PCM edge counts per run, host syncs per keyframe over `sync_window`
-    (on a card)."""
+    (on a card), and with `record` the run's `IngestRecorder`."""
     from cvids_tpu_torch.server import pcm, posegraph
 
     pcm_sizes, solve_ms = [], []
@@ -1654,6 +1908,7 @@ def server_run(device, packets, tree, sync_window=(200, 240)):
         return out
 
     server.optimize = timed_optimize
+    recorder = IngestRecorder(server) if record else None
     from cvids_tpu_torch.server import optimizer as opt
     ingest_ms, captured, syncs = [], [], float("nan")
     lo, hi = sync_window
@@ -1679,34 +1934,47 @@ def server_run(device, packets, tree, sync_window=(200, 240)):
             counter.__exit__(None, None, None)
         server.close()
     return server, {"ingest_ms": ingest_ms, "solve_ms": solve_ms, "pcm_sizes": pcm_sizes,
-                    "syncs_per_kf": syncs, "stream_s": stream_s, "captured": captured}
+                    "syncs_per_kf": syncs, "stream_s": stream_s, "captured": captured,
+                    "recorder": recorder}
 
 
-def server_edges(device, packets, tree):
+def server_edges(device, packets, tree, profile=None, config=None):
     """The accepted loop edges of a stream with inline solves (a background
     solve lands when the scheduler lets it, which moves the gates), and the
-    host ms of each add_keyframe that ran no solve."""
+    host ms of each add_keyframe that ran no solve. With `profile` = (lo,
+    hi) on a card, keyframes lo..hi-1 run one each under the profiler, and
+    the third value is, over those that ran no solve, the host's launch
+    calls (HOST_LAUNCH_CALLS) and device activities of each (else None)."""
     from cvids_tpu_torch.server import posegraph
 
-    server = posegraph.CollaborativePoseGraph(tree, posegraph.ServerConfig(), device=device)
-    ingest_ms = []
-    for _, _, _, pkt in packets:
+    server = posegraph.CollaborativePoseGraph(tree, config or posegraph.ServerConfig(),
+                                              device=device)
+    ingest_ms, prof = [], {"launch_calls": [], "activities": []}
+    for k, (_, _, _, pkt) in enumerate(packets):
         solves = server.solve_count
         t0 = time.perf_counter()
+        if profile is not None and profile[0] <= k < profile[1]:
+            _, rows, calls = profile_frame(lambda: server.add_keyframe(pkt), host_launches=True)
+            if server.solve_count == solves:
+                prof["launch_calls"].append(calls)
+                prof["activities"].append(sum(r[2] for r in rows))
+            continue
         server.add_keyframe(pkt)
         if server.solve_count == solves:
             ingest_ms.append((time.perf_counter() - t0) * 1e3)
     server.flush(final=False)
     server.close()
-    return {(int(i), int(j)) for i, j in zip(server.loop_i[:server.loop_count],
-                                             server.loop_j[:server.loop_count])}, ingest_ms
+    edges = {(int(i), int(j)) for i, j in zip(server.loop_i[:server.loop_count],
+                                              server.loop_j[:server.loop_count])}
+    return edges, ingest_ms, (prof if profile is not None else None)
 
 
 def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
                  tree_shape=SERVER_TREE, compare=(COMPARE_AGENTS, COMPARE_DURATION)):
     """Phase 5: the server slice, its launches counted, its outputs checked;
     then the kernel route's loop edges against the twin route's. Returns the
-    tree vocabulary."""
+    tree vocabulary and {"launches": the main run's kernel launches,
+    "programs": its ingest programs' counts (on a card)}."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
     from cvids_tpu_torch.server import pcm, vocab
 
@@ -1720,9 +1988,10 @@ def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
           f"{pcm.native_max_clique_available()}")
     gumbel_check(dev)
     if dev.type == "cuda":
+        bow_tier_checks(dev, tree)
         torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
-    server, stats = server_run(dev, packets, tree)
+    server, stats = server_run(dev, packets, tree, record=True)
     _sync(dev)
     counts = dict(ck.launches)
     ates = [ate(server, gt, c) for c in range(n_agents)]
@@ -1744,20 +2013,57 @@ def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
           f"PCM never ran on a pair with >= {server.cfg.pcm_min_edges} edges")
     check(ates[0] < 0.05, f"world client ATE {ates[0]} >= 0.05 m")
     check(all(a < 0.25 for a in ates[1:]), f"client ATE {ates} >= 0.25 m")
-    check(all(counts[k] > 0 for k in SERVER_KERNELS), f"a server kernel did not run: {counts}")
+    check(all(counts[k] > 0 for k in SERVER_KERNELS + RANSAC_KERNELS),
+          f"a server kernel did not run: {counts}")
+    if dev.type == "cuda":
+        rec = stats["recorder"].compare()
+        print(f"  ingest programs: the cascade {rec['cascade_calls']} calls, "
+              f"{rec['cascade_captures']} capture(s), {rec['cascade_replays']} replays, kernel "
+              f"launches a replay {rec['cascade_launches']}; BoW query-and-insert "
+              f"{rec['bow_calls']} calls, {rec['bow_captures']} capture(s) over "
+              f"{rec['bow_tiers']} capacity tier(s), {rec['bow_graphs_held']} graph held, "
+              f"{rec['bow_replays']} replays; every replay rerun eagerly under "
+              f"disable_graphs(): {rec['cascade_differ']} cascades and {rec['bow_differ']} BoW "
+              f"steps differ in a bit (tolerance: none)")
+        check(rec["cascade_calls"] > 0 and rec["cascade_captures"] == 1
+              and rec["cascade_replays"] == rec["cascade_calls"],
+              f"the cascade was not one graph replayed at every call: {rec}")
+        check(rec["bow_calls"] == len(packets) and rec["bow_captures"] == rec["bow_tiers"]
+              and rec["bow_graphs_held"] == 1 and rec["bow_replays"] == rec["bow_calls"],
+              f"the BoW step was not one graph a tier replayed at every keyframe: {rec}")
+        check(rec["cascade_differ"] == 0 and rec["bow_differ"] == 0,
+              f"a replay differs from its eager call: {rec}")
+        check(rec["cascade_launches"].get("small_eig", 0) == 4
+              and rec["cascade_launches"].get("hamming_matrix", 0) == 1,
+              f"a cascade replay's kernels {rec['cascade_launches']}: not one Hamming call and "
+              f"four small_eig calls (the 8-point F's pair, the DLT's pair)")
+        stats["programs"] = rec
 
     cmp_packets, _ = server_stream(*compare)
-    edges_kernel, inline_ms = server_edges(dev, cmp_packets, tree)
-    with mock.patch.object(ck, "hamming_matrix", ck.hamming_matrix_twin):
-        edges_twin, _ = server_edges(dev, cmp_packets, tree)
+    window = (40, 70) if dev.type == "cuda" else None
+    edges_kernel, inline_ms, prof = server_edges(dev, cmp_packets, tree, profile=window)
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(disable_graphs())   # a graph would replay the kernels
+        for p in twin_patches():
+            stack.enter_context(p)
+        edges_twin, _, _ = server_edges(dev, cmp_packets, tree)
     check(edges_kernel == edges_twin,
           f"loop edges differ: kernel {len(edges_kernel)}, twin {len(edges_twin)}, "
           f"common {len(edges_kernel & edges_twin)}")
     check(len(edges_kernel) > 0, "the comparison stream accepted no loop")
-    print(f"  {len(cmp_packets)}-keyframe stream, inline solves: the kernel route and the "
-          f"twin route accept the same {len(edges_kernel)} loop edges; ingest ms per "
-          f"keyframe without a solve (kernel route) median {np.median(inline_ms):.3f} "
+    print(f"  {len(cmp_packets)}-keyframe stream, inline solves: the kernel route (graphs) "
+          f"and the twin route (eager) accept the same {len(edges_kernel)} loop edges; ingest "
+          f"ms per keyframe without a solve (kernel route) median {np.median(inline_ms):.3f} "
           f"p90 {np.percentile(inline_ms, 90):.3f}")
+    if prof is not None and prof["launch_calls"]:
+        stats["launch_calls_per_kf"] = float(np.median(prof["launch_calls"]))
+        print(f"  ingest per keyframe (keyframes {window[0]}-{window[1] - 1} of that stream "
+              f"that ran no solve, {len(prof['launch_calls'])} profiled one by one): host "
+              f"launch calls median {np.median(prof['launch_calls']):.0f} (min "
+              f"{min(prof['launch_calls'])}, max {max(prof['launch_calls'])}), device "
+              f"activities median {np.median(prof['activities']):.0f}; host syncs per "
+              f"keyframe (background run) {stats['syncs_per_kf']:.2f}")
     from cvids_tpu_torch.server import optimizer as opt
     graphed = opt._GRAPHED
     if dev.type == "cuda":
@@ -1772,7 +2078,61 @@ def server_phase(device, n_agents=SERVER_AGENTS, duration=SERVER_DURATION,
               f"that ran no solve); {len(graphed.graphs)} LM-iteration graphs captured in the "
               f"process (tiers), {graphed.replays} replays")
     print("phase 5 server: ok")
-    return tree
+    return tree, {"launches": counts, "programs": stats.get("programs", {})}
+
+
+def bow_tier_checks(device, tree, capacity=16, n_frames=70) -> None:
+    """Each database's query-and-insert program through three growths of its
+    store (capacity 16 to 128): one capture per capacity tier and none per
+    keyframe, every replay's outputs and the final store equal to an eager
+    database's fed the same keyframes under `disable_graphs()`, and each
+    superseded tier's store and graph released (nothing holds the old
+    store: its weak reference dies). The sparse database on `tree`; the
+    dense one on a 4096-word trained vocabulary."""
+    import weakref
+
+    from cvids_tpu_torch.io import multiagent
+    from cvids_tpu_torch.server import vocab
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(11)
+    pool = multiagent.landmark_descriptors(3000)
+    frames = [(torch.from_numpy(pool[rng.integers(0, 3000, 512)].view(np.int32).copy()).to(dev),
+               torch.from_numpy(rng.random(512) > 0.1).to(dev), int(rng.integers(0, 4)))
+              for _ in range(n_frames)]
+    voc = vocab.train_vocabulary(pool[:2000], k=8, levels=4, seed=0, device=dev)
+    kinds = {"sparse": (lambda: vocab.SparseBowDatabase(tree, capacity, device=dev),
+                        lambda db, d, v, c: db.query_and_add(d, c, 10, valid=v),
+                        "_query_insert", ("ids", "vals", "client_dev")),
+             "dense": (lambda: vocab.BowDatabase(voc, capacity),
+                       lambda db, d, v, c: db.query_and_add_descriptors(d, c, 10, valid=v),
+                       "_bow_query_insert", ("vectors", "client_dev"))}
+    for kind, (make, step, program, stores) in kinds.items():
+        graphed, eager = make(), make()
+        old, differ = [], 0
+        for d, v, c in frames:
+            if graphed.count == len(graphed.client):
+                old.append(weakref.ref(getattr(graphed, stores[0])))
+            got = step(graphed, d, v, c)
+            with disable_graphs():
+                want = step(eager, d, v, c)
+            differ += not all(_same_bits(x, y) for x, y in zip(got, want))
+        prog = getattr(graphed, program)
+        _sync(dev)
+        same_store = all(_same_bits(getattr(graphed, n), getattr(eager, n)) for n in stores)
+        tiers = int(np.log2(len(graphed.client) // capacity)) + 1
+        alive = sum(r() is not None for r in old)
+        print(f"  {kind} BoW database, {n_frames} keyframes from capacity {capacity}: "
+              f"{prog.captures} captures over {tiers} tiers, {prog.replays} replays, "
+              f"{len(prog.graphs)} graph held; {differ} replays differ from the eager "
+              f"database's calls, final stores {'equal' if same_store else 'DIFFER'} bit for "
+              f"bit; superseded stores still alive {alive} of {len(old)}")
+        check(prog.captures == tiers and prog.replays == n_frames and len(prog.graphs) == 1,
+              f"{kind} BoW program: {prog.captures} captures, {prog.replays} replays, "
+              f"{len(prog.graphs)} graphs for {tiers} tiers and {n_frames} keyframes")
+        check(differ == 0 and same_store, f"{kind} BoW program: replays differ from eager calls")
+        check(alive == 0, f"{kind} BoW program: {alive} superseded stores still held")
 
 
 # ---------------------------------------------------------------------------
@@ -2095,6 +2455,9 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
     counts = dict(ck.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
     pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s, peak)
+    print(f"  whole-server host ms per keyframe median {np.median(kf_ms):.3f}, beside "
+          f"{PARENT_WHOLE_SERVER_MS} before the ingest programs were graphs (PERF.md section 6; "
+          f"`--server-probe --package` measures two trees in one call)")
     if dev.type == "cuda":
         dense_graph_memory(server, dev)
 
@@ -2686,9 +3049,10 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     both agents VI-initialized with >= 8 packets, both clients aligned, >= 1
     loop, ATE sim3 < 10 cm, median inverse-depth RMS < 0.12, mesh median
     scene distance < 0.15 m; every kernel launched but the banded warp,
-    whose host gate these keyframes' rotations exceed; on the card four of
-    the Hamming kernel's calls equal to the twin's on their inputs
-    (`KernelRecorder`) and two graphed dense frames rerun eagerly through
+    whose host gate these keyframes' rotations exceed; on the card four loop-verification
+    cascades rerun eagerly through the kernels, equal to their graph's
+    outputs, each kernel call equal to the twin's on its inputs
+    (`CascadeRecorder`), and two graphed dense frames rerun eagerly through
     the kernels and the twins (`FrameRecorder`); an `AgentFrontend`
     built with no device on the card. `camera` and `dense` replace the
     EuRoC camera and the dense size for a rehearsal on the CPU. Returns the
@@ -2763,8 +3127,7 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     ck.reset_launches()
     kf_ms_srv = []
     on_card = dev.type == "cuda"
-    recorder = (KernelRecorder(SERVER_KERNELS + RANSAC_KERNELS) if on_card
-                else contextlib.nullcontext())
+    recorder = CascadeRecorder() if on_card else contextlib.nullcontext()
     frames = FrameRecorder() if on_card else contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
@@ -2884,8 +3247,8 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     process a root (`apps.agent_process`; on the card with no device
     argument, so the default device). Waits for the stream to drain, and
     fails at once if an agent process dies or the ingest thread raises; then
-    a final solve (`flush`). On the card `KernelRecorder` keeps four of the
-    Hamming kernel's calls and `FrameRecorder` two graphed dense frames.
+    a final solve (`flush`). On the card `CascadeRecorder` keeps four of the
+    loop-verification cascades and `FrameRecorder` two graphed dense frames.
     Returns a dict: server, transport, sent / frame_ms / keyframe per agent
     (what each saved), received (the codec dicts the server was given, per
     client), order (the client of each ingested packet), process_ms,
@@ -2935,7 +3298,7 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
-    recorder = KernelRecorder(SERVER_KERNELS) if on_card else contextlib.nullcontext()
+    recorder = CascadeRecorder() if on_card else contextlib.nullcontext()
     frames = FrameRecorder() if on_card else contextlib.nullcontext()
     srv = transport.CollaborativeSocketServer(server, match_tol=1e-3)
     # on the card the agents take the default device (no device argument);
@@ -3383,7 +3746,7 @@ def fisheye_phase(device) -> dict:
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
     ck.reset_launches()
-    rec = KernelRecorder(SERVER_KERNELS + RANSAC_KERNELS) if on_card else None
+    rec = CascadeRecorder() if on_card else None
     with tempfile.TemporaryDirectory(prefix="cvids_fisheye_") as root, \
             rec or contextlib.nullcontext():
         fes, seqs, packets, server = run_fisheye_rig(root, dev)
@@ -3414,10 +3777,7 @@ def fisheye_phase(device) -> dict:
         finally:
             server.close()
     if on_card:
-        compared = rec.compare()
-        check(compared.get("hamming_matrix", 0) == len(KernelRecorder.CALLS)
-              or counts["hamming_matrix"] <= max(KernelRecorder.CALLS),
-              f"Hamming calls held against the twin {compared}, launches {counts}")
+        cascade_checks(rec, counts)
     print(f"phase 12 fisheye rig: ok in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -3486,8 +3846,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    if "--package" in sys.argv[1:]:     # the package of another tree, for --dense-probe
-        check("--dense-probe" in sys.argv[1:], "--package goes with --dense-probe")
+    if "--package" in sys.argv[1:]:     # the package of another tree, for the probes
+        check("--dense-probe" in sys.argv[1:] or "--server-probe" in sys.argv[1:],
+              "--package goes with --dense-probe or --server-probe")
         sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--package") + 1]).resolve()))
     from cvids_tpu_torch import _build
     from cvids_tpu_torch.ops import cuda_kernels as ck
@@ -3513,6 +3874,9 @@ def main() -> int:
 
     if "--dense-probe" in sys.argv[1:]:
         dense_probe(dev)
+        return 0
+    if "--server-probe" in sys.argv[1:]:
+        server_probe(dev)
         return 0
     if "--multichip" in sys.argv[1:]:
         multichip_phase(dev)
@@ -3584,7 +3948,7 @@ def main() -> int:
     print("phase 4 slice: ok")
 
     # phase 5: the collaborative server, counted
-    tree = server_phase(dev)
+    tree, server_info = server_phase(dev)
 
     # phase 6: the whole server, packets with images -> depth -> TSDF -> mesh
     pipe_counts = pipeline_phase(dev, tree)
@@ -3630,15 +3994,28 @@ def main() -> int:
     # library_ms: null, no single PyTorch call computes any of the six
     # ported kernels; for small_eig the torch.linalg calls it replaced.
     # small_eig's launches_frontend_phase8: phase 8's front-ends (graph
-    # replays count their kernels), and per camera frame
+    # replays count their kernels), and per camera frame; launches_phase5:
+    # phase 5's pose graph, whose cascades each launch it four times (the
+    # 8-point F's 9x9 and 3x3, the PnP DLT's 12x12 and 3x3); dlt_12x12: the
+    # DLT's pair timed at its shapes (phase 3)
     rate = {k: {"launches_per_frame": v,
                 "host_launches_per_frame": {m: frames[m]["host_launches"] for m in frames}}
             for k, v in per_frame.items()}
     rate["hamming_matrix"] = {"launches_per_keyframe":
                               pipe_counts["hamming_matrix"] / (PIPE_AGENTS * PIPE_KF)}
     fe_small = agent_scores["frontend_launches"]["small_eig"]
+    dlt = extras["small_eig_dlt"]
     rate["small_eig"] = {"launches_frontend_phase8": fe_small,
-                         "launches_per_frame_phase8": fe_small / agent_scores["frames"]}
+                         "launches_per_frame_phase8": fe_small / agent_scores["frames"],
+                         # phase 5's pose graph: every cascade replay runs the
+                         # 8-point F's pair and the PnP DLT's pair
+                         "launches_phase5": server_info["launches"]["small_eig"],
+                         "launches_per_cascade_phase5":
+                             server_info["programs"].get("cascade_launches", {}),
+                         "cascades_phase5": server_info["programs"].get("cascade_calls"),
+                         "dlt_12x12": {**dlt, "share": dlt["bound_ms"] / dlt["ms"],
+                                       "reach": max(dlt["bound_ms"], extras["floor_ms"])
+                                       / dlt["ms"]}}
     floor = extras["floor_ms"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],

@@ -14,6 +14,17 @@ Scoring is DBoW2's normalized L1: s(v, w) = 1 - 0.5 * |v/|v| - w/|w||_1.
 Descriptors on the device are (N, 8) int32 views of the uint32 words. Top-k
 selections use a stable sort, so ties go to the lower index as `lax.top_k`
 sends them.
+
+A keyframe's query-and-insert is one fixed-shape program, as in the JAX
+package (`_sparse_bow_query` + `_sparse_insert` + `_client_set`; dense:
+`_bow_vector_impl` + `_db_topk_masked` + `_db_insert` + `_client_set`):
+`_sparse_query_insert` and `_dense_query_insert`, replayed on the card as
+one CUDA graph (`utils.cuda_graph.GraphedCall`) over the database's store
+and tree, which are bound (updated in place; the tree is not copied in).
+The row count, the query's client and the recent-frame cut enter as 0-d
+device tensors, one pinned copy a keyframe, so the graph serves every
+keyframe of a capacity tier; a growth moves the store, drops the tier's
+graph and captures the next tier's at its first call.
 """
 
 from __future__ import annotations
@@ -225,34 +236,92 @@ def score_database(query: torch.Tensor, db: torch.Tensor,
     return s
 
 
-def _exclude_mask(client_dev: torch.Tensor, count: int, query_client: int,
-                  recent_cut: int) -> torch.Tensor:
+def _exclude_mask(client_dev: torch.Tensor, count, query_client, recent_cut) -> torch.Tensor:
     """Query-validity mask (stored, and not a recent same-client frame),
-    built on the device from scalars."""
+    built on the device from scalars (ints, or 0-d device tensors)."""
     r = torch.arange(client_dev.shape[0], device=client_dev.device)
     return (r < count) & ~((client_dev == query_client) & (r >= recent_cut))
+
+
+def _insert_row(client_dev: torch.Tensor, count: torch.Tensor, query_client: torch.Tensor,
+                *rows: tuple[torch.Tensor, torch.Tensor]) -> None:
+    """Write each (store, value) at row `count` and the client there, in
+    place, at a tensor index (the JAX package's `.at[idx].set`)."""
+    row = count.reshape(1)
+    for store, value in rows:
+        store.index_copy_(0, row, value[None].to(store.dtype))
+    client_dev.index_copy_(0, row, query_client.reshape(1).to(client_dev.dtype))
+
+
+def _dense_query_insert(vectors, client_dev, count, query_client, recent_cut, vec,
+                        top_k: int):
+    """One keyframe against the dense store: masked L1 scores, top-k, then
+    `vec` and the client inserted at row `count` (`_db_topk_masked`,
+    `_db_insert`, `_client_set`). Returns (indices, scores)."""
+    valid = _exclude_mask(client_dev, count, query_client, recent_cut)
+    s, idx = _top_k(score_database(vec, vectors, valid), top_k)
+    _insert_row(client_dev, count, query_client, (vectors, vec))
+    return idx, s
+
+
+def _dense_bow_query_insert(voc, descriptors, valid, vectors, client_dev, count,
+                            query_client, recent_cut, top_k: int):
+    """`_dense_query_insert` of the descriptors' BoW vector
+    (`_bow_vector_impl` first)."""
+    return _dense_query_insert(vectors, client_dev, count, query_client, recent_cut,
+                               bow_vector(voc, descriptors, valid), top_k)
+
+
+class _Scalars:
+    """A database's (row count, query client, recent cut) as 0-d views of
+    one persistent int64 device buffer, filled by one copy a keyframe (from
+    pinned memory on a card): a graph's bound inputs, the same storage at
+    every call."""
+
+    def __init__(self, device):
+        self.buf = torch.zeros(3, dtype=torch.int64, device=device)
+
+    def __call__(self, count: int, query_client: int, recent_cut: int):
+        host = torch.tensor([count, query_client, recent_cut], dtype=torch.int64)
+        if self.buf.is_cuda:
+            host = host.pin_memory()
+        self.buf.copy_(host, non_blocking=self.buf.is_cuda)
+        return self.buf[0], self.buf[1], self.buf[2]
 
 
 class BowDatabase:
     """Fixed-capacity database of dense BoW vectors (the reference's
     `BriefDatabase` role: add + query excluding recent frames,
     `server_pose_graph.cpp:971-1062`). The vector matrix lives on the
-    vocabulary's device and is updated in place."""
+    vocabulary's device and is updated in place; `query_and_add` and
+    `query_and_add_descriptors` are each one program (graphed on a card)."""
 
     def __init__(self, voc: Vocabulary, capacity: int = 4096):
+        from ..utils.cuda_graph import GraphedCall
+
         self.voc = voc
         dev = voc.weights.device
         self.vectors = torch.zeros((capacity, voc.num_words), dtype=torch.float32, device=dev)
         self.client = np.full(capacity, -1, np.int32)
         self.client_dev = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
         self.count = 0
+        self._scalars = _Scalars(dev)
+        self._query_insert = GraphedCall(_dense_query_insert, bound=(0, 1, 2, 3, 4))
+        self._bow_query_insert = GraphedCall(_dense_bow_query_insert,
+                                             bound=(0, 3, 4, 5, 6, 7))
 
-    def add(self, vec: torch.Tensor, client_id: int) -> int:
+    def _grow_if_full(self):
         if self.count >= len(self.client):
-            # power-of-two growth, mirroring KeyframeStore._grow
+            # power-of-two growth, mirroring KeyframeStore._grow; the old
+            # tier's graphs go with its store
             self.vectors = torch.cat([self.vectors, torch.zeros_like(self.vectors)])
             self.client = np.concatenate([self.client, np.full_like(self.client, -1)])
             self.client_dev = torch.cat([self.client_dev, torch.full_like(self.client_dev, -1)])
+            self._query_insert.clear()
+            self._bow_query_insert.clear()
+
+    def add(self, vec: torch.Tensor, client_id: int) -> int:
+        self._grow_if_full()
         idx = self.count
         self.vectors[idx] = vec
         self.client[idx] = client_id
@@ -274,13 +343,34 @@ class BowDatabase:
         s, idx = self._topk(vec, query_client, exclude_recent, top_k)
         return idx.cpu().numpy(), s.cpu().numpy()
 
+    def _scalars_for(self, client_id: int, exclude_recent: int):
+        return self._scalars(self.count, client_id, max(self.count - exclude_recent, 0))
+
+    def _inserted(self, client_id: int) -> None:
+        self.client[self.count] = client_id
+        self.count += 1
+
     def query_and_add(self, vec: torch.Tensor, client_id: int,
                       exclude_recent: int = 10, top_k: int = 4):
-        """Query (excluding the frame being added), then insert. Returns
-        DEVICE tensors (indices, scores): the ingest pipeline fetches them
-        one keyframe later."""
-        s, idx = self._topk(vec, client_id, exclude_recent, top_k)
-        self.add(vec, client_id)
+        """Query (excluding the frame being added), then insert, as one
+        program. Returns DEVICE tensors (indices, scores): the ingest
+        pipeline fetches them one keyframe later."""
+        self._grow_if_full()
+        idx, s = self._query_insert(self.vectors, self.client_dev,
+                                    *self._scalars_for(client_id, exclude_recent), vec, top_k)
+        self._inserted(client_id)
+        return idx, s
+
+    def query_and_add_descriptors(self, descriptors: torch.Tensor, client_id: int,
+                                  exclude_recent: int = 10, top_k: int = 4,
+                                  valid: torch.Tensor | None = None):
+        """`query_and_add` of the descriptors' BoW vector, the vector
+        computed inside the same program (the per-keyframe ingest step)."""
+        self._grow_if_full()
+        idx, s = self._bow_query_insert(self.voc, descriptors, valid, self.vectors,
+                                        self.client_dev,
+                                        *self._scalars_for(client_id, exclude_recent), top_k)
+        self._inserted(client_id)
         return idx, s
 
 
@@ -506,6 +596,20 @@ def _sparse_bow_dev(tree_t, levels: int, desc, valid, f: int):
     return ids.to(torch.int32), torch.where(keep, top_vals, torch.zeros((), device=w.device))
 
 
+def _sparse_query_insert(tree_t, desc, valid, ids, vals, client_dev, count, query_client,
+                         recent_cut, levels: int, f: int, num_words: int, top_k: int):
+    """One keyframe's ingest step against the sparse store: tree descent,
+    sparse tf-idf, masked L1 score and top-k (`_sparse_bow_query`), then the
+    query's (ids, vals) and client inserted at row `count`
+    (`_sparse_insert`, `_client_set`). Returns (indices, scores)."""
+    q_ids, q_vals = _sparse_bow_dev(tree_t, levels, desc, valid, f)
+    db_valid = _exclude_mask(client_dev, count, query_client, recent_cut)
+    s, order = _top_k(_sparse_scores(_densify(q_ids, q_vals, num_words), ids, vals,
+                                     db_valid), top_k)
+    _insert_row(client_dev, count, query_client, (ids, q_ids), (vals, q_vals))
+    return order, s
+
+
 class SparseBowDatabase:
     """Fixed-capacity sparse-BoW keyframe database for large vocabularies
     (the reference's inverted-index `BriefDatabase` at k=10 L=6 scale,
@@ -520,6 +624,8 @@ class SparseBowDatabase:
                  words_per_frame: int = 256, device=None):
         """`device=None` is the card (`default_device()`, which raises
         where there is none); pass "cpu" to run on the host."""
+        from ..utils.cuda_graph import GraphedCall
+
         device = resolve_device(device)
         self.tree = tree
         self.f = words_per_frame
@@ -529,17 +635,23 @@ class SparseBowDatabase:
         self.client_dev = torch.full((capacity,), -1, dtype=torch.int32, device=device)
         self.count = 0
         self._dev = _tree_tensors(tree, device)
+        self._scalars = _Scalars(device)
+        # the tree, the store and the scalars bound: only the descriptors
+        # and their mask are copied in
+        self._query_insert = GraphedCall(_sparse_query_insert, bound=(0, 3, 4, 5, 6, 7, 8))
 
     def _bow(self, descriptors, valid):
         return _sparse_bow_dev(self._dev, self.tree.levels, descriptors, valid, self.f)
 
     def _grow_if_full(self):
         if self.count >= len(self.client):
-            # power-of-two growth, mirroring KeyframeStore._grow
+            # power-of-two growth, mirroring KeyframeStore._grow; the old
+            # tier's graph goes with its store
             self.ids = torch.cat([self.ids, torch.full_like(self.ids, -1)])
             self.vals = torch.cat([self.vals, torch.zeros_like(self.vals)])
             self.client = np.concatenate([self.client, np.full_like(self.client, -1)])
             self.client_dev = torch.cat([self.client_dev, torch.full_like(self.client_dev, -1)])
+            self._query_insert.clear()
 
     def _insert(self, ids, vals, client_id: int) -> int:
         idx = self.count
@@ -575,12 +687,16 @@ class SparseBowDatabase:
                       exclude_recent: int = 10, top_k: int = 4,
                       valid: torch.Tensor | None = None):
         """Per-keyframe ingest step: query (excluding the frame being added),
-        then insert, with one tree descent. Returns DEVICE tensors (indices,
-        scores): the ingest pipeline fetches them one keyframe later."""
+        then insert, with one tree descent, as one program
+        (`_sparse_query_insert`). Returns DEVICE tensors (indices, scores):
+        the ingest pipeline fetches them one keyframe later."""
         self._grow_if_full()
-        q_ids, q_vals = self._bow(descriptors, valid)
-        s, order = self._topk(q_ids, q_vals, client_id, exclude_recent, top_k)
-        self._insert(q_ids, q_vals, client_id)
+        scalars = self._scalars(self.count, client_id, max(self.count - exclude_recent, 0))
+        order, s = self._query_insert(self._dev, descriptors, valid, self.ids, self.vals,
+                                      self.client_dev, *scalars, self.tree.levels, self.f,
+                                      self.tree.num_words, top_k)
+        self.client[self.count] = client_id
+        self.count += 1
         return order, s
 
 

@@ -32,6 +32,12 @@ eager call, so the same bits.
   returns clones of the outputs, so no graph's transient tensors are live
   when another graph runs. A server's dense frames for all its clients are
   one `GraphedCall`, so one pool.
+- One capture at a time in the process: a capture (with its warm-up call)
+  holds a process-wide lock, so the pose graph's background solver and its
+  ingest thread never capture at once. `fn` must not call a `GraphedCall`.
+- `clear()` drops every graph with its static inputs and bound tensors:
+  the caller's form of a recompile, when the state it binds has moved (a
+  database's store growing into its next capacity tier).
 
 Calls on CPU tensors run `fn` itself, and so does every call inside
 `disable_graphs()` (the counterpart of `jax.disable_jit()`, for eager
@@ -51,6 +57,7 @@ from ..ops import cuda_kernels
 __all__ = ["GraphedCall", "disable_graphs", "graphs_disabled"]
 
 _tls = threading.local()
+_CAPTURE_LOCK = threading.Lock()     # one capture at a time in the process
 
 
 @contextlib.contextmanager
@@ -85,6 +92,7 @@ class GraphedCall:
         self.bound = frozenset(bound)
         self.graphs: dict = {}
         self.replays = 0
+        self.captures = 0               # over the object's life, `clear()` included
         self._lock = threading.Lock()
         self._streams: dict = {}        # device -> capture stream
         self._pools: dict = {}          # device -> the graphs' pool handle
@@ -105,8 +113,10 @@ class GraphedCall:
                 stream.wait_event(self._done)
             entry = self.graphs.get(key)
             if entry is None:
-                entry = self.graphs[key] = self._capture(leaves, spec, is_bound,
-                                                         tensors[0].device)
+                with _CAPTURE_LOCK:
+                    entry = self.graphs[key] = self._capture(leaves, spec, is_bound,
+                                                             tensors[0].device)
+                self.captures += 1
             for dst, src, b in zip(entry.static, leaves, is_bound):
                 if isinstance(src, torch.Tensor) and not b:
                     dst.copy_(src)
@@ -118,6 +128,15 @@ class GraphedCall:
             self.replays += 1
         cuda_kernels.add_launches(entry.launches)
         return out
+
+    def clear(self) -> None:
+        """Drop every graph, its static inputs and its references to bound
+        tensors; the next call captures anew, into a new memory pool (a pool
+        whose graphs are all gone may not take another capture; its blocks
+        return to the allocator when it next frees cached memory)."""
+        with self._lock:
+            self.graphs.clear()
+            self._pools.clear()
 
     def _bound_mask(self, args) -> list[bool]:
         """Per pytree leaf of `args`: does it belong to a bound argument?"""
@@ -137,8 +156,9 @@ class GraphedCall:
         side = self._streams.get(device)
         if side is None:
             side = self._streams[device] = torch.cuda.Stream(device)
-            self._pools[device] = torch.cuda.graph_pool_handle()
-        pool = self._pools[device]
+        pool = self._pools.get(device)
+        if pool is None:
+            pool = self._pools[device] = torch.cuda.graph_pool_handle()
         current = torch.cuda.current_stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):      # one warm-up call, as CUDA graphs ask

@@ -1,7 +1,8 @@
 """The seven CUDA kernels against their PyTorch twins, the front-end's and
 the server's CUDA graphs (the front-end's track step, re-detection, packet
 image program, preintegration, window solve and marginalization; the dense
-frame, the 4-DoF solve) against their eager calls, the deployment topology and the multi-GPU dry run on two ranks
+frame, the 4-DoF solve, the pose graph's loop-verification cascade and BoW
+query-and-insert, one capture a capacity tier) against their eager calls, the deployment topology and the multi-GPU dry run on two ranks
 that share the card, on a CUDA card.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
@@ -500,3 +501,108 @@ def test_capture_on_a_worker_thread(dev):
     th.join()
     want = opt.optimize_pose_graph(nodes, edges, 4, 25)
     assert all(_same_bits(x, y.cpu()) for x, y in zip(got["out"], want))
+
+
+def _server_cascade_inputs(dev, rng, n_win=160, n_ext=512):
+    """A loop verification at the server's shapes (`ServerConfig`'s 160
+    window and 512 extra features): the new keyframe's window features, a
+    posed old keyframe that sees most of them, the two RANSAC noises."""
+    from cvids_tpu_torch.ops import ransac
+
+    pts = rng.uniform(-2, 2, (n_win, 3)).astype(np.float32)
+    pts[:, 2] += 6.0
+    yaw = 0.1
+    r = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+    pc = (pts @ r.T + np.array([0.3, 0.1, 0.0])).astype(np.float32)
+    ext_desc = rng.integers(0, 2 ** 32, (n_ext, 8), dtype=np.uint32)
+    ext_uv = rng.uniform(-0.5, 0.5, (n_ext, 2)).astype(np.float32)
+    ext_uv[:n_win] = pc[:, :2] / pc[:, 2:3]
+    win_desc = ext_desc[:n_win].copy()
+    win_desc[:30] = ext_desc[200:230]                     # planted wrong matches
+    gen = torch.Generator().manual_seed(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)   # noqa: E731
+    return (t(win_desc.view(np.int32)), t(np.ones(n_win, bool)), t(pts[:, :2] / pts[:, 2:3]),
+            t(pts), t(ext_desc.view(np.int32)), t(np.ones(n_ext, bool)), t(ext_uv),
+            ransac.gumbel_noise(128, n_win, gen, device=dev),
+            ransac.gumbel_noise(128, n_win, gen, device=dev), 10.0 / 460.0, 15, True)
+
+
+def test_graphed_cascade_equals_eager(dev):
+    """The loop verification cascade (Hamming match, F-RANSAC and PnP on
+    the Jacobi kernel) at the server's shapes: one capture, and each replay
+    reads nothing back (sync debug mode "error") and gives the eager call's
+    bits; it accepts the planted pose."""
+    from cvids_tpu_torch.server.posegraph import _match_and_pnp
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall, disable_graphs
+
+    rng = np.random.default_rng(0)
+    call = GraphedCall(_match_and_pnp)
+    args = _server_cascade_inputs(dev, rng)
+    other = _server_cascade_inputs(dev, np.random.default_rng(1))
+    call(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call(*args)
+        again = call(*other)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with disable_graphs():
+        want = _match_and_pnp(*args)
+    leaves = torch.utils._pytree.tree_leaves
+    assert all(cs._same_bits(x, y) for x, y in zip(leaves(got), leaves(want)))
+    assert call.captures == 1 and call.replays == 3 and len(call.graphs) == 1
+    res = got[0]
+    assert bool(res.ok) and int(res.num_inliers) >= 100, int(res.num_inliers)
+    assert bool(again[0].ok)
+
+
+def test_ransac_on_the_card_reads_nothing_back(dev):
+    """`pnp_ransac` and `essential_pose` on card tensors take the Jacobi
+    path (`jacobi=None`): no host sync (sync debug mode "error"), and the
+    results of the twin's float64 path on the CPU but for rounding."""
+    from cvids_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(2)
+    args = _server_cascade_inputs(torch.device("cpu"), rng)
+    pts, obs, valid, g = args[3], args[2], args[1], args[7]
+    obs2 = args[6][:160]
+    for fn, inputs in ((ransac.pnp_ransac, (pts, obs2, valid, g)),
+                       (ransac.essential_pose, (obs, obs2, valid, g))):
+        on_card = [x.to(dev) for x in inputs]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(*on_card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = fn(*inputs, jacobi=True)
+        assert bool(got.ok) == bool(want.ok)
+        assert torch.equal(got.inliers.cpu(), want.inliers)
+        assert float((got.r.cpu() - want.r).abs().max()) < 1e-5
+
+
+def test_bow_programs_one_capture_per_tier(dev):
+    """Each database's query-and-insert program through three store
+    growths: one capture a tier, replays equal to an eager database's, the
+    superseded tiers released (`chip_smoke.bow_tier_checks`)."""
+    from cvids_tpu_torch.server import vocab
+
+    cs.bow_tier_checks(dev, vocab.synthesize_tree_vocabulary(10, 3, seed=0), n_frames=40)
+
+
+def test_server_ingest_graphs_equal_eager_with_background_solves(dev):
+    """A two-agent stream through `CollaborativePoseGraph` on the card with
+    background solves (the worker captures its solves while ingest captures
+    its programs): the cascade one capture, the BoW step one a tier, and
+    every replay equal to its eager rerun (`chip_smoke.IngestRecorder`)."""
+    from cvids_tpu_torch.server import vocab
+
+    packets, _ = cs.server_stream(2, 40.0)
+    server, stats = cs.server_run(dev, packets, vocab.synthesize_tree_vocabulary(10, 4, seed=0),
+                                  sync_window=(10, 20), record=True)
+    rec = stats["recorder"].compare()
+    assert server.loop_count > 0 and server.solve_count > 0
+    assert rec["cascade_calls"] > 0 and rec["cascade_captures"] == 1
+    assert rec["bow_calls"] == len(packets) and rec["bow_captures"] == rec["bow_tiers"]
+    assert rec["cascade_differ"] == 0 and rec["bow_differ"] == 0, rec

@@ -16,6 +16,23 @@ import pytest
 from cvids_tpu_torch import _build, native
 
 
+def wait_for_reference_native(jnative, tries: int = 20, pause_s: float = 0.5) -> bool:
+    """Whether the JAX package's native library loads, looking again for up
+    to `tries` x `pause_s` seconds. Its library is made by `make` at first
+    use (`cvids_tpu/native/__init__.py`), maybe by another xdist worker at
+    this moment: a worker that reads the half-written `.so` keeps the
+    failure (`_TRIED` set, `_LIB` None), so each look clears `_TRIED`
+    first."""
+    import time
+
+    for _ in range(tries):
+        if jnative.available():
+            return True
+        jnative._TRIED = False
+        time.sleep(pause_s)
+    return jnative.available()
+
+
 @pytest.fixture(scope="module")
 def built():
     if not (shutil.which("g++") or shutil.which("c++")):
@@ -90,18 +107,9 @@ def test_native_bow_index_matches_dense(built, rng):
 def test_native_bow_index_matches_jax(built, rng):
     """The port's index and the JAX package's (built by its own Makefile)
     return the same scores, bit for bit, on the same entries and queries."""
-    import time
-
     from cvids_tpu import native as jnative
 
-    # its library is made by `make` at first use, maybe by another worker at
-    # this moment: look again for a few seconds before calling it missing
-    for _ in range(20):
-        if jnative.available():
-            break
-        jnative._TRIED = False
-        time.sleep(0.5)
-    assert jnative.available(), "the JAX package's native library did not build"
+    assert wait_for_reference_native(jnative), "the JAX package's native library did not build"
     vecs = _bow_vectors(rng, w=500, n=40, nnz=20)
     a, b = built.NativeBowIndex(500), jnative.NativeBowIndex(500)
     for i, v in enumerate(vecs):

@@ -33,6 +33,7 @@ from cvids_tpu_torch.server import vocab as tvoc
 from cvids_tpu_torch.server.posegraph import _match_and_pnp as torch_match_and_pnp
 from test_pcm_vocab import make_edges
 from test_ransac import make_pnp_problem
+from test_torch_native import wait_for_reference_native
 
 
 def _t(a):
@@ -266,11 +267,11 @@ def test_fundamental_ransac_matches_jax(rng):
     assert min(np.abs(fj - ft).max(), np.abs(fj + ft).max()) < 5e-3
 
 
-def test_match_and_pnp_cascade_matches_jax(rng):
-    """The loop cascade (match -> F -> PnP) on the planted-outlier data of
-    `test_find_connection_cascade_rejects_planted_outliers`, with the JAX
-    key chain's noise: the same matches, the same F-consistent survivors,
-    the same pose."""
+def _cascade_case(rng):
+    """The planted-outlier data of
+    `test_find_connection_cascade_rejects_planted_outliers`, both packages'
+    cascades on it with the JAX key chain's noise, the port's with
+    `jacobi`. Returns (port's, JAX's, the planted bad matches)."""
     n = 60
     r = np.asarray(jrot.quat_to_matrix(jrot.so3_exp(jnp.asarray([0.04, -0.08, 0.06]))))
     t = np.array([0.5, 0.15, 0.1], np.float32)
@@ -290,10 +291,22 @@ def test_match_and_pnp_cascade_matches_jax(rng):
         jnp.asarray(win_desc), jnp.asarray(ones), jnp.asarray(win_uv), jnp.asarray(pts_cj),
         jnp.asarray(desc), jnp.asarray(ones), jnp.asarray(ext_uv), key, 10.0 / 460.0, 15)
     key_f, key_p = jax.random.split(key)
-    res_t, m_t, keep_t = torch_match_and_pnp(
-        _td(win_desc), _t(ones), _t(win_uv), _t(pts_cj), _td(desc), _t(ones), _t(ext_uv),
-        _t(np.asarray(jax.random.gumbel(key_f, (128, n)))),
-        _t(np.asarray(jax.random.gumbel(key_p, (128, n)))), 10.0 / 460.0, 15)
+
+    def port(jacobi):
+        return torch_match_and_pnp(
+            _td(win_desc), _t(ones), _t(win_uv), _t(pts_cj), _td(desc), _t(ones), _t(ext_uv),
+            _t(np.asarray(jax.random.gumbel(key_f, (128, n)))),
+            _t(np.asarray(jax.random.gumbel(key_p, (128, n)))), 10.0 / 460.0, 15, jacobi)
+    return port, (res_j, m_j, keep_j), bad
+
+
+def test_match_and_pnp_cascade_matches_jax(rng):
+    """The loop cascade (match -> F -> PnP) on the planted-outlier data of
+    `test_find_connection_cascade_rejects_planted_outliers`, with the JAX
+    key chain's noise: the same matches, the same F-consistent survivors,
+    the same pose."""
+    port, (res_j, m_j, keep_j), bad = _cascade_case(rng)
+    res_t, m_t, keep_t = port(None)
     for a, b in zip(m_t, m_j):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
     np.testing.assert_array_equal(_np(keep_t), np.asarray(keep_j))
@@ -303,6 +316,25 @@ def test_match_and_pnp_cascade_matches_jax(rng):
     np.testing.assert_array_equal(_np(res_t.inliers), np.asarray(res_j.inliers))
     np.testing.assert_allclose(_np(res_t.r), np.asarray(res_j.r), atol=1e-4)
     np.testing.assert_allclose(_np(res_t.t), np.asarray(res_j.t), atol=1e-4)
+
+
+def test_match_and_pnp_cascade_with_jacobi_matches_jax(rng):
+    """The card's cascade (`jacobi=True`: the 8-point F, the DLT and its
+    SVD in float64 through the Jacobi eigensolver; here its twin) on the
+    same data and draws: the same matches and F-consistent survivors, the
+    same PnP inliers, and a pose within POSE_TOL of the JAX package's
+    float32 LAPACK one [measured: survivors and inliers equal]."""
+    POSE_TOL = 1e-4
+    port, (res_j, m_j, keep_j), bad = _cascade_case(rng)
+    res_t, m_t, keep_t = port(True)
+    for a, b in zip(m_t, m_j):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+    np.testing.assert_array_equal(_np(keep_t), np.asarray(keep_j))
+    assert bool(res_t.ok) and bool(res_j.ok)
+    assert int(res_t.num_inliers) == int(res_j.num_inliers)
+    np.testing.assert_array_equal(_np(res_t.inliers), np.asarray(res_j.inliers))
+    np.testing.assert_allclose(_np(res_t.r), np.asarray(res_j.r), atol=POSE_TOL)
+    np.testing.assert_allclose(_np(res_t.t), np.asarray(res_j.t), atol=POSE_TOL)
 
 
 # ---------- vocabulary ----------
@@ -504,8 +536,31 @@ def test_max_clique_matches_reference(rng, route, monkeypatch):
         monkeypatch.setattr(tnative, "available", lambda: False)
         monkeypatch.setattr(jnative, "available", lambda: False)
     else:
+        # the reference's library is built by `make` at its first use, maybe
+        # by another worker at this moment: wait it out before comparing
+        wait_for_reference_native(jnative)
         assert tpcm.native_max_clique_available() == jnative.available()
     for n in (0, 6, 25, 45):
         a = rng.random((n, n)) < 0.5
         a = a | a.T
         np.testing.assert_array_equal(tpcm.max_clique(a), jpcm.max_clique(a))
+
+
+def test_max_clique_native_recovers_from_a_lost_build_race(rng, monkeypatch):
+    """A worker that read the reference's library while another worker was
+    still writing it is left with `_TRIED` set and `_LIB` None, and reports
+    the library missing; the wait clears that and finds the library, so
+    the port's availability and cliques agree with the reference's."""
+    import shutil
+
+    if not (shutil.which("make") and (shutil.which("g++") or shutil.which("c++"))):
+        pytest.skip("no make and C++ compiler on PATH to build the reference's native library")
+    assert wait_for_reference_native(jnative), "the JAX package's native library did not build"
+    monkeypatch.setattr(jnative, "_TRIED", True)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    assert not jnative.available()                      # the losing worker's state
+    assert wait_for_reference_native(jnative)
+    assert tpcm.native_max_clique_available() == jnative.available()
+    a = rng.random((30, 30)) < 0.5
+    a = a | a.T
+    np.testing.assert_array_equal(tpcm.max_clique(a), jpcm.max_clique(a))

@@ -107,16 +107,14 @@ def test_eight_point_through_the_twin_is_as_close_to_float64():
 @pytest.mark.parametrize("outliers", [0, 15])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_card_essential_pose_departs_from_jax_by_its_rounding(seed, outliers):
-    """A named departure: the card's 8-point F (float64, Jacobi; here the
-    twin) against the JAX package's (float32 LAPACK, which the CPU path
-    keeps) through `essential_pose` on `test_torch_features.py`'s two-view
-    cases with JAX's draws. The card's pose is held to the truth of these
+    """A named departure: the card's `essential_pose` (`jacobi=True`: the
+    8-point F and its SVD in float64 through the Jacobi eigensolver; here
+    the twin) against the JAX package's (float32 LAPACK, which the CPU path
+    keeps) on `test_torch_features.py`'s two-view cases with JAX's draws. The card's pose is held to the truth of these
     exact inliers within POSE_TOL [measured 1e-5], where the JAX package's
     is up to 9e-2 off; the inlier sets and the cheirality votes differ from
     the JAX package's by at most one point [measured: the inliers in one
     case of six, the votes in two, each by one]."""
-    import functools
-
     import jax
     import jax.numpy as jnp
     from cvids_tpu.ops import ransac as jransac
@@ -128,11 +126,8 @@ def test_card_essential_pose_departs_from_jax_by_its_rounding(seed, outliers):
     key = jax.random.PRNGKey(seed)
     want = jransac.essential_pose(jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(valid), key)
     gumbel = torch.from_numpy(np.array(jax.random.gumbel(key, (128, len(p0)))))
-    card = functools.partial(ransac._eight_point, jacobi=True)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ransac, "_eight_point", card)
-        got = ransac.essential_pose(torch.from_numpy(p0), torch.from_numpy(p1),
-                                    torch.from_numpy(valid), gumbel)
+    got = ransac.essential_pose(torch.from_numpy(p0), torch.from_numpy(p1),
+                                torch.from_numpy(valid), gumbel, jacobi=True)
     assert bool(got.ok) and bool(want.ok)
     assert int((got.inliers.numpy() != np.asarray(want.inliers)).sum()) <= 1
     assert abs(int(got.num_pos) - int(want.num_pos)) <= 1
