@@ -1,8 +1,8 @@
-"""GPU smoke run of the PyTorch/CUDA port: builds the seven CUDA kernels
+"""GPU smoke run of the PyTorch/CUDA port: builds the eight CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
-hamming_matrix for the Pallas kernels, and small_eig, the eigensolver of
-the 8-point F and of the PnP's DLT, which has no Pallas counterpart),
-holds each against its
+hamming_matrix for the Pallas kernels; small_eig, the eigensolver of the
+8-point F and of the PnP's DLT, and klt_track, the agents' pyramidal LK
+tracker, which have no Pallas counterpart), holds each against its
 PyTorch twin on the card at its path's shapes (beside the launch floor: an
 empty kernel through the same launch path, timed the same way), then drives
 the port's paths at full width and checks that every kernel of each path
@@ -41,6 +41,9 @@ ran:
   equals the undistorted pinhole's rendering), then a radtan and a fisheye
   agent, images rendered through their cameras and features lifted by the
   port's `lift`, through the same whole server to phase 6's bounds;
+- phase 3 also holds klt_track to its twin bit for bit at the front-end's
+  call (752x480 pyramids, 150 points, 4 levels x 15, the forward-backward
+  gate) and at edge shapes, and its tracks to the true motion;
 - phase 8, the agents: two `AgentFrontend`s (FAST/BRIEF/KLT, IMU
   preintegration, the VI bootstrap, the sliding-window BA) on every 20 Hz
   frame of ~10 s of 752x480 radtan imagery with 200 Hz IMU, rendered in
@@ -53,7 +56,9 @@ ran:
   with its F-RANSAC, the re-detection, the packet's image program, the
   preintegration, the window solve, the marginalization's Schur
   complement) each captured, replayed and equal to its eager call, which
-  reads nothing back; four loop-verification cascades (their Hamming
+  reads nothing back, the eager call's klt_track held to its twin; the
+  tracker launched once a tracked frame (phases 8, 9 and 12); four
+  loop-verification cascades (their Hamming
   and small_eig calls) and two graphed dense
   frames of that server run (480x752x128 volumes) are kept, each rerun
   eagerly through the kernels (equal to the graph's, each kernel call held
@@ -172,15 +177,24 @@ SOURCES = {
     # no Pallas counterpart: the 8-point F's eigh and svd, which the JAX
     # package leaves to XLA (and the port's torch.linalg waited for the card)
     "small_eig": ("cvids_tpu_torch/csrc/small_eig.cu", "cvids_tpu/ops/ransac.py:181"),
+    # no Pallas counterpart: the JAX package compiles track_points into one
+    # program; the port ran it as ~40 small launches an LK iteration
+    "klt_track": ("cvids_tpu_torch/csrc/klt_track.cu", "cvids_tpu/ops/klt.py:35"),
 }
 # each kernel's wrapper in cuda_kernels (its twin: the same name + "_twin")
 WRAPPERS = {"warp_banded": "projective_warp_banded", "plane_sweep": "plane_sweep",
             "sgm_scan": "sgm_scan_bidir", "wta": "wta",
             "depth_filter_update": "depth_filter_update", "hamming_matrix": "hamming_matrix",
-            "small_eig": "small_eigh"}
+            "small_eig": "small_eigh", "klt_track": "klt_track"}
 DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
 SERVER_KERNELS = ("hamming_matrix",)
 RANSAC_KERNELS = ("small_eig",)     # every F-RANSAC: the agents' track step, the servers' cascade
+FRONTEND_KERNELS = ("klt_track",)   # the agents' track step alone
+# phase 3's tracker inputs: the front-end's call at the EuRoC rig
+KLT_H, KLT_W, KLT_N = 480, 752, 150
+KLT_ARGS = dict(radius=10, iters=15, max_residual=35.0, min_eig=1e-3, fb_thresh=1.5)
+KLT_LEVELS = 4
+KLT_MOTION = (2.3, -1.7, 0.01)      # the second frame's shift (px) and turn (rad)
 # the server slice: run_synthetic.py's circles for 4 agents, 1 Hz keyframes
 SERVER_AGENTS = 4
 SERVER_DURATION = 125.0     # s per agent: 126 keyframes each, 504 in all
@@ -240,7 +254,8 @@ def time_ms(fn, runs: int) -> float:
 # revisions before the fused warp, which `--package` may point at
 KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
                   "plane_sweep_kernel", "sgm_scan_kernel", "wta_kernel",
-                  "depth_filter_kernel", "hamming_kernel", "small_eig_kernel", "empty_kernel")
+                  "depth_filter_kernel", "hamming_kernel", "small_eig_kernel", "klt_track_kernel",
+                  "empty_kernel")
 
 
 def print_ptxas_summary(log: str) -> None:
@@ -421,6 +436,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ha, hb, hav, hbv = hamming_inputs(rng, dev, 160, 512)
     ha2, hb2, _, _ = hamming_inputs(rng, dev, 2048, 2048)
     ata, ftf, f3 = eight_point_systems(rng, dev)
+    klt_in = klt_inputs(rng, dev)
     if timed:
         # the kernels of microseconds under the profiler, before the volume
         # kernels and the twins run: each call must be one kernel launch and
@@ -434,12 +450,13 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                  lambda: ck.depth_filter_update(st, x, 0.013, valid)),
                 ("hamming_matrix", "hamming_kernel", lambda: ck.hamming_matrix(ha, hb, hav, hbv)),
                 ("hamming_2048", "hamming_kernel", lambda: ck.hamming_matrix(ha2, hb2)),
-                ("small_eig", "small_eig_kernel", lambda: ck.small_eigh(ata)))}
+                ("small_eig", "small_eig_kernel", lambda: ck.small_eigh(ata)),
+                ("klt_track", "klt_track_kernel", lambda: ck.klt_track(*klt_in, **KLT_ARGS)))}
         print(f"  launch floor: an empty kernel through cuda_kernels._launch {extras['floor_ms']:.4f} "
               f"ms between CUDA events (median of {runs}), "
               f"{extras['profiler_ms']['empty']:.4f} ms under the profiler; the host "
               f"spends {extras['launch_host_us']:.2f} us a launch; one device activity a call "
-              f"of the warp, the filter and the Hamming kernel")
+              f"of the warp, the filter, the Hamming kernel, small_eig and klt_track")
 
     # --- banded warp at phase 4's map and a small rotation, bands 96/48
     err = 0.0
@@ -593,6 +610,9 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                                  runs) if timed else float("nan"),
            "bound_ms": b12 + b3, "bound_by": by12}
     extras["small_eig_dlt"] = dlt
+
+    # --- the pyramidal LK tracker at the front-end's call (and edge shapes)
+    out["klt_track"] = klt_checks(dev, rng, klt_in, timed, runs, twin_runs)
     print(f"  small_eig, one PnP DLT's eigen work (128 x 12x12 and 128 x 3x3, fp64): kernel == "
           f"twin bit for bit; kernel {dlt['ms']:.4f} ms, twin {dlt['plain_ms']:.4f} ms, library "
           f"torch.linalg.eigh + svd {dlt['library_ms']:.4f} ms; bound {dlt['bound_ms']:.6f} ms "
@@ -683,11 +703,129 @@ def small_eig_edges(rng, dev) -> float:
     return 0.0
 
 
+def klt_texture(rng, h, w, dx=0.0, dy=0.0, angle=0.0, bias=0.0, black=None) -> np.ndarray:
+    """A band-limited texture (12 random sinusoids around 125), moved by (dx,
+    dy) px and turned by `angle` about the centre, plus `bias`; `black` (x0,
+    y0, x1, y1) is a box of the unmoved frame set to 0 (a flat patch)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    c, s = np.cos(angle), np.sin(angle)
+    xc, yc = xx - w / 2 - dx, yy - h / 2 - dy
+    u, v = c * xc + s * yc + w / 2, -s * xc + c * yc + h / 2
+    img = np.full((h, w), 125.0)
+    for _ in range(12):
+        k, th, ph = rng.uniform(0.05, 0.35), rng.uniform(0, np.pi), rng.uniform(0, 2 * np.pi)
+        img += 7.0 * np.sin(k * (np.cos(th) * u + np.sin(th) * v) + ph)
+    if black is not None:
+        x0, y0, x1, y1 = black
+        img[(u >= x0) & (u <= x1) & (v >= y0) & (v <= y1)] = 0.0
+    return (img + bias).astype(np.float32)
+
+
+def klt_inputs(rng, dev, h=KLT_H, w=KLT_W, n=KLT_N, levels=KLT_LEVELS, margin=12.0):
+    """The tracker's call as the front-end makes it: the pyramids of two
+    frames (the second moved by KLT_MOTION's shift and turn, 8 levels
+    brighter, a black box in both), n points seeded ~0.5 px off their
+    prediction, the last ones a point at the border, one given as invalid,
+    one in the black box and one seeded 80 px off. Returns (pyr0, pyr1, xy0,
+    valid0, init_xy) on `dev`."""
+    from cvids_tpu_torch.ops.image import build_pyramid
+
+    seed = int(rng.integers(1 << 30))
+    box = (0.55 * w, 0.6 * h, 0.55 * w + 40, 0.6 * h + 40)
+    img0 = klt_texture(np.random.default_rng(seed), h, w, black=box)
+    img1 = klt_texture(np.random.default_rng(seed), h, w, *KLT_MOTION, 8.0, black=box)
+    xy = np.stack([rng.uniform(margin, w - margin, n), rng.uniform(margin, h - margin, n)],
+                  -1).astype(np.float32)
+    valid = np.ones(n, bool)
+    init = xy + rng.normal(0, 0.5, xy.shape).astype(np.float32)
+    if n >= 4:
+        xy[-1] = [2.0, 2.0]                                     # at the border
+        valid[-2] = False                                       # given as invalid
+        xy[-3] = [box[0] + 20, box[1] + 20]                     # in the black box
+        init[-4] += [80.0, -60.0]                               # seeded far off
+    pyr = [[lv.contiguous() for lv in build_pyramid(torch.from_numpy(im).to(dev), levels)]
+           for im in (img0, img1)]
+    t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    return pyr[0], pyr[1], t(xy), t(valid), t(init)
+
+
+def klt_truth(xy: torch.Tensor, h=KLT_H, w=KLT_W) -> torch.Tensor:
+    """Where the points xy of `klt_inputs`' first frame lie in its second:
+    the inverse of `klt_texture`'s turn about the centre, then the shift."""
+    dx, dy, angle = KLT_MOTION
+    c, s = np.cos(angle), np.sin(angle)
+    u, v = xy[:, 0].double() - w / 2, xy[:, 1].double() - h / 2
+    return torch.stack([c * u - s * v + w / 2 + dx, s * u + c * v + h / 2 + dy], -1)
+
+
+def klt_edge_cases(rng, dev) -> list:
+    """(what, inputs, keyword arguments) of the tracker at edge shapes: one
+    point, 33 points (a ragged last 32), every point invalid, no
+    forward-backward gate (3 levels x 10), radius 3 at 1-4 levels on an odd
+    97x131 pair, radius 0 and the largest radius, points leaving the image
+    (seeds moved by up to 300 px)."""
+    cases = []
+    full = klt_inputs(rng, dev, 120, 160, 40, 4)
+    cases.append(("1 point", tuple(x[:1] if i > 1 else x for i, x in enumerate(full)),
+                  KLT_ARGS))
+    cases.append(("33 points", klt_inputs(rng, dev, 120, 160, 33, 4), KLT_ARGS))
+    none = list(full)
+    none[3] = torch.zeros_like(full[3])
+    cases.append(("all invalid", tuple(none), KLT_ARGS))
+    cases.append(("no gate, 3 levels x 10", klt_inputs(rng, dev, 120, 160, 40, 3),
+                  dict(radius=10, iters=10, max_residual=25.0, min_eig=1e-3, fb_thresh=None)))
+    for levels in (1, 2, 3, 4):
+        cases.append((f"radius 3, {levels} levels, 97x131", klt_inputs(rng, dev, 97, 131, 24,
+                                                                       levels, 6.0),
+                      dict(radius=3, iters=8, max_residual=40.0, min_eig=1e-3, fb_thresh=1.0)))
+    cases.append(("radius 0", klt_inputs(rng, dev, 97, 131, 24, 2, 4.0),
+                  dict(KLT_ARGS, radius=0)))
+    cases.append(("radius 24", klt_inputs(rng, dev, 120, 160, 12, 2, 30.0),
+                  dict(KLT_ARGS, radius=24, iters=4)))
+    off = list(klt_inputs(rng, dev, 120, 160, 40, 4))
+    off[4] = off[4] + torch.from_numpy(rng.uniform(-300, 300, (40, 2)).astype(np.float32)).to(dev)
+    cases.append(("seeds off the image", tuple(off), KLT_ARGS))
+    return cases
+
+
+def klt_checks(dev, rng, inputs, timed, runs, twin_runs):
+    """klt_track against its twin, bit for bit, at the path's shape (the
+    752x480 pyramids, 150 points, 4 levels x 15, the gate) and at
+    `klt_edge_cases`; then the path's call timed. Returns (max |err|, ms,
+    twin ms, bound ms, bound by)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    def same(what, args, kw):
+        got, ref = ck.klt_track(*args, **kw), ck.klt_track_twin(*args, **kw)
+        check(all(_same_bits(a, b) for a, b in zip(got, ref)),
+              f"klt_track {what}: the kernel's output differs from the twin's")
+        return got
+
+    xy, valid, _ = same("at the path's shape", inputs, KLT_ARGS)
+    cases = klt_edge_cases(rng, dev)
+    for what, args, kw in cases:
+        same(what, args, kw)
+    ms = time_ms(lambda: ck.klt_track(*inputs, **KLT_ARGS), runs) if timed else 0.0
+    pms = time_ms(lambda: ck.klt_track_twin(*inputs, **KLT_ARGS), twin_runs) if timed else 0.0
+    bound, by = roofline("klt_track", n=KLT_N, p=(2 * KLT_ARGS["radius"] + 1) ** 2,
+                         levels=KLT_LEVELS, iters=KLT_ARGS["iters"], fb=True, h=KLT_H, w=KLT_W)
+    err = (xy.double() - klt_truth(inputs[2])).norm(dim=-1)[valid]
+    check(int(valid.sum()) >= KLT_N * 0.8 and float(err.median()) < 0.1,
+          f"klt_track at the path's shape: {int(valid.sum())} of {KLT_N} tracked, median "
+          f"error {float(err.median())} px against the true motion")
+    print(f"  klt_track at {KLT_W}x{KLT_H}, {KLT_N} points, {KLT_LEVELS} levels x "
+          f"{KLT_ARGS['iters']}, the gate: kernel == twin bit for bit (tolerance: exact); "
+          f"{int(valid.sum())} tracked, error against the true motion median "
+          f"{float(err.median()):.4f} px, largest {float(err.max()):.4f} px (tolerance: median "
+          f"< 0.1 px, >= 80 % tracked); and at {', '.join(c[0] for c in cases)}")
+    return 0.0, ms, pms, bound, by
+
+
 def plan_checks() -> None:
-    """The scan's, the sweep's, the WTA's and the Hamming kernel's launch
-    plans as Python restates them (and the CPU tests hold to the card's
-    limits) against what the built library reports for the same shapes:
-    every D and dtype, ragged line counts and tiles."""
+    """The scan's, the sweep's, the WTA's, the Hamming kernel's and the
+    tracker's launch plans as Python restates them (and the CPU tests hold
+    to the card's limits) against what the built library reports for the
+    same shapes: every D and dtype, ragged line counts and tiles."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
 
     n = 0
@@ -712,6 +850,12 @@ def plan_checks() -> None:
         want, got = ck.hamming_plan(hn, hm), ck.compiled_hamming_plan(hn, hm)
         check(want == got, f"hamming plan at {hn}x{hm}: Python {want}, library {got}")
         n += 1
+    for kn in (1, 33, KLT_N, 1000):
+        for radius in (0, 3, 10, 15, 24):
+            want, got = ck.klt_plan(kn, radius), ck.compiled_klt_plan(kn, radius)
+            check(want == got, f"klt plan at {kn} points, radius {radius}: Python {want}, "
+                               f"library {got}")
+            n += 1
     print(f"  launch plans: Python's equal the library's at {n} shapes")
 
 
@@ -1024,7 +1168,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def memory_checks(device, rng, repeats=3) -> int:
-    """An audit of the seven kernels' memory accesses that needs no sanitizer:
+    """An audit of the eight kernels' memory accesses that needs no sanitizer:
     each kernel runs at the path's shapes and at ragged ones with its inputs
     and outputs guarded (`GuardedTorch`), and must give the bits of its
     unguarded run every time, with every red zone intact. An out-of-bounds
@@ -1070,6 +1214,10 @@ def memory_checks(device, rng, repeats=3) -> int:
         for dtype in (torch.float32, torch.float64):
             cases.append(("small_eig", ck.small_eigh,
                           ((x @ x.transpose(-1, -2)).to(dtype).contiguous(),)))
+    for args, kw in ((klt_inputs(rng, dev), KLT_ARGS),
+                     (klt_inputs(rng, dev, 97, 131, 33, 3, 6.0),
+                      dict(radius=3, iters=8, max_residual=40.0, min_eig=1e-3, fb_thresh=1.0))):
+        cases.append(("klt_track", lambda *a, kw=kw: ck.klt_track(*a, **kw), args))
 
     def flat(out):
         return [t for o in (out if isinstance(out, tuple) else (out,))
@@ -1084,6 +1232,8 @@ def memory_checks(device, rng, repeats=3) -> int:
             def guard(a, g=g):
                 if isinstance(a, FilterState):
                     return FilterState(*(guard(t) for t in a))
+                if isinstance(a, list):             # the tracker's pyramids
+                    return [guard(t) for t in a]
                 if isinstance(a, torch.Tensor):
                     return g.guarded(a.shape, a.dtype, a.device, fill=a)
                 return a
@@ -1092,11 +1242,11 @@ def memory_checks(device, rng, repeats=3) -> int:
                 out = flat(fn(*(guard(a) for a in args)))
             torch.cuda.synchronize()
             n_launches += 1
-            shape = tuple(args[0].shape) if torch.is_tensor(args[0]) else tuple(args[1].shape)
+            shape = next(tuple(a.shape) for a in args if torch.is_tensor(a))
             check(all(torch.equal(_bits(o), _bits(r)) for o, r in zip(out, ref)),
                   f"{name} {shape}: a guarded run differs from the unguarded one")
             check(g.red_zones_intact(), f"{name} {shape}: a red zone was written")
-    print(f"  memory audit: {n_launches} guarded launches of the seven kernels (path and ragged "
+    print(f"  memory audit: {n_launches} guarded launches of the eight kernels (path and ragged "
           f"shapes, {RED_ZONE} B red zones, {repeats} runs each): every run bit-identical "
           f"to the unguarded one, every red zone intact")
     return n_launches
@@ -2911,6 +3061,19 @@ def frame_imu(seq, fi):
     return seq["gyr"][sel], seq["acc"][sel], np.diff(np.append(seq["imu_t"][sel], t1))
 
 
+def track_launch_checks(fes, counts, what) -> None:
+    """The tracker ran once a tracked frame: its launches equal the track
+    graphs' replays (one a tracked frame) plus their captures' warm-up
+    calls, summed over the front-ends `fes`."""
+    calls = sum(fe._track.replays for fe in fes)
+    warm = sum(fe._track.captures for fe in fes)
+    check(calls > 0 and counts["klt_track"] == calls + warm,
+          f"{what}: {counts['klt_track']} klt_track launches for {calls} tracked frames and "
+          f"{warm} captures")
+    print(f"  {what}: klt_track launched {counts['klt_track']} times: once in each of the "
+          f"{calls} tracked frames' track graphs and once in each of {warm} captures' warm-up")
+
+
 def graph_checks(fe, img0, img1, imu) -> None:
     """The front-end's CUDA graphs, each of which must have been captured and
     replayed in the run, against the eager calls on the same inputs: the
@@ -2952,7 +3115,7 @@ def graph_checks(fe, img0, img1, imu) -> None:
         "solve": (frontend._solve_window_fast, (fe.state, meas, cfg.max_solver_iterations)),
         "marginalize": (window_ba.marg_schur_cam, (fe.state, meas, dying)),
     }
-    rec = KernelRecorder(RANSAC_KERNELS, calls=None)
+    rec = KernelRecorder(RANSAC_KERNELS + FRONTEND_KERNELS, calls=None)
     diffs = {}
     for name, (fn, args) in progs.items():
         graphed = calls[name](*args)
@@ -2973,7 +3136,8 @@ def graph_checks(fe, img0, img1, imu) -> None:
     worst = max(diffs, key=diffs.get)
     check(diffs[worst] <= 1e-6, f"graph replay differs from the eager call: {diffs}")
     compared = rec.compare()
-    check(compared.get("small_eig", 0) >= 2, f"the track step's small_eig calls {compared}")
+    check(compared.get("small_eig", 0) >= 2 and compared.get("klt_track", 0) == 1,
+          f"the track step's small_eig and klt_track calls {compared}")
     print(f"  CUDA graphs (captured, replays) in the run: {ran}; each replayed against its "
           f"eager call: largest relative difference {diffs[worst]:.3g} ({worst}; tolerance "
           f"1e-6); every eager call, fundamental_ransac, FAST, BRIEF and the blur included, "
@@ -3027,6 +3191,18 @@ def agents_score(server, seqs, cfg, dense_h, dense_w, n_agents):
     dist = (float(np.median(scene_distance(verts @ r_al.T + t_al, AGENT_SCENE)))
             if len(verts) else float("inf"))
     return ates, rmses, overlaps, dist, n_tri
+
+
+def vio_ate_cm(times, positions, seq) -> float:
+    """ATE sim3 (cm) of an agent's own keyframe poses as its packets carry
+    them (the front-end's VIO, before the server's loops and solves)
+    against the sequence's ground truth: what the server's ATE starts
+    from (ROADMAP F8)."""
+    from cvids_tpu_torch.utils.metrics import ate_rmse
+
+    t = np.asarray(times, np.float64)
+    gt_p = np.stack([np.interp(t, seq["gt_t"], seq["gt_p"][:, k]) for k in range(3)], -1)
+    return ate_rmse(np.asarray(positions, np.float64), gt_p, "sim3") * 100
 
 
 def _ms_stats(v) -> str:
@@ -3105,9 +3281,11 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     print(f"  host syncs per frame (agent 0 frames {AGENT_SYNC_WINDOW[0]}-"
           f"{AGENT_SYNC_WINDOW[1] - 1}): {syncs:.1f}; track stats {fes[0].track_stats}")
     print(f"  front-ends' kernel launches (graph replays count their kernels): {fe_counts}")
+    tracked = sum(fe._track.replays for fe in fes)      # before graph_checks' replay
     if dev.type == "cuda":
-        check(all(fe_counts[n] > 0 for n in RANSAC_KERNELS),
+        check(all(fe_counts[n] > 0 for n in RANSAC_KERNELS + FRONTEND_KERNELS),
               f"a kernel of the front-ends did not run: {fe_counts}")
+        track_launch_checks(fes, fe_counts, "phase 8")
         graph_checks(fes[0], seqs[0]["images"][-2], seqs[0]["images"][-1],
                      frame_imu(seqs[0], len(seqs[0]["cam_t"]) - 1))
     check(all(f.vi_initialized for f in fes), "an agent never VI-initialized")
@@ -3160,13 +3338,17 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
           f"{server.depth_maps_published}, inverse-depth RMS median {med_rms:.4f} over "
           f"{len(rmses)} maps (overlap max {max(overlaps, default=0):.3f}); mesh {n_tri} "
           f"triangles, median scene distance {dist:.4f} m; launches {counts}")
+    vio = [round(vio_ate_cm([p.timestamp for p in pk], [p.p_wb for p in pk], seq), 2)
+           for pk, seq in zip(packets, seqs)]
     print(f"  scores against test_full_system.py's bounds: packets {n_pk} (>= 8 each), loops "
           f"{g.loop_count} (>= 1), aligned {[cl.aligned for cl in g.clients[:n_agents]]}, ATE "
-          f"sim3 cm {[round(a * 100, 2) for a in ates]} (< 10), inverse-depth RMS median "
-          f"{med_rms:.4f} (< 0.12), mesh median scene distance {dist:.4f} m (< 0.15)")
+          f"sim3 cm {[round(a * 100, 2) for a in ates]} (< 10; the agents' own VIO poses "
+          f"{vio}), inverse-depth RMS median {med_rms:.4f} (< 0.12), mesh median scene "
+          f"distance {dist:.4f} m (< 0.15)")
     check(g.loop_count >= 1, "no loop closure between the agents")
     check(all(cl.aligned for cl in g.clients[:n_agents]), "a client never aligned")
-    check(all(a < 0.10 for a in ates), f"ATE sim3 {ates} m: not all < 0.10")
+    check(all(a < 0.10 for a in ates), f"ATE sim3 {ates} m: not all < 0.10 (the agents' own "
+                                       f"VIO poses {vio} cm; ROADMAP F8)")
     check(len(rmses) >= 2 and med_rms < 0.12, f"median inverse-depth RMS {med_rms} ({rmses})")
     check(dist < 0.15, f"mesh median scene distance {dist} m >= 0.15")
     if dev.type == "cuda":
@@ -3180,7 +3362,8 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
               f"times (its host gate)")
     print("phase 8 agents: ok")
     return counts, seqs, {"ate_cm": [a * 100 for a in ates], "rms": med_rms, "mesh_m": dist,
-                          "frontend_launches": fe_counts, "frames": len(rows)}
+                          "frontend_launches": fe_counts, "frames": len(rows),
+                          "tracked_frames": tracked}
 
 
 # ---------------------------------------------------------------------------
@@ -3239,6 +3422,16 @@ def same_codec_dicts(a: dict, b: dict) -> bool:
         and np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a)
 
 
+def saved_tracker(path: str) -> dict | None:
+    """What an agent process (`apps.agent_process.run_agent`) saved of its
+    tracker: its klt_track launches, the track graph's replays (one a
+    tracked frame) and captures; None from a package that saves none (an
+    earlier tree under a probe's `--package`)."""
+    keys = ("klt_launches", "track_replays", "track_captures")
+    with np.load(path, allow_pickle=False) as z:
+        return {k: int(z[k]) for k in keys} if all(k in z.files for k in keys) else None
+
+
 def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     """One run of the deployment graph on the sequences at `roots`: a
     `CollaborativeServer` with background solves (`agent_pipeline_config(
@@ -3249,8 +3442,9 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     fails at once if an agent process dies or the ingest thread raises; then
     a final solve (`flush`). On the card `CascadeRecorder` keeps four of the
     loop-verification cascades and `FrameRecorder` two graphed dense frames.
-    Returns a dict: server, transport, sent / frame_ms / keyframe per agent
-    (what each saved), received (the codec dicts the server was given, per
+    Returns a dict: server, transport, sent / frame_ms / keyframe / tracker
+    per agent (what each saved; tracker: its klt_track launches, track
+    graph replays and captures), received (the codec dicts the server was given, per
     client), order (the client of each ingested packet), process_ms,
     stream_s, launches, recorders (the two, on the card) and peak (GiB,
     this process)."""
@@ -3338,6 +3532,7 @@ def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
     counts = dict(ck.launches)
     sent, frame_ms, keyframe = zip(*(agent_process.load_sent(out) for out in outs))
     return dict(server=server, transport=srv, sent=sent, frame_ms=frame_ms, keyframe=keyframe,
+                tracker=[saved_tracker(out) for out in outs],
                 received=received, order=order, process_ms=process_ms, stream_s=stream_s,
                 launches=counts, recorders=(recorder, frames),
                 peak=torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan"))
@@ -3414,8 +3609,11 @@ def topology_phase(device, seqs, phase8, root, camera=None, dense=None, vocab_sh
           f"{srv.max_queued}; {g.solve_count} background solves ({g.discarded_solves} "
           f"discarded); ingest order by client {''.join(map(str, run['order']))}; peak device "
           f"memory {run['peak']:.2f} GiB (this process)")
+    vio = [round(vio_ate_cm([d["timestamp"] for d in sent], [d["p_wb"] for d in sent], seq), 2)
+           for sent, seq in zip(run["sent"], seqs)]
     print(f"  aligned {[cl.aligned for cl in g.clients[:n_agents]]}; loops {g.loop_count}; ATE "
-          f"sim3 cm {[round(a * 100, 2) for a in sc['ates']]} (phase 8 on the same frames: "
+          f"sim3 cm {[round(a * 100, 2) for a in sc['ates']]} (the agents' own VIO poses "
+          f"{vio}; phase 8 on the same frames: "
           f"{[round(a, 2) for a in phase8['ate_cm']]}); depth maps {server.depth_maps_published}, "
           f"inverse-depth RMS median {sc['rms']:.4f} (phase 8: {phase8['rms']:.4f}); mesh "
           f"{sc['triangles']} triangles, {sc['vertices']} vertices, median scene distance "
@@ -3423,13 +3621,23 @@ def topology_phase(device, seqs, phase8, root, camera=None, dense=None, vocab_sh
     check(g.solve_count >= 1, "the background optimizer never solved")
     check(g.loop_count >= 1, "no loop closure over the socket path")
     check(all(cl.aligned for cl in g.clients[:n_agents]), "a client never aligned")
-    check(all(a < 0.10 for a in sc["ates"]), f"ATE sim3 {sc['ates']} m: not all < 0.10")
+    check(all(a < 0.10 for a in sc["ates"]), f"ATE sim3 {sc['ates']} m: not all < 0.10 (the "
+                                             f"agents' own VIO poses {vio} cm; ROADMAP F8)")
     check(server.depth_maps_published >= 2, f"depth maps {server.depth_maps_published} < 2")
     check(sc["vertices"] > 300 and sc["finite"],
           f"mesh of {sc['vertices']} vertices (finite: {sc['finite']})")
     check(not on_card or all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS
                              if n != "warp_banded"), f"a kernel did not run in phase 9: {counts}")
+    for cid, tr in enumerate(run["tracker"]):
+        check(not on_card or (tr is not None and tr["track_replays"] > 0 and tr["klt_launches"]
+                              == tr["track_replays"] + tr["track_captures"]),
+              f"agent {cid}'s process: {tr}: klt_track did not launch once a tracked frame")
+    if on_card:
+        print(f"  the agent processes' klt_track launches (each its own process): "
+              f"{[tr['klt_launches'] for tr in run['tracker']]}, once in each tracked frame "
+              f"({[tr['track_replays'] for tr in run['tracker']]}) and each capture's warm-up")
     print(f"phase 9 topology: ok in {time.perf_counter() - t_phase:.1f} s")
+    counts["klt_track"] = sum(tr["klt_launches"] for tr in run["tracker"] if tr)
     return server, roots, counts
 
 
@@ -3765,8 +3973,11 @@ def fisheye_phase(device) -> dict:
             check(server.loop_count >= 1, "no loop closures on the fisheye rig")
             check(all(aligned), f"aligned {aligned}")
             check(all(a < 15.0 for a in ates), f"fisheye ATE {ates} cm")
-            check(not on_card or all(counts[n] > 0 for n in SERVER_KERNELS + RANSAC_KERNELS),
+            check(not on_card or all(counts[n] > 0 for n in SERVER_KERNELS + RANSAC_KERNELS
+                                     + FRONTEND_KERNELS),
                   f"a kernel of the rig did not run: {counts}")
+            if on_card:
+                track_launch_checks(fes, counts, "phase 12")
             seq0 = seqs[0]
             last = len(seq0.cam_t) - 1
             sel = (seq0.imu_t >= seq0.cam_t[last - 1]) & (seq0.imu_t < seq0.cam_t[last])
@@ -3992,7 +4203,8 @@ def main() -> int:
     # profiler_ms: the device time of a kernel of microseconds in one profiled
     # call (null for the volume kernels: phase 4's profiled frame prints theirs).
     # library_ms: null, no single PyTorch call computes any of the six
-    # ported kernels; for small_eig the torch.linalg calls it replaced.
+    # ported kernels, nor klt_track; for small_eig the torch.linalg calls
+    # it replaced.
     # small_eig's launches_frontend_phase8: phase 8's front-ends (graph
     # replays count their kernels), and per camera frame; launches_phase5:
     # phase 5's pose graph, whose cascades each launch it four times (the
@@ -4016,6 +4228,15 @@ def main() -> int:
                          "dlt_12x12": {**dlt, "share": dlt["bound_ms"] / dlt["ms"],
                                        "reach": max(dlt["bound_ms"], extras["floor_ms"])
                                        / dlt["ms"]}}
+    # klt_track's launches: phase 8's front-ends, its path (graph replays
+    # count their kernel; one a tracked frame and one a capture's warm-up),
+    # launches_per_frame_phase8 per camera frame, tracked_frames_phase8; the
+    # launches_phase* of the server runs are 0 (no front-end there) but
+    # phase 9's, which sums its agent processes', and phase 12's
+    fe_klt = agent_scores["frontend_launches"]["klt_track"]
+    rate["klt_track"] = {"launches_frontend_phase8": fe_klt,
+                         "launches_per_frame_phase8": fe_klt / agent_scores["frames"],
+                         "tracked_frames_phase8": agent_scores["tracked_frames"]}
     floor = extras["floor_ms"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],
@@ -4032,6 +4253,7 @@ def main() -> int:
                 "profiler_ms": extras["profiler_ms"].get(name),
                 "library_ms": extras["library_ms"].get(name)}
                for name in SOURCES]
+    next(k for k in kernels if k["name"] == "klt_track")["launches"] = fe_klt
     big = extras["hamming_2048"]
     next(k for k in kernels if k["name"] == "hamming_matrix")["at_2048x2048"] = {
         **big, "share": big["bound_ms"] / big["ms"],

@@ -56,6 +56,10 @@ SIGNATURES = {
     "cvids_depth_filter": [_P, _P, _P, _P, _P, _P, _F, _P, _F, _F, _F,
                            _P, _P, _P, _P, ctypes.c_long, _P],
     "cvids_small_eig": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "cvids_klt_track": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+                        ctypes.POINTER(_I), _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                        _I, _P],
+    "cvids_klt_plan": [_I, _I, ctypes.POINTER(_I)],
     "cvids_empty": [_P],
 }
 

@@ -6,8 +6,9 @@ since the previous one, each keyframe packet published over TCP by
 
 `agent_main` is the target of a spawned process (a process that holds a
 CUDA context cannot fork one that uses the card). It saves what it sent,
-the codec dicts of every packet, and its per-frame host times to an `.npz`,
-so that the server side can check the wire bit for bit.
+the codec dicts of every packet, its per-frame host times and its tracker
+launches to an `.npz`, so that the server side can check the wire bit for
+bit and see that the tracker ran.
 
     python -m cvids_tpu_torch.apps.agent_process --seq DIR --client 0 --port P [--out F]
         [--device cpu] [--threads N]
@@ -80,9 +81,13 @@ def run_agent(root: str, client_id: int, port: int, out: str | None = None,
     finally:
         sender.close()
     if out is not None:
+        from ..ops import cuda_kernels
         arrays = {f"{i}.{k}": np.asarray(v) for i, d in enumerate(sent) for k, v in d.items()}
         np.savez(out, frame_ms=np.asarray(frame_ms), keyframe=np.asarray(keyframe, bool),
-                 packets=np.int64(len(sent)), **arrays)
+                 packets=np.int64(len(sent)),
+                 klt_launches=np.int64(cuda_kernels.launches["klt_track"]),
+                 track_replays=np.int64(fe._track.replays),
+                 track_captures=np.int64(fe._track.captures), **arrays)
     return fe
 
 

@@ -17,7 +17,12 @@ Each kernel has a wrapper and a twin with the same contract:
 - `small_eigh` — batched symmetric eigendecomposition of matrices up to
   12×12 by cyclic Jacobi, the 8-point fundamental matrix's eigensolver
   (``csrc/small_eig.cu``; no Pallas counterpart: it replaces torch.linalg
-  calls that wait for the card).
+  calls that wait for the card);
+- `klt_track` — pyramidal Lucas-Kanade tracking of a batch of points,
+  forward and back with the forward-backward gate, one warp a point, one
+  launch (``csrc/klt_track.cu``; no Pallas counterpart: the JAX package
+  compiles `track_points` into one program). Its window sums run in one
+  fixed order, `lane_sum`'s, in the kernel and the twin.
 
 Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
 tensors it launches its kernel, or raises on anything the kernel does not
@@ -31,12 +36,13 @@ Callers reach the wrappers as attributes of this module
 The volume kernels need D a multiple of 32 with D <= 256; the twins take any
 D. The scan's, the sweep's and the WTA's launches (lane groups, ring depth,
 tile, grid, dynamic shared memory) are decided in their ``.cu`` files, as is
-the Hamming kernel's tile; `sgm_scan_plan`, `plane_sweep_plan`, `wta_plan`
-and `hamming_plan` restate them as pure functions, and the
-``compiled_*_plan`` functions read them from the built library. `kernel_work` gives
-the bytes and operations a call must at least move and do, for a roofline
-bound. Descriptors are (N, 8) int32 tensors: the uint32 words of the
-packets, viewed as int32 (XOR and popcount ignore the sign).
+the Hamming kernel's tile and the tracker's shared memory; `sgm_scan_plan`,
+`plane_sweep_plan`, `wta_plan`, `hamming_plan` and `klt_plan` restate them
+as pure functions, and the ``compiled_*_plan`` functions read them from the
+built library. `kernel_work` gives the bytes and operations a call must at
+least move and do, for a roofline bound. Descriptors are (N, 8) int32
+tensors: the uint32 words of the packets, viewed as int32 (XOR and popcount
+ignore the sign).
 """
 
 from __future__ import annotations
@@ -48,13 +54,14 @@ from typing import NamedTuple
 import torch
 
 from . import depth_filter
-from .image import warp_pass_positions
+from .image import bilinear_sample, warp_pass_positions
 
 __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "hamming_matrix", "depth_filter_update", "small_eigh",
            "projective_warp_banded_twin", "plane_sweep_twin",
            "sgm_scan_bidir_twin", "wta_twin", "hamming_matrix_twin",
-           "depth_filter_update_twin", "small_eigh_twin", "popcount32", "launches",
+           "depth_filter_update_twin", "small_eigh_twin", "klt_track", "klt_track_twin",
+           "lane_sum", "klt_plan", "compiled_klt_plan", "KltPlan", "popcount32", "launches",
            "reset_launches", "sgm_scan_plan", "plane_sweep_plan", "wta_plan",
            "compiled_sgm_scan_plan", "compiled_plane_sweep_plan",
            "compiled_wta_plan", "hamming_plan", "compiled_hamming_plan",
@@ -63,7 +70,7 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "add_launches"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
-            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0}
+            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0, "klt_track": 0}
 
 _BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
@@ -844,6 +851,187 @@ def small_eigh(a: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# Pyramidal Lucas-Kanade tracking, forward and back, one warp a point
+# ---------------------------------------------------------------------------
+
+KLT_LANES = 32          # the lanes that share a window's sums (one warp)
+KLT_MAX_LEVELS = 8
+KLT_MAX_RADIUS = 24
+
+
+def lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sums of (N, P) over P in the kernel's order: lane l of 32 adds
+    columns l, l + 32, ... in increasing order to 0 (zero padding to a
+    multiple of 32), then five halving adds, the xor butterfly's offsets 16,
+    8, 4, 2, 1. Returns (N,)."""
+    n, p = v.shape
+    cols = -(-p // KLT_LANES)
+    padded = torch.zeros((n, cols * KLT_LANES), dtype=v.dtype, device=v.device)
+    padded[:, :p] = v
+    cells = padded.view(n, cols, KLT_LANES)
+    acc = torch.zeros((n, KLT_LANES), dtype=v.dtype, device=v.device)
+    for k in range(cols):
+        acc = acc + cells[:, k]
+    half = KLT_LANES // 2
+    while half:
+        acc = acc[:, :half] + acc[:, half:2 * half]
+        half //= 2
+    return acc[:, 0]
+
+
+def _klt_direction(src, dst, xy0, valid0, init_xy, radius, iters, max_residual, min_eig):
+    """One direction of `klt_track_twin`: the points xy0 of image `src`
+    (its pyramid) tracked into `dst`, seeded at init_xy. The arithmetic is
+    the reference's compiled program's (XLA turns a division by the window
+    size into a multiplication by its float32 reciprocal; the step is
+    `inv_det (gyy bx - gxy by)`, then times the scale), the window sums
+    `lane_sum`'s. Divisions are by tensors on the inputs' device: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    rounds differently from the kernel's IEEE division."""
+    dev = xy0.device
+    side = 2 * radius + 1
+    one = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+    inv_pix = one / torch.full((), float(side * side), device=dev)
+    r = torch.arange(-radius, radius + 1, dtype=torch.float32, device=dev)
+    oy, ox = (g.reshape(-1) for g in torch.meshgrid(r, r, indexing="ij"))
+
+    def sample(img, x, y):
+        return bilinear_sample(img, torch.stack((x, y), -1))
+
+    x0, y0 = xy0[:, 0], xy0[:, 1]
+    flow_x, flow_y = init_xy[:, 0] - x0, init_xy[:, 1] - y0
+    residual = torch.zeros_like(x0)
+    conditioned = torch.ones_like(valid0)
+    for lvl in reversed(range(len(src))):
+        scale = torch.full((), 2.0 ** lvl, device=dev)
+        i0, i1 = src[lvl], dst[lvl]
+        px, py = x0 / scale, y0 / scale
+        cx, cy = px[:, None] + ox[None], py[:, None] + oy[None]
+        t = sample(i0, cx, cy)
+        gx = sample(i0, cx + 0.5, cy) - sample(i0, cx - 0.5, cy)
+        gy = sample(i0, cx, cy + 0.5) - sample(i0, cx, cy - 0.5)
+        t_zm = t - (lane_sum(t) * inv_pix)[:, None]
+        gxx, gxy, gyy = lane_sum(gx * gx), lane_sum(gx * gy), lane_sum(gy * gy)
+        det = gxx * gyy - gxy * gxy
+        trace = gxx + gyy
+        disc = trace * trace - 4.0 * det
+        mineig = (trace - torch.sqrt(torch.where(disc < 0.0, zero, disc))) * 0.5
+        conditioned = conditioned & (mineig * inv_pix > min_eig)
+        inv_det = torch.where(torch.abs(det) > 1e-12, one / det, zero)
+        for _ in range(iters):
+            qx, qy = px + flow_x / scale, py + flow_y / scale
+            w = sample(i1, qx[:, None] + ox[None], qy[:, None] + oy[None])
+            e = (w - (lane_sum(w) * inv_pix)[:, None]) - t_zm
+            bx, by = lane_sum(gx * e), lane_sum(gy * e)
+            dx = inv_det * (gyy * bx - gxy * by)
+            dy = inv_det * (-gxy * bx + gxx * by)
+            flow_x, flow_y = flow_x - dx * scale, flow_y - dy * scale
+        qx, qy = px + flow_x / scale, py + flow_y / scale
+        w = sample(i1, qx[:, None] + ox[None], qy[:, None] + oy[None])
+        residual = lane_sum(torch.abs(w - t)) * inv_pix
+    x1, y1 = x0 + flow_x, y0 + flow_y
+    h, w = dst[0].shape
+    inb = (x1 >= radius) & (x1 <= w - 1 - radius) & (y1 >= radius) & (y1 <= h - 1 - radius)
+    valid = valid0 & inb & conditioned & (residual < max_residual)
+    return x1, y1, valid, residual
+
+
+def klt_track_twin(pyr0, pyr1, xy0, valid0, init_xy, radius: int = 10, iters: int = 10,
+                   max_residual: float = 25.0, min_eig: float = 1e-3,
+                   fb_thresh: float | None = None):
+    """Plain PyTorch twin of `klt_track`: every window sum by `lane_sum`,
+    the rest in the kernel's operations and order."""
+    x1, y1, valid, residual = _klt_direction(pyr0, pyr1, xy0, valid0, init_xy, radius, iters,
+                                             max_residual, min_eig)
+    if fb_thresh is not None:
+        bx, by, back_valid, _ = _klt_direction(pyr1, pyr0, torch.stack((x1, y1), -1), valid,
+                                               xy0, radius, iters, max_residual, min_eig)
+        dx, dy = bx - xy0[:, 0], by - xy0[:, 1]
+        valid = valid & back_valid & (torch.sqrt(dx * dx + dy * dy) < fb_thresh)
+    return torch.stack((x1, y1), -1), valid, residual
+
+
+class KltPlan(NamedTuple):
+    """The tracker's launch: a block of `threads` (one warp) a point, each
+    lane owning `cols` window pixels, `smem_bytes` of dynamic shared memory
+    (the template, its two gradients and an iteration's samples)."""
+    threads: int
+    cols: int
+    smem_bytes: int
+    grid: int
+
+
+def klt_plan(n: int, radius: int) -> KltPlan:
+    """Threads, pixels a lane, shared memory and grid of one `klt_track`
+    launch over `n` points at `radius`, as ``csrc/klt_track.cu`` compiles
+    them, restated here so that they can be held without the card;
+    `compiled_klt_plan` reads the built library's own."""
+    if n < 1 or not 0 <= radius <= KLT_MAX_RADIUS:
+        raise ValueError(f"the KLT kernel takes n >= 1 and 0 <= radius <= {KLT_MAX_RADIUS}, "
+                         f"got {n}, {radius}")
+    cols = -(-(2 * radius + 1) ** 2 // KLT_LANES)
+    return KltPlan(KLT_LANES, cols, 4 * cols * KLT_LANES * 4, n)
+
+
+def compiled_klt_plan(n: int, radius: int) -> KltPlan:
+    """`klt_plan` as the built library reports it."""
+    return KltPlan(*_compiled_plan("cvids_klt_plan", 4, n, radius))
+
+
+def klt_track(pyr0, pyr1, xy0: torch.Tensor, valid0: torch.Tensor, init_xy: torch.Tensor,
+              radius: int = 10, iters: int = 10, max_residual: float = 25.0,
+              min_eig: float = 1e-3, fb_thresh: float | None = None):
+    """Pyramidal LK of the points xy0 (N, 2) fp32 from image 0 to image 1,
+    given both pyramids (lists of (h_l, w_l) fp32 levels, level 0 the
+    image, the same shapes in both), seeded at init_xy (N, 2); valid0 (N,)
+    bool. With `fb_thresh`, each point is tracked back from its result into
+    image 0, seeded at xy0, and kept where it lands within `fb_thresh` px.
+    Returns (xy (N, 2), valid (N,) bool, residual (N,)): the contract of
+    `ops.klt.track_points` on built pyramids. Every point is tracked, valid
+    or not. On the card one launch does both directions."""
+    if not _on_cuda(*pyr0, *pyr1, xy0, valid0, init_xy):
+        return klt_track_twin(pyr0, pyr1, xy0, valid0, init_xy, radius, iters, max_residual,
+                              min_eig, fb_thresh)
+    levels = len(pyr0)
+    if not 1 <= levels <= KLT_MAX_LEVELS or len(pyr1) != levels:
+        raise ValueError(f"the KLT kernel takes 1 to {KLT_MAX_LEVELS} levels, the same in "
+                         f"both pyramids, got {levels} and {len(pyr1)}")
+    shapes = []
+    for lvl, (a, b) in enumerate(zip(pyr0, pyr1)):
+        if a.ndim != 2 or min(a.shape) < 1:
+            raise ValueError(f"pyramid level {lvl} must be (h, w) with h, w >= 1, got "
+                             f"{tuple(a.shape)}")
+        _require(a, f"pyr0[{lvl}]", a.shape, (torch.float32,))
+        _require(b, f"pyr1[{lvl}]", a.shape, (torch.float32,))
+        shapes.append(tuple(a.shape))
+    n = xy0.shape[0] if xy0.ndim == 2 else -1
+    _require(xy0, "xy0", (n, 2), (torch.float32,))
+    _require(init_xy, "init_xy", (n, 2), (torch.float32,))
+    _require(valid0, "valid0", (n,), (torch.bool,))
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    dev = xy0.device
+    xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    residual = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return xy, valid, residual
+    klt_plan(n, radius)         # raises on a radius the kernel does not take
+    import ctypes
+    ptrs = ctypes.c_void_p * levels
+    ints = ctypes.c_int * levels
+    _launch("klt_track", "cvids_klt_track", dev,
+            ptrs(*(a.data_ptr() for a in pyr0)), ptrs(*(b.data_ptr() for b in pyr1)),
+            ints(*(s[0] for s in shapes)), ints(*(s[1] for s in shapes)), levels,
+            xy0.data_ptr(), valid0.data_ptr(), init_xy.data_ptr(), xy.data_ptr(),
+            valid.data_ptr(), residual.data_ptr(), n, int(radius), int(iters),
+            float(max_residual), float(min_eig),
+            0.0 if fb_thresh is None else float(fb_thresh), int(fb_thresh is not None))
+    return xy, valid, residual
+
+
+# ---------------------------------------------------------------------------
 # The least work of a call, for a roofline bound
 # ---------------------------------------------------------------------------
 
@@ -862,7 +1050,9 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
     d, itemsize (one launch: one axis, both directions); wta h, w, d,
     itemsize, parts; depth_filter_update h, w, tau2_map (False: a scalar);
     hamming_matrix n, m, a_mask, b_mask (True: the validity mask is given);
-    small_eig batch, n, itemsize (4 or 8: its operations are fp64 at 8)."""
+    small_eig batch, n, itemsize (4 or 8: its operations are fp64 at 8);
+    klt_track n points, p window pixels, levels, iters, fb (True: tracked
+    back too), h, w (level 0; the levels halve with the floor)."""
     g = shape.get
     if name == "warp_banded":
         px = g("h") * g("w")
@@ -904,4 +1094,18 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
         # q of the eigenvectors, 6 a row each; the sort's rank n² compares
         per_matrix = SMALL_EIG_SWEEPS * n * (n - 1) // 2 * (18 * n + 15) + n * n
         return es * b * (2 * n * n + n), b * per_matrix
+    if name == "klt_track":
+        n, p, levels, iters = g("n"), g("p"), g("levels"), g("iters")
+        h, w = g("h"), g("w")
+        pixels = sum((h >> lvl) * (w >> lvl) for lvl in range(levels))
+        # both pyramids in; xy0 and init_xy (8 bytes each) and valid0 in; xy,
+        # valid and residual out. Per window pixel, a bilinear sample is ~30
+        # (floors, clamps, four taps, the inside test); a level's set-up 5
+        # samples, the two differences, four products and sums: ~162; an
+        # iteration a sample, its coordinates, the sum, e and the two
+        # projections: ~38; the residual ~34. Per point and level ~20 more
+        # (det, eigenvalue, step) and ~12 an iteration (means, the step)
+        per_level = p * (162 + 38 * iters + 34) + 20 + 12 * iters
+        directions = 2 if g("fb", True) else 1
+        return 2 * 4 * pixels + 17 * n + 13 * n, n * directions * levels * per_level
     raise KeyError(f"no kernel named {name!r}")

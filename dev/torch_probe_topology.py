@@ -21,10 +21,12 @@ frame and a keyframe (medians). `--no-replays` skips the replays;
 `--package DIR` imports `cvids_tpu_torch` from DIR (an unpacked `git
 archive` of another commit; the agent processes inherit it) and `--cache
 FILE` keeps the rendered sequences, so that two trees run in turns in one
-call:
+call. `--save FILE` pickles the ground truth, the first run's packets
+(codec dicts without their images) and each run's ingest order, ATE, loop
+edges and keyframe store, for `dev/phase9_posegraph_ab.py` on the CPU:
 
     python3 dev/torch_probe_topology.py [--repeats 3] [--imu-decimals] [--no-replays]
-        [--package DIR] [--cache build/frames.pkl]
+        [--package DIR] [--cache build/frames.pkl] [--save FILE]
 
 About 4 minutes on an H100 (one repeat without replays: ~1.5 minutes after
 the rendering).
@@ -42,7 +44,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+# not in front of a `--package` tree: a spawned agent process re-imports
+# this module after taking the parent's sys.path, package first
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
@@ -60,6 +65,19 @@ def scores(server, roots, cfg, dense) -> dict:
             "mesh_m": round(sc["mesh_m"], 4), "loops": g.loop_count, "solves": g.solve_count,
             "aligned": [bool(c.aligned) for c in g.clients[:len(roots)]],
             "depth_maps": server.depth_maps_published}
+
+
+def graph_record(server, n_agents: int) -> dict:
+    """What `--save` keeps of a run's pose graph: the keyframe store's
+    client, timestamp and local index, the loop edges (i, j, t_ij, yaw_ij)
+    and each agent's trajectory."""
+    g = server.graph
+    st, n, k = g.store, g.store.count, g.loop_count
+    return {"world_client": g.world_client, "client": st.client[:n].copy(),
+            "timestamp": st.timestamp[:n].copy(), "local_index": st.local_index[:n].copy(),
+            "loop_i": g.loop_i[:k].copy(), "loop_j": g.loop_j[:k].copy(),
+            "loop_t": g.loop_t[:k].copy(), "loop_yaw": g.loop_yaw[:k].copy(),
+            "trajectory": [server.trajectory(c) for c in range(n_agents)]}
 
 
 def replay(dev, sent, roots, cfg, dense, async_optimize) -> dict:
@@ -96,6 +114,7 @@ def main() -> int:
     ap.add_argument("--no-replays", action="store_true")
     ap.add_argument("--package", default=None)
     ap.add_argument("--cache", default=None)
+    ap.add_argument("--save", default=None)
     args = ap.parse_args()
     if args.package:
         sys.path.insert(0, str(Path(args.package).resolve()))
@@ -124,7 +143,8 @@ def main() -> int:
           "imu": "9 decimals" if args.imu_decimals else "17 significant digits"})
     with tempfile.TemporaryDirectory(prefix="cvids_topology_probe_") as root:
         roots = cs.write_sequences(seqs, cfg, root, exact=not args.imu_decimals)
-        first = None
+        first, saved = None, {"truth": [{k: s_[k] for k in ("gt_t", "gt_p", "gt_q")}
+                                         for s_ in seqs], "runs": []}
         for rep in range(args.repeats):
             t0 = time.perf_counter()
             run = cs.topology_run(dev, roots, cfg, dense)
@@ -133,7 +153,10 @@ def main() -> int:
                 len(a) == len(b) and all(cs.same_codec_dicts(x, y) for x, y in zip(a, b))
                 for a, b in zip(sent, first))
             first = first or sent
-            emit({"run": f"topology {rep}", "card": smi, **scores(run["server"], roots, cfg, dense),
+            row = scores(run["server"], roots, cfg, dense)
+            saved["runs"].append({"order": "".join(map(str, run["order"])),
+                                  "ate_cm": row["ate_cm"], **graph_record(run["server"], len(roots))})
+            emit({"run": f"topology {rep}", "card": smi, **row,
                   "packets": [len(p) for p in sent], "same_packets_as_run_0": same if rep else None,
                   "order": "".join(map(str, run["order"])), "stream_s": run["stream_s"],
                   "agent_plain_ms": [float(np.median(np.asarray(f)[~np.asarray(k, bool)]))
@@ -145,6 +168,11 @@ def main() -> int:
             emit({"run": f"run 0's packets in timestamp order, one thread, "
                          f"{'background' if async_optimize else 'inline'} solves", "card": smi,
                   **replay(dev, first, roots, cfg, dense, async_optimize)})
+    if args.save:
+        saved["packets"] = [[{k: v for k, v in d.items() if k != "image"} for d in per]
+                            for per in first]
+        Path(args.save).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.save).write_bytes(pickle.dumps(saved))
     return 0
 
 

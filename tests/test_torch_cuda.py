@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their PyTorch twins, the front-end's and
+"""The eight CUDA kernels against their PyTorch twins, the front-end's and
 the server's CUDA graphs (the front-end's track step, re-detection, packet
 image program, preintegration, window solve and marginalization; the dense
 frame, the 4-DoF solve, the pose graph's loop-verification cascade and BoW
@@ -132,6 +132,27 @@ def test_small_eig_kernel(n, dev):
             got, want = ck.small_eigh(a), ck.small_eigh_twin(a)
             assert all(g.dtype == dtype for g in got)
             assert all(cs._same_bits(g, w) for g, w in zip(got, want))
+
+
+def test_klt_track_kernel(dev):
+    """The tracker against its twin, bit for bit: a 160x120 pair at the
+    front-end's settings and `chip_smoke.klt_edge_cases` (one point, 33,
+    all invalid, no gate, radius 3 at 1-4 levels, radius 0 and 24, seeds
+    off the image); one launch a call."""
+    rng = np.random.default_rng(7)
+    cases = [("front-end", cs.klt_inputs(rng, dev, 120, 160, 40, 4), cs.KLT_ARGS)]
+    for what, args, kw in cases + cs.klt_edge_cases(rng, dev):
+        before = ck.launches["klt_track"]
+        got = ck.klt_track(*args, **kw)
+        assert ck.launches["klt_track"] == before + 1
+        ref = ck.klt_track_twin(*args, **kw)
+        assert all(cs._same_bits(a, b) for a, b in zip(got, ref)), what
+
+
+def test_klt_plan_matches_library(dev):
+    for n in (1, 33, 150):
+        for radius in (0, 3, 10, 24):
+            assert ck.compiled_klt_plan(n, radius) == ck.klt_plan(n, radius)
 
 
 def test_fundamental_ransac_reads_nothing_back(dev):
@@ -448,7 +469,8 @@ def test_graphed_dense_frame_counts_its_launches(dev):
     for _ in range(3):
         step.fuse(meas, a, b, gate)
     assert ck.launches == {"warp_banded": 3, "plane_sweep": 3, "sgm_scan": 6, "wta": 3,
-                           "hamming_matrix": 0, "depth_filter_update": 3, "small_eig": 0}
+                           "hamming_matrix": 0, "depth_filter_update": 3, "small_eig": 0,
+                           "klt_track": 0}
 
 
 def _solve_problem(dev, n, seed):

@@ -345,9 +345,16 @@ def test_cpu_dispatch_routes_to_twins(rng):
     for o, r in zip(ck.small_eigh(sym @ sym.transpose(-1, -2)),
                     ck.small_eigh_twin(sym @ sym.transpose(-1, -2))):
         np.testing.assert_array_equal(_np(o), _np(r))
+    pyr = [img, img[::2, ::2].contiguous()]
+    xy = _t(rng.uniform(3, 12, (6, 2)).astype(np.float32))
+    track = (pyr, pyr, xy, torch.ones(6, dtype=torch.bool), xy + 0.5)
+    for o, r in zip(ck.klt_track(*track, radius=2, iters=3, fb_thresh=1.0),
+                    ck.klt_track_twin(*track, radius=2, iters=3, fb_thresh=1.0)):
+        np.testing.assert_array_equal(_np(o), _np(r))
     # nothing was launched: the CPU tensors went to the twins
     assert ck.launches == {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
-                           "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0}
+                           "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0,
+                           "klt_track": 0}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -566,6 +573,12 @@ _WORK = {
     # matrix: 8 sweeps x 36 rotations x (18 x 9 + 15) and 81 rank compares
     "small_eig": (dict(batch=128, n=9, itemsize=8), 8 * 128 * (81 + 9 + 81),
                   128 * (8 * 36 * 177 + 81)),
+    # the front-end's tracker at 752x480: two 4-level pyramids of 479,400
+    # pixels x 4 bytes; xy0, init_xy, valid0, xy, valid, residual 30 bytes a
+    # point. 150 points x 2 directions x 4 levels x (441 pixels x (162 +
+    # 38 x 15 + 34) + 20 + 12 x 15)
+    "klt_track": (dict(n=150, p=441, levels=4, iters=15, fb=True, h=480, w=752),
+                  8 * 479_400 + 30 * 150, 150 * 2 * 4 * (441 * 766 + 200)),
 }
 
 
@@ -577,9 +590,10 @@ def test_kernel_work(name):
     assert got == (want_bytes, want_ops)
     assert all(isinstance(v, int) for v in got)
     # in MB: 3.7, 83.4, 157.9 (315.8 for a frame's two launches), 158.8, 11.4,
-    # 0.35, 0.18
+    # 0.35, 0.18, 3.84
     mb = {"warp_banded": 3.7, "plane_sweep": 83.4, "sgm_scan": 157.9, "wta": 158.8,
-          "depth_filter_update": 11.4, "hamming_matrix": 0.35, "small_eig": 0.18}[name]
+          "depth_filter_update": 11.4, "hamming_matrix": 0.35, "small_eig": 0.18,
+          "klt_track": 3.84}[name]
     assert abs(got[0] / 1e6 - mb) < 0.06
     if name == "plane_sweep":
         # the weights and in-bounds tests of one coordinate are counted per
@@ -589,6 +603,11 @@ def test_kernel_work(name):
         assert ck.kernel_work(name, tau2_map=True, **shape)[0] == want_bytes + 1_228_800
     if name == "hamming_matrix":
         assert ck.kernel_work(name, a_mask=False, b_mask=False, **shape)[0] == want_bytes - 672
+    if name == "klt_track":
+        # ~0.4 GFLOP: ~6 us at 67 TFLOP/s, above the bytes' ~1.1 us, both
+        # under the ~5 us launch floor; one direction is half the work
+        assert got[1] / 67e12 > got[0] / 3.35e12 and got[1] / 67e12 < 1e-5
+        assert ck.kernel_work(name, **{**shape, "fb": False}) == (want_bytes, want_ops // 2)
     with pytest.raises(KeyError):
         ck.kernel_work("no_such_kernel")
 
