@@ -96,6 +96,7 @@ ran:
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
     python3 chip_smoke.py --dense-probe [--package DIR]   # the dense frame's times only
     python3 chip_smoke.py --server-probe [--package DIR]  # ingest and whole-server times only
+    python3 chip_smoke.py --kernels-probe [--package DIR] # small_eig's and klt_track's times only
     python3 chip_smoke.py --multichip       # phases 1, 2 and 11 only
 
 The banded warp is one kernel that computes its own sample positions from
@@ -122,6 +123,15 @@ inline ingest ms with host launch calls and device activities a keyframe
 (30 keyframes profiled one by one), and phase 6's whole-server host ms a
 keyframe, with each stream's keyframes a second; run it on parent, change,
 change, parent inside one call.
+
+`--kernels-probe` (seconds) prints one JSON line for the package on sys.path
+(`--package DIR` as above): the port's own hand kernels, `small_eig` and
+`klt_track`, at phase 3's inputs (one F-RANSAC's 128 9x9 and 3x3 fp64
+systems, one PnP DLT's 128 12x12 and 3x3, the front-end's tracker call):
+each call's median CUDA-event ms over 50 runs, each single kernel's device
+ms under the profiler, the launch floor, whether each kernel equals its
+twin bit for bit, and torch.linalg.eigh's ms on the same batches; run it on
+parent, change, change, parent inside one call.
 
 `--kernels-only` is the run to put under compute-sanitizer (memcheck,
 initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
@@ -437,6 +447,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ha2, hb2, _, _ = hamming_inputs(rng, dev, 2048, 2048)
     ata, ftf, f3 = eight_point_systems(rng, dev)
     klt_in = klt_inputs(rng, dev)
+    dlt_ata, dlt_mtm, dlt_m = dlt_systems(rng, dev)
     if timed:
         # the kernels of microseconds under the profiler, before the volume
         # kernels and the twins run: each call must be one kernel launch and
@@ -451,6 +462,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                 ("hamming_matrix", "hamming_kernel", lambda: ck.hamming_matrix(ha, hb, hav, hbv)),
                 ("hamming_2048", "hamming_kernel", lambda: ck.hamming_matrix(ha2, hb2)),
                 ("small_eig", "small_eig_kernel", lambda: ck.small_eigh(ata)),
+                ("small_eig_dlt", "small_eig_kernel", lambda: ck.small_eigh(dlt_ata)),
                 ("klt_track", "klt_track_kernel", lambda: ck.klt_track(*klt_in, **KLT_ARGS)))}
         print(f"  launch floor: an empty kernel through cuda_kernels._launch {extras['floor_ms']:.4f} "
               f"ms between CUDA events (median of {runs}), "
@@ -575,22 +587,32 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ms = time_ms(pair, runs) if timed else 0.0
     pms = time_ms(lambda: (ck.small_eigh_twin(ata), ck.small_eigh_twin(ftf)),
                   twin_runs) if timed else 0.0
-    # the library calls it replaced: torch.linalg.eigh of the 9x9 systems and
-    # svd of the 3x3 F (each checks its errors on the host)
+    # the library's yardstick: the one call that computes the same function,
+    # torch.linalg.eigh of the same 9x9 and 3x3 batches (it checks its errors
+    # on the host); beside it, labelled, the calls the kernel replaced on the
+    # path, eigh of the 9x9 systems and svd of the 3x3 F
     extras["library_ms"] = {"small_eig": time_ms(lambda: (torch.linalg.eigh(ata),
-                                                          torch.linalg.svd(f3)), runs)
+                                                          torch.linalg.eigh(ftf)), runs)
                             if timed else float("nan")}
+    extras["replaced_ms"] = {"small_eig": time_ms(lambda: (torch.linalg.eigh(ata),
+                                                           torch.linalg.svd(f3)), runs)
+                             if timed else float("nan")}
+    extras["small_eig_accuracy"] = small_eig_accuracy(
+        {"8-point F (9x9, 3x3)": (ata, ftf), "PnP DLT (12x12, 3x3)": (dlt_ata, dlt_mtm),
+         "degenerate 8-point (9x9, null space 2 and 3)": tuple(
+             degenerate_eight_point_systems(np.random.default_rng(3), dev, kind)[1]
+             for kind in ("duplicate", "planar"))})
     (b9, by9), (b3, _) = (roofline("small_eig", batch=128, n=9, itemsize=8,
                                    peak_ops=PEAK_FP64_PER_S),
                           roofline("small_eig", batch=128, n=3, itemsize=8,
                                    peak_ops=PEAK_FP64_PER_S))
     out["small_eig"] = (e_small, ms, pms, b9 + b3, by9)
     print(f"  small_eig, one F-RANSAC's eigen work (128 x 9x9 and 128 x 3x3, fp64, bound "
-          f"at {PEAK_FP64_PER_S / 1e12:.0f} TFLOP/s fp64): library torch.linalg.eigh + svd "
-          f"{extras['library_ms']['small_eig']:.4f} ms")
+          f"at {PEAK_FP64_PER_S / 1e12:.0f} TFLOP/s fp64): library torch.linalg.eigh of both "
+          f"{extras['library_ms']['small_eig']:.4f} ms (the calls it replaced, eigh + svd of "
+          f"F: {extras['replaced_ms']['small_eig']:.4f} ms)")
     # --- and at the PnP DLT's: 128 6-point systems AᵀA (12x12) and the
     # MᵀM (3x3) of their P[:, :3], fp64, one pnp_ransac's eigen work
-    dlt_ata, dlt_mtm, dlt_m = dlt_systems(rng, dev)
     got = (ck.small_eigh(dlt_ata), ck.small_eigh(dlt_mtm))
     ref = (ck.small_eigh_twin(dlt_ata), ck.small_eigh_twin(dlt_mtm))
     check(all(_same_bits(x, y) for a, b in zip(got, ref) for x, y in zip(a, b)),
@@ -604,18 +626,24 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
            if timed else 0.0,
            "plain_ms": time_ms(lambda: (ck.small_eigh_twin(dlt_ata), ck.small_eigh_twin(dlt_mtm)),
                                twin_runs) if timed else 0.0,
-           # the library calls the DLT made before: eigh of the 12x12 systems,
+           # the library's yardstick: eigh of the same 12x12 and 3x3 batches;
+           # and the calls the DLT made before: eigh of the 12x12 systems,
            # svd of P[:, :3] (each checks its errors on the host)
-           "library_ms": time_ms(lambda: (torch.linalg.eigh(dlt_ata), torch.linalg.svd(dlt_m)),
+           "library_ms": time_ms(lambda: (torch.linalg.eigh(dlt_ata), torch.linalg.eigh(dlt_mtm)),
                                  runs) if timed else float("nan"),
+           "replaced_ms": time_ms(lambda: (torch.linalg.eigh(dlt_ata), torch.linalg.svd(dlt_m)),
+                                  runs) if timed else float("nan"),
+           "profiler_ms": extras["profiler_ms"].get("small_eig_dlt"),
            "bound_ms": b12 + b3, "bound_by": by12}
     extras["small_eig_dlt"] = dlt
 
     # --- the pyramidal LK tracker at the front-end's call (and edge shapes)
     out["klt_track"] = klt_checks(dev, rng, klt_in, timed, runs, twin_runs)
     print(f"  small_eig, one PnP DLT's eigen work (128 x 12x12 and 128 x 3x3, fp64): kernel == "
-          f"twin bit for bit; kernel {dlt['ms']:.4f} ms, twin {dlt['plain_ms']:.4f} ms, library "
-          f"torch.linalg.eigh + svd {dlt['library_ms']:.4f} ms; bound {dlt['bound_ms']:.6f} ms "
+          f"twin bit for bit; kernel {dlt['ms']:.4f} ms (the 12x12 alone under the profiler "
+          f"{dlt['profiler_ms'] or float('nan'):.4f} ms), twin {dlt['plain_ms']:.4f} ms, library "
+          f"torch.linalg.eigh of both {dlt['library_ms']:.4f} ms (the calls it replaced, eigh + "
+          f"svd of P[:, :3]: {dlt['replaced_ms']:.4f} ms); bound {dlt['bound_ms']:.6f} ms "
           f"({by12}), share {dlt['bound_ms'] / dlt['ms'] if dlt['ms'] else float('nan'):.2%}")
 
     floor = extras["floor_ms"]
@@ -656,6 +684,26 @@ def eight_point_systems(rng, dev, k=128):
     return ata, (f.transpose(-1, -2) @ f).contiguous(), f
 
 
+def degenerate_eight_point_systems(rng, dev, kind, k=64):
+    """Degenerate 8-point samples in fp64 on `dev`: the systems A (k, 8, 9),
+    their AᵀA and its nullity. "duplicate": the 8th correspondence a copy
+    of the 1st (7 distinct ones, a two-dimensional null space); "planar":
+    all 8 points on one plane (the monomials span 6 dimensions, three)."""
+    pts = rng.uniform(-2, 2, (k, 8, 3))
+    pts[..., 2] += 6.0
+    if kind == "planar":
+        pts[..., 2] = 6.0 + 0.3 * pts[..., 0] - 0.2 * pts[..., 1]
+    else:
+        pts[:, 7] = pts[:, 0]
+    r = np.asarray([[0.995, -0.0998, 0.0], [0.0998, 0.995, 0.0], [0.0, 0.0, 1.0]])
+    pc2 = pts @ r.T + np.array([0.4, 0.1, 0.05])
+    x1, x2 = (torch.from_numpy(p[..., :2] / p[..., 2:3]).to(dev) for p in (pts, pc2))
+    a = torch.stack([x2[..., 0] * x1[..., 0], x2[..., 0] * x1[..., 1], x2[..., 0],
+                     x2[..., 1] * x1[..., 0], x2[..., 1] * x1[..., 1], x2[..., 1],
+                     x1[..., 0], x1[..., 1], torch.ones_like(x1[..., 0])], -1)
+    return a, (a.transpose(-1, -2) @ a).contiguous(), {"duplicate": 2, "planar": 3}[kind]
+
+
 def dlt_systems(rng, dev, k=128):
     """One pnp_ransac's eigenproblems on `dev`, in fp64 as `ransac._dlt_pose`
     poses them on the card: the 6-point systems AᵀA (k, 12, 12) of noisy
@@ -677,6 +725,44 @@ def dlt_systems(rng, dev, k=128):
     ata = (a.transpose(-1, -2) @ a).contiguous()
     m = ck.small_eigh_twin(ata)[1][..., :, 0].reshape(k, 3, 4)[..., :3].contiguous()
     return ata, (m.transpose(-1, -2) @ m).contiguous(), m
+
+
+# small_eig against float64 torch.linalg.eigh on the path's systems: the
+# eigenvalues' error relative to the largest, |VᵀV - I| and the residual |A V
+# - V Λ| relative to max |A| (measured on the CPU twin: <= 6e-15 at 8 sweeps,
+# dev/torch_probe_small_eig.py); 1e-12 leaves room for the card's libm-free
+# arithmetic, which is the twin's
+SMALL_EIG_ACCURACY_TOL = 1e-12
+
+
+def small_eig_accuracy(systems: dict) -> dict:
+    """The kernel's eigenpairs of each named pair of fp64 batches against
+    torch.linalg.eigh's in float64; fails beyond SMALL_EIG_ACCURACY_TOL.
+    Returns {name: {eig_rel, orth, resid}} (the larger of the pair's)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    out = {}
+    for name, mats in systems.items():
+        row = {"eig_rel": 0.0, "orth": 0.0, "resid": 0.0}
+        for a in mats:
+            w, v = ck.small_eigh(a)
+            wr = torch.linalg.eigh(a.double())[0]
+            eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+            row["eig_rel"] = max(row["eig_rel"], float(((w - wr).abs().amax(-1)
+                                                        / wr.abs().amax(-1)).max()))
+            row["orth"] = max(row["orth"], float((v.mT @ v - eye).abs().max()))
+            row["resid"] = max(row["resid"], float(((a @ v - v * w[:, None, :]).abs()
+                                                    .amax((-1, -2)) / a.abs().amax((-1, -2)))
+                                                   .max()))
+        check(max(row.values()) < SMALL_EIG_ACCURACY_TOL,
+              f"small_eig at the {name} systems against float64 torch.linalg.eigh: {row}, "
+              f"tolerance {SMALL_EIG_ACCURACY_TOL}")
+        out[name] = row
+    print("  small_eig against float64 torch.linalg.eigh (eigenvalues relative to the largest, "
+          "|VᵀV - I|, |AV - VΛ| / max|A|; tolerance "
+          f"{SMALL_EIG_ACCURACY_TOL}): " + "; ".join(
+              f"{k} {v['eig_rel']:.2e}, {v['orth']:.2e}, {v['resid']:.2e}" for k, v in out.items()))
+    return out
 
 
 def small_eig_edges(rng, dev) -> float:
@@ -851,7 +937,7 @@ def plan_checks() -> None:
         check(want == got, f"hamming plan at {hn}x{hm}: Python {want}, library {got}")
         n += 1
     for kn in (1, 33, KLT_N, 1000):
-        for radius in (0, 3, 10, 15, 24):
+        for radius in (0, 3, 10, 15, 16, 24):
             want, got = ck.klt_plan(kn, radius), ck.compiled_klt_plan(kn, radius)
             check(want == got, f"klt plan at {kn} points, radius {radius}: Python {want}, "
                                f"library {got}")
@@ -1605,6 +1691,44 @@ def server_probe(device) -> None:
                                "p90": float(np.percentile(kf_ms, 90)), "keyframes": len(kf_ms)},
            "whole_server_kf_per_s": len(kf_ms) / whole_s}
     print(json.dumps({"server_probe": out}))
+
+
+def kernels_probe(device, runs: int = 50) -> None:
+    """The port's own hand kernels timed at phase 3's inputs, for the package
+    on sys.path (`--package`); uses only what the parent's package also
+    has."""
+    import cvids_tpu_torch
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(1)
+    ata, ftf, _ = eight_point_systems(rng, dev)
+    klt_in = klt_inputs(rng, dev)
+    dlt_ata, dlt_mtm, _ = dlt_systems(rng, dev)
+    calls = {"f_pair": lambda: (ck.small_eigh(ata), ck.small_eigh(ftf)),
+             "dlt_pair": lambda: (ck.small_eigh(dlt_ata), ck.small_eigh(dlt_mtm)),
+             "eig_9x9": lambda: ck.small_eigh(ata),
+             "eig_12x12": lambda: ck.small_eigh(dlt_ata),
+             "eig_3x3": lambda: ck.small_eigh(ftf),
+             "klt_track": lambda: ck.klt_track(*klt_in, **KLT_ARGS)}
+    singles = {"eig_9x9": "small_eig_kernel", "eig_12x12": "small_eig_kernel",
+               "eig_3x3": "small_eig_kernel", "klt_track": "klt_track_kernel"}
+    profiled = {k: profiled_kernel_ms(calls[k], e) for k, e in singles.items()}
+    same = {"small_eig": all(_same_bits(x, y) for a in (ata, ftf, dlt_ata, dlt_mtm)
+                             for x, y in zip(ck.small_eigh(a), ck.small_eigh_twin(a))),
+            "klt_track": all(_same_bits(x, y) for x, y in
+                             zip(ck.klt_track(*klt_in, **KLT_ARGS),
+                                 ck.klt_track_twin(*klt_in, **KLT_ARGS)))}
+    check(all(same.values()), f"kernels probe: a kernel differs from its twin: {same}")
+    print(json.dumps({"kernels_probe": {
+        "package": cvids_tpu_torch.__path__[0], "runs": runs,
+        "ms": {k: time_ms(fn, runs) for k, fn in calls.items()},
+        "profiler_ms": profiled, "floor_ms": time_ms(lambda: ck.empty_launch(dev), runs),
+        "equal_to_twin": same,
+        "library_eigh_ms": {
+            "f_pair": time_ms(lambda: (torch.linalg.eigh(ata), torch.linalg.eigh(ftf)), runs),
+            "dlt_pair": time_ms(lambda: (torch.linalg.eigh(dlt_ata),
+                                         torch.linalg.eigh(dlt_mtm)), runs)}}}))
 
 
 def twin_patches():
@@ -4058,8 +4182,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if "--package" in sys.argv[1:]:     # the package of another tree, for the probes
-        check("--dense-probe" in sys.argv[1:] or "--server-probe" in sys.argv[1:],
-              "--package goes with --dense-probe or --server-probe")
+        check(any(a in sys.argv[1:] for a in ("--dense-probe", "--server-probe",
+                                               "--kernels-probe")),
+              "--package goes with --dense-probe, --server-probe or --kernels-probe")
         sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--package") + 1]).resolve()))
     from cvids_tpu_torch import _build
     from cvids_tpu_torch.ops import cuda_kernels as ck
@@ -4088,6 +4213,9 @@ def main() -> int:
         return 0
     if "--server-probe" in sys.argv[1:]:
         server_probe(dev)
+        return 0
+    if "--kernels-probe" in sys.argv[1:]:
+        kernels_probe(dev)
         return 0
     if "--multichip" in sys.argv[1:]:
         multichip_phase(dev)
@@ -4203,8 +4331,9 @@ def main() -> int:
     # profiler_ms: the device time of a kernel of microseconds in one profiled
     # call (null for the volume kernels: phase 4's profiled frame prints theirs).
     # library_ms: null, no single PyTorch call computes any of the six
-    # ported kernels, nor klt_track; for small_eig the torch.linalg calls
-    # it replaced.
+    # ported kernels, nor klt_track; for small_eig torch.linalg.eigh of the
+    # same batches (replaced_ms: the torch.linalg calls it replaced on the
+    # path, eigh and svd; accuracy: against float64 eigh, phase 3).
     # small_eig's launches_frontend_phase8: phase 8's front-ends (graph
     # replays count their kernels), and per camera frame; launches_phase5:
     # phase 5's pose graph, whose cascades each launch it four times (the
@@ -4225,6 +4354,8 @@ def main() -> int:
                          "launches_per_cascade_phase5":
                              server_info["programs"].get("cascade_launches", {}),
                          "cascades_phase5": server_info["programs"].get("cascade_calls"),
+                         "replaced_ms": extras["replaced_ms"]["small_eig"],
+                         "accuracy": extras["small_eig_accuracy"],
                          "dlt_12x12": {**dlt, "share": dlt["bound_ms"] / dlt["ms"],
                                        "reach": max(dlt["bound_ms"], extras["floor_ms"])
                                        / dlt["ms"]}}

@@ -33,7 +33,7 @@
 // (the formula of ops/image.bilinear_sample).
 //
 // The order of every sum over the window, shared with the twin:
-// - lane l of the point's warp adds the terms of pixels l, l + 32, l + 64, ...
+// - lane l of the summing warp adds the terms of pixels l, l + 32, l + 64, ...
 //   in increasing order to 0.0f, a pixel index >= P adding 0.0f
 //   (ceil(P / 32) terms a lane, 14 at radius 10);
 // - the 32 partial sums are combined by an xor butterfly with offsets 16, 8,
@@ -46,26 +46,52 @@
 //   constant so), and the step is the reference's algebra, not the 2x2
 //   inverse as a matrix. Every other division is an IEEE division.
 //
-// Bound on the card: the serial chain, not bytes or operations. The front-end
-// tracks ~150 points through 2 directions x 4 levels x 15 iterations; each
-// iteration is a round of dependent samples (gathers from L2-resident
-// pyramids, ~3.9 MB at 752x480) and two butterflies, ~120 dependent rounds a
-// point, against ~0.4 GFLOP and ~4 MB for the whole batch (a few
-// microseconds at the card's peaks, about the launch floor). The design is
-// the simple one: one warp (one block) a point, so 150 points are 150 warps
-// spread over the 132 SMs and the launch is latency-bound; the template, its
-// gradients and the iteration's samples sit in shared memory, each lane
-// reading back only its own slots (no barrier); the pyramids are read
-// through the read-only cache. Both directions and the gate run in the same
-// warp, so a front-end frame's tracking is one launch.
+// Bound on the card: the chain of dependent rounds, not bytes or operations.
+// The front-end tracks ~150 points through 2 directions x 4 levels x (15
+// iterations + a template and a residual pass); each iteration is a round of
+// samples (gathers from pyramids that stay in L2 and, a window at a time, in
+// L1: ~3.9 MB at 752x480), then the window sums, then the step, which the
+// next round's sample positions need: ~136 dependent rounds a point, against
+// ~0.4 GFLOP and ~4 MB for the whole batch (a few microseconds at the card's
+// peaks, about the launch floor). The design spreads a point's window over a
+// block so that a round's gathers are all in flight at once, and keeps the
+// sums in the order above:
+// - one block a point, one thread a window pixel (the block is the window's
+//   ceil(P / 32) * 32 slots, 448 threads at radius 10; above 1024 slots,
+//   radius > 15, a thread takes slots t, t + 1024, ...). In each pass every
+//   thread samples its pixel (the template and its two gradients, 5 samples;
+//   an iteration's w; the residual's |w - t|) and stores it in shared memory,
+//   so a round's ~1,800 taps are issued together by 14 warps instead of 14
+//   dependent samples a lane;
+// - after a barrier the first warp, the summing warp, adds the stored terms
+//   in the order above (lane l: slots l, l + 32, ...; the products gx gx, gx
+//   e, ... formed from the stored samples as the twin forms them), runs the
+//   butterflies, computes the step and stores the new flow; after a second
+//   barrier every thread reads it for the next round's positions. Only the
+//   summing warp holds the Gram sums, the means, the condition test and the
+//   residual; the start of the back direction is broadcast the same way;
+// - the radius is a template parameter for the path's radius (10): the
+//   summing warp's 14-slot loops unroll and their shared-memory loads issue
+//   together; every other radius runs the same code with the radius at run
+//   time (the same operations, the same bits). At the path's call the
+//   run-time instance took 0.2427 ms against 0.1490-0.1502 templated
+//   (PERF.md, PR 14).
+// A round now costs one sampling pass (~40 instructions a thread, L1/L2
+// latency once) and two barriers with the summing warp's sums between them:
+// ~1.1 us a round, 0.149 ms a front-end call on an H100 (0.535 ms one warp a
+// point; PERF.md). What bounds it now is the summing warp's two dependent
+// 14-term sums and butterflies an iteration (the mean of w before the
+// projections), which the fixed order keeps in one warp. 150 blocks of 448
+// threads over 132 SMs, 7 KB of shared memory a block at radius 10.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int KLT_THREADS = 32;      // one warp a point
+constexpr int KLT_LANES = 32;        // the summing warp's lanes
+constexpr int KLT_MAX_THREADS = 1024;
 constexpr int KLT_MAX_LEVELS = 8;
-constexpr int KLT_MAX_RADIUS = 24;   // 2401 pixels, 76 a lane, 38.9 KB of shared memory
+constexpr int KLT_MAX_RADIUS = 24;   // 2401 pixels, 76 slots a lane, 38.9 KB of shared memory
 
 struct Pyramids {
   const float* a[KLT_MAX_LEVELS];    // image A's levels, (h[l], w[l]) each
@@ -80,14 +106,20 @@ struct Track {
   bool valid;
 };
 
-// window pixels a lane owns
+// window pixels a summing lane adds
 __host__ __device__ constexpr int klt_cols(int radius) {
-  return ((2 * radius + 1) * (2 * radius + 1) + KLT_THREADS - 1) / KLT_THREADS;
+  return ((2 * radius + 1) * (2 * radius + 1) + KLT_LANES - 1) / KLT_LANES;
 }
 
-// four per-lane arrays of klt_cols(radius) * 32 floats: t, gx, gy, w
+// a block's threads: one a slot, at most 1024
+__host__ __device__ constexpr int klt_threads(int radius) {
+  return klt_cols(radius) * KLT_LANES < KLT_MAX_THREADS ? klt_cols(radius) * KLT_LANES
+                                                        : KLT_MAX_THREADS;
+}
+
+// four arrays of klt_cols(radius) * 32 floats: t, gx, gy and a pass's terms
 __host__ __device__ constexpr int klt_smem_bytes(int radius) {
-  return 4 * klt_cols(radius) * KLT_THREADS * static_cast<int>(sizeof(float));
+  return 4 * klt_cols(radius) * KLT_LANES * static_cast<int>(sizeof(float));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -125,15 +157,33 @@ __device__ __forceinline__ float sample(const float* __restrict__ img, int h, in
   return inside ? out : 0.0f;
 }
 
-// one direction for one point, run by the whole warp; every lane returns the
-// same result
+// the shared memory of a block: the window's template, gradients and a
+// pass's terms, slot i of each for window pixel i (0 for i >= P); and the
+// summing warp's broadcasts
+struct Window {
+  float* t;
+  float* gx;
+  float* gy;
+  float* terms;
+  float* bcast;
+};
+
+// one direction for one point, run by the whole block; the summing warp's
+// lanes return the result (the other threads' is not defined)
+template <int R>
 __device__ Track track_direction(const Pyramids& pyr, bool forward, float x0, float y0,
-                                 float init_x, float init_y, bool valid0, int radius,
-                                 int iters, float max_residual, float min_eig, float* T,
-                                 float* GX, float* GY, float* WS, int lane) {
+                                 float init_x, float init_y, bool valid0, int radius_rt,
+                                 int iters, float max_residual, float min_eig, const Window& win) {
+  const int radius = R >= 0 ? R : radius_rt;
   const int side = 2 * radius + 1;
   const int n_pix = side * side;
-  const int cols = klt_cols(radius);
+  constexpr int COLS = R >= 0 ? klt_cols(R) : 0;
+  const int cols = R >= 0 ? COLS : klt_cols(radius);
+  const int slots = cols * KLT_LANES;
+  const int nthreads = R >= 0 ? klt_threads(R) : static_cast<int>(blockDim.x);
+  const int tid = threadIdx.x;
+  const bool summing = tid < KLT_LANES;
+  const int lane = tid;
   const float inv_pix = 1.0f / static_cast<float>(n_pix);
   float flow_x = init_x - x0;
   float flow_y = init_y - y0;
@@ -148,10 +198,8 @@ __device__ Track track_direction(const Pyramids& pyr, bool forward, float x0, fl
     const float px = x0 / scale;
     const float py = y0 / scale;
 
-    // template, gradients and their sums
-    float s_t = 0.0f, s_xx = 0.0f, s_xy = 0.0f, s_yy = 0.0f;
-    for (int k = 0; k < cols; ++k) {
-      const int i = lane + KLT_THREADS * k;
+    // template and gradients, a pixel a thread
+    for (int i = tid; i < slots; i += nthreads) {
       float t = 0.0f, gx = 0.0f, gy = 0.0f;
       if (i < n_pix) {
         const float cx = px + static_cast<float>(i % side - radius);
@@ -160,72 +208,102 @@ __device__ Track track_direction(const Pyramids& pyr, bool forward, float x0, fl
         gx = sample(i0, h, w, cx + 0.5f, cy) - sample(i0, h, w, cx - 0.5f, cy);
         gy = sample(i0, h, w, cx, cy + 0.5f) - sample(i0, h, w, cx, cy - 0.5f);
       }
-      T[i] = t;
-      GX[i] = gx;
-      GY[i] = gy;
-      s_t = s_t + t;
-      s_xx = s_xx + gx * gx;
-      s_xy = s_xy + gx * gy;
-      s_yy = s_yy + gy * gy;
+      win.t[i] = t;
+      win.gx[i] = gx;
+      win.gy[i] = gy;
     }
-    const float mean_t = warp_sum(s_t) * inv_pix;
-    const float gxx = warp_sum(s_xx);
-    const float gxy = warp_sum(s_xy);
-    const float gyy = warp_sum(s_yy);
-    const float det = gxx * gyy - gxy * gxy;
-    const float trace = gxx + gyy;
-    const float disc = trace * trace - 4.0f * det;
-    const float mineig = (trace - sqrtf(disc < 0.0f ? 0.0f : disc)) * 0.5f;
-    conditioned = conditioned && (mineig * inv_pix > min_eig);
-    const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+    __syncthreads();
+    float mean_t = 0.0f, gxx = 0.0f, gxy = 0.0f, gyy = 0.0f, inv_det = 0.0f;
+    if (summing) {
+      float s_t = 0.0f, s_xx = 0.0f, s_xy = 0.0f, s_yy = 0.0f;
+#pragma unroll(R >= 0 ? klt_cols(R) : 4)
+      for (int k = 0; k < cols; ++k) {
+        const int i = lane + KLT_LANES * k;
+        const float t = win.t[i], gx = win.gx[i], gy = win.gy[i];
+        s_t = s_t + t;
+        s_xx = s_xx + gx * gx;
+        s_xy = s_xy + gx * gy;
+        s_yy = s_yy + gy * gy;
+      }
+      mean_t = warp_sum(s_t) * inv_pix;
+      gxx = warp_sum(s_xx);
+      gxy = warp_sum(s_xy);
+      gyy = warp_sum(s_yy);
+      const float det = gxx * gyy - gxy * gxy;
+      const float trace = gxx + gyy;
+      const float disc = trace * trace - 4.0f * det;
+      const float mineig = (trace - sqrtf(disc < 0.0f ? 0.0f : disc)) * 0.5f;
+      conditioned = conditioned && (mineig * inv_pix > min_eig);
+      inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+    }
 
     for (int it = 0; it < iters; ++it) {
       const float qx = px + flow_x / scale;
       const float qy = py + flow_y / scale;
-      float s_w = 0.0f;
-      for (int k = 0; k < cols; ++k) {
-        const int i = lane + KLT_THREADS * k;
+      for (int i = tid; i < slots; i += nthreads) {
         float wv = 0.0f;
         if (i < n_pix)
           wv = sample(i1, h, w, qx + static_cast<float>(i % side - radius),
                       qy + static_cast<float>(i / side - radius));
-        WS[i] = wv;
-        s_w = s_w + wv;
+        win.terms[i] = wv;
       }
-      const float mean_w = warp_sum(s_w) * inv_pix;
-      float s_bx = 0.0f, s_by = 0.0f;
-      for (int k = 0; k < cols; ++k) {
-        const int i = lane + KLT_THREADS * k;
-        float ex = 0.0f, ey = 0.0f;
-        if (i < n_pix) {
-          const float e = (WS[i] - mean_w) - (T[i] - mean_t);
-          ex = GX[i] * e;
-          ey = GY[i] * e;
+      __syncthreads();
+      if (summing) {
+        float s_w = 0.0f;
+#pragma unroll(R >= 0 ? klt_cols(R) : 4)
+        for (int k = 0; k < cols; ++k) s_w = s_w + win.terms[lane + KLT_LANES * k];
+        const float mean_w = warp_sum(s_w) * inv_pix;
+        float s_bx = 0.0f, s_by = 0.0f;
+#pragma unroll(R >= 0 ? klt_cols(R) : 4)
+        for (int k = 0; k < cols; ++k) {
+          const int i = lane + KLT_LANES * k;
+          float ex = 0.0f, ey = 0.0f;
+          if (i < n_pix) {
+            const float e = (win.terms[i] - mean_w) - (win.t[i] - mean_t);
+            ex = win.gx[i] * e;
+            ey = win.gy[i] * e;
+          }
+          s_bx = s_bx + ex;
+          s_by = s_by + ey;
         }
-        s_bx = s_bx + ex;
-        s_by = s_by + ey;
+        const float bx = warp_sum(s_bx);
+        const float by = warp_sum(s_by);
+        const float dx = inv_det * (gyy * bx - gxy * by);
+        const float dy = inv_det * (-gxy * bx + gxx * by);
+        flow_x = flow_x - dx * scale;
+        flow_y = flow_y - dy * scale;
+        if (lane == 0) {
+          win.bcast[0] = flow_x;
+          win.bcast[1] = flow_y;
+        }
       }
-      const float bx = warp_sum(s_bx);
-      const float by = warp_sum(s_by);
-      const float dx = inv_det * (gyy * bx - gxy * by);
-      const float dy = inv_det * (-gxy * bx + gxx * by);
-      flow_x = flow_x - dx * scale;
-      flow_y = flow_y - dy * scale;
+      __syncthreads();
+      flow_x = win.bcast[0];
+      flow_y = win.bcast[1];
     }
 
+    // the residual's terms |w - t|, a pixel a thread (each thread reads back
+    // only its own template slots)
     const float qx = px + flow_x / scale;
     const float qy = py + flow_y / scale;
-    float s_r = 0.0f;
-    for (int k = 0; k < cols; ++k) {
-      const int i = lane + KLT_THREADS * k;
+    for (int i = tid; i < slots; i += nthreads) {
       float r = 0.0f;
       if (i < n_pix)
         r = fabsf(sample(i1, h, w, qx + static_cast<float>(i % side - radius),
                          qy + static_cast<float>(i / side - radius)) -
-                  T[i]);
-      s_r = s_r + r;
+                  win.t[i]);
+      win.terms[i] = r;
     }
-    residual = warp_sum(s_r) * inv_pix;
+    __syncthreads();
+    if (summing) {
+      float s_r = 0.0f;
+#pragma unroll(R >= 0 ? klt_cols(R) : 4)
+      for (int k = 0; k < cols; ++k) s_r = s_r + win.terms[lane + KLT_LANES * k];
+      residual = warp_sum(s_r) * inv_pix;
+    }
+    // the next level's template pass writes t, gx, gy, which the summing warp
+    // no longer reads; its first iteration writes the terms only after the
+    // template's barrier, which the summing warp reaches after this sum
   }
   Track out;
   out.x = x0 + flow_x;
@@ -238,32 +316,42 @@ __device__ Track track_direction(const Pyramids& pyr, bool forward, float x0, fl
   return out;
 }
 
-__global__ void __launch_bounds__(KLT_THREADS)
+template <int R>
+__global__ void __launch_bounds__(R >= 0 ? klt_threads(R) : KLT_MAX_THREADS)
 klt_track_kernel(Pyramids pyr, const float* __restrict__ xy0, const bool* __restrict__ valid0,
                  const float* __restrict__ init_xy, float* __restrict__ xy_out,
                  bool* __restrict__ valid_out, float* __restrict__ residual_out, int radius,
                  int iters, float max_residual, float min_eig, float fb_thresh, int use_fb) {
   extern __shared__ float smem[];
-  const int slots = klt_cols(radius) * KLT_THREADS;
-  float* T = smem;
-  float* GX = T + slots;
-  float* GY = GX + slots;
-  float* WS = GY + slots;
+  __shared__ float bcast[3];
+  const int slots = klt_cols(R >= 0 ? R : radius) * KLT_LANES;
+  const Window win = {smem, smem + slots, smem + 2 * slots, smem + 3 * slots, bcast};
   const long p = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
   const float ax = xy0[2 * p], ay = xy0[2 * p + 1];
-  const Track fwd = track_direction(pyr, true, ax, ay, init_xy[2 * p], init_xy[2 * p + 1],
-                                    valid0[p], radius, iters, max_residual, min_eig, T, GX, GY,
-                                    WS, lane);
+  const Track fwd = track_direction<R>(pyr, true, ax, ay, init_xy[2 * p], init_xy[2 * p + 1],
+                                       valid0[p], radius, iters, max_residual, min_eig, win);
   bool ok = fwd.valid;
   if (use_fb) {
-    const Track back = track_direction(pyr, false, fwd.x, fwd.y, ax, ay, fwd.valid, radius,
-                                       iters, max_residual, min_eig, T, GX, GY, WS, lane);
+    // the back direction starts where the forward one ended: the summing
+    // warp's result, broadcast (after the barrier that ends its last
+    // iteration, every thread has read the flow, so bcast is free)
+    __syncthreads();
+    if (tid == 0) {
+      bcast[0] = fwd.x;
+      bcast[1] = fwd.y;
+      bcast[2] = fwd.valid ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+    const float fx = bcast[0], fy = bcast[1];
+    const bool fvalid = bcast[2] != 0.0f;
+    const Track back = track_direction<R>(pyr, false, fx, fy, ax, ay, fvalid, radius, iters,
+                                          max_residual, min_eig, win);
     const float dx = back.x - ax;
     const float dy = back.y - ay;
     ok = fwd.valid && back.valid && sqrtf(dx * dx + dy * dy) < fb_thresh;
   }
-  if (lane == 0) {
+  if (tid == 0) {
     xy_out[2 * p] = fwd.x;
     xy_out[2 * p + 1] = fwd.y;
     valid_out[p] = ok;
@@ -273,12 +361,15 @@ klt_track_kernel(Pyramids pyr, const float* __restrict__ xy0, const bool* __rest
 
 int klt_plan(int n, int radius, int* plan) {
   if (n < 1 || radius < 0 || radius > KLT_MAX_RADIUS) return -1;
-  plan[0] = KLT_THREADS;
+  plan[0] = klt_threads(radius);
   plan[1] = klt_cols(radius);
   plan[2] = klt_smem_bytes(radius);
   plan[3] = n;
   return 0;
 }
+
+// the path's radius, compiled with its loops unrolled
+constexpr int KLT_PATH_RADIUS = 10;
 
 }  // namespace
 
@@ -306,17 +397,25 @@ extern "C" int cvids_klt_track(const void* const* pyr_a, const void* const* pyr_
     pyr.w[l] = w[l];
   }
   pyr.levels = levels;
-  klt_track_kernel<<<plan[3], plan[0], plan[2], static_cast<cudaStream_t>(stream)>>>(
-      pyr, static_cast<const float*>(xy0), static_cast<const bool*>(valid0),
-      static_cast<const float*>(init_xy), static_cast<float*>(xy_out),
-      static_cast<bool*>(valid_out), static_cast<float*>(residual_out), radius, iters,
-      max_residual, min_eig, fb_thresh, use_fb);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto args = [&](auto kernel) {
+    kernel<<<plan[3], plan[0], plan[2], st>>>(
+        pyr, static_cast<const float*>(xy0), static_cast<const bool*>(valid0),
+        static_cast<const float*>(init_xy), static_cast<float*>(xy_out),
+        static_cast<bool*>(valid_out), static_cast<float*>(residual_out), radius, iters,
+        max_residual, min_eig, fb_thresh, use_fb);
+  };
+  if (radius == KLT_PATH_RADIUS)
+    args(klt_track_kernel<KLT_PATH_RADIUS>);
+  else
+    args(klt_track_kernel<-1>);
   return static_cast<int>(cudaGetLastError());
 }
 
 // what a launch over n points at `radius` takes, without launching:
-// plan[0..3] = threads per block (one warp a point), window pixels a lane,
-// dynamic shared memory bytes, blocks
+// plan[0..3] = threads per block (one a window slot, at most 1024), window
+// pixels a summing lane adds, dynamic shared memory bytes, blocks (one a
+// point)
 extern "C" int cvids_klt_plan(int n, int radius, int* plan) {
   if (plan == nullptr || klt_plan(n, radius, plan) != 0)
     return static_cast<int>(cudaErrorInvalidValue);

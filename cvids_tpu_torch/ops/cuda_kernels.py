@@ -15,13 +15,14 @@ Each kernel has a wrapper and a twin with the same contract:
 - `depth_filter_update` — the fused Gaussian×Beta filter step of the dense
   path (``csrc/depth_filter.cu``);
 - `small_eigh` — batched symmetric eigendecomposition of matrices up to
-  12×12 by cyclic Jacobi, the 8-point fundamental matrix's eigensolver
-  (``csrc/small_eig.cu``; no Pallas counterpart: it replaces torch.linalg
-  calls that wait for the card);
+  12×12 by Jacobi in a parallel (round-robin) order, the 8-point
+  fundamental matrix's eigensolver (``csrc/small_eig.cu``; no Pallas
+  counterpart: it replaces torch.linalg calls that wait for the card);
 - `klt_track` — pyramidal Lucas-Kanade tracking of a batch of points,
-  forward and back with the forward-backward gate, one warp a point, one
-  launch (``csrc/klt_track.cu``; no Pallas counterpart: the JAX package
-  compiles `track_points` into one program). Its window sums run in one
+  forward and back with the forward-backward gate, one block a point
+  (one thread a window pixel), one launch (``csrc/klt_track.cu``; no
+  Pallas counterpart: the JAX package compiles `track_points` into one
+  program). Its window sums run in one
   fixed order, `lane_sum`'s, in the kernel and the twin.
 
 Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
@@ -61,7 +62,8 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "projective_warp_banded_twin", "plane_sweep_twin",
            "sgm_scan_bidir_twin", "wta_twin", "hamming_matrix_twin",
            "depth_filter_update_twin", "small_eigh_twin", "klt_track", "klt_track_twin",
-           "lane_sum", "klt_plan", "compiled_klt_plan", "KltPlan", "popcount32", "launches",
+           "lane_sum", "klt_plan", "compiled_klt_plan", "KltPlan", "small_eig_schedule",
+           "small_eig_rotate", "popcount32", "launches",
            "reset_launches", "sgm_scan_plan", "plane_sweep_plan", "wta_plan",
            "compiled_sgm_scan_plan", "compiled_plane_sweep_plan",
            "compiled_wta_plan", "hamming_plan", "compiled_hamming_plan",
@@ -782,40 +784,92 @@ def depth_filter_update(state: depth_filter.FilterState, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Batched small symmetric eigendecomposition (cyclic Jacobi)
+# Batched small symmetric eigendecomposition (parallel-order Jacobi)
 # ---------------------------------------------------------------------------
 
 SMALL_EIG_MAX_N = 12
-SMALL_EIG_SWEEPS = 8    # cyclic sweeps: off-diagonals of a 12x12 reach rounding in ~6
+SMALL_EIG_SWEEPS = 8    # fp64 off-diagonals reach rounding in 7-8 (dev/torch_probe_small_eig.py)
+
+
+def small_eig_schedule(n: int) -> list[list[tuple[int, int]]]:
+    """The round-robin ("circle") schedule of one sweep over an n x n
+    matrix, as ``csrc/small_eig.cu`` computes it: m = n + n % 2 indices, m -
+    1 rounds of m / 2 slots; slot 0 of round r pairs m - 1 with r, slot k >
+    0 pairs (r + k) % (m - 1) with (r - k) % (m - 1). Returns each round's
+    rotations (p, q), p < q, disjoint within a round; for an odd n the slot
+    with the dummy index n is left out (that round's p takes no rotation).
+    Over a sweep every pair p < q < n meets exactly once."""
+    m = n + n % 2
+    rounds = []
+    for r in range(m - 1):
+        slots = []
+        for k in range(m // 2):
+            a, b = (m - 1, r) if k == 0 else ((r + k) % (m - 1), (r - k) % (m - 1))
+            if max(a, b) < n:
+                slots.append((min(a, b), max(a, b)))
+        rounds.append(slots)
+    return rounds
+
+
+def small_eig_rotate(a: torch.Tensor, sweeps: int = SMALL_EIG_SWEEPS,
+                     schedule: list[list[tuple[int, int]]] | None = None):
+    """The kernel's rotations in plain PyTorch: `sweeps` sweeps of
+    `small_eig_schedule` (or of `schedule`, another order of disjoint pairs
+    a round, for comparing orders) over the symmetric matrices a (B, n, n),
+    read from their lower triangle. Returns (the rotated matrices, the
+    accumulated rotations V).
+
+    Each round computes every pair's (c, s) from the matrix as it stood at
+    the round's start (the classic rotation, none where a_pq is 0), then
+    rotates the columns of the matrix and of V, then the rows of the
+    matrix, as the kernel does element by element: index i of a pair (p, q)
+    becomes c x_i + s_i x_partner with s_p = -s, s_q = s; an index without
+    a partner keeps its value."""
+    b, n = a.shape[0], a.shape[-1]
+    dev = a.device
+    lower = torch.ones((n, n), dtype=torch.bool, device=dev).tril()
+    m = torch.where(lower, a, a.transpose(-1, -2))
+    v = torch.eye(n, dtype=a.dtype, device=dev).expand(b, n, n)
+    one = torch.ones((), dtype=a.dtype, device=dev)
+    zero = torch.zeros((), dtype=a.dtype, device=dev)
+    rounds = []
+    for pairs in small_eig_schedule(n) if schedule is None else schedule:
+        if not pairs:
+            continue
+        p, q = (torch.tensor(x, device=dev) for x in zip(*pairs))
+        partner = torch.arange(n, device=dev)
+        partner[p], partner[q] = q, p
+        paired = torch.zeros(n, dtype=torch.bool, device=dev)
+        paired[p] = paired[q] = True
+        rounds.append((p, q, partner, paired))
+    for _ in range(sweeps):
+        for p, q, partner, paired in rounds:
+            app, aqq, apq = m[:, p, p], m[:, q, q], m[:, p, q]        # (b, pairs)
+            theta = (aqq - app) / (2.0 * apq)
+            sign = torch.where(theta >= 0.0, one, -one)
+            t = sign / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0))
+            c = one / torch.sqrt(t * t + 1.0)
+            s = t * c
+            rot = apq != 0.0
+            c = torch.where(rot, c, one)
+            s = torch.where(rot, s, zero)
+            cc = torch.ones((b, n), dtype=a.dtype, device=dev)
+            ss = torch.zeros((b, n), dtype=a.dtype, device=dev)
+            cc[:, p], cc[:, q] = c, c
+            ss[:, p], ss[:, q] = -s, s
+            m, v = (torch.where(paired, cc[:, None, :] * x + ss[:, None, :] * x[:, :, partner], x)
+                    for x in (m, v))                                  # columns
+            m = torch.where(paired[:, None],
+                            cc[:, :, None] * m + ss[:, :, None] * m[:, partner, :], m)   # rows
+    return m, v
 
 
 def small_eigh_twin(a: torch.Tensor):
-    """Plain PyTorch twin of `small_eigh`: the same rotations in the same
-    order, one pair (p, q) at a time over the whole batch."""
+    """Plain PyTorch twin of `small_eigh`: `small_eig_rotate`'s rounds,
+    vectorised over a round's pairs and the batch, then the kernel's sort
+    (ascending, ties by index, NaN last)."""
     b, n = a.shape[0], a.shape[-1]
-    lower = torch.ones((n, n), dtype=torch.bool, device=a.device).tril()
-    m = torch.where(lower, a, a.transpose(-1, -2)).clone()
-    v = torch.eye(n, dtype=a.dtype, device=a.device).expand(b, n, n).clone()
-    one = torch.ones((), dtype=a.dtype, device=a.device)
-    for _ in range(SMALL_EIG_SWEEPS):
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                app, aqq, apq = m[:, p, p], m[:, q, q], m[:, p, q]
-                theta = (aqq - app) / (2.0 * apq)
-                sign = torch.where(theta >= 0.0, one, -one)
-                t = sign / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0))
-                c = one / torch.sqrt(t * t + 1.0)
-                s = t * c
-                rot = apq != 0.0
-                c = torch.where(rot, c, one)[:, None]
-                s = torch.where(rot, s, 0.0 * one)[:, None]
-                for x in (m, v):           # columns p and q
-                    kp, kq = x[:, :, p].clone(), x[:, :, q]
-                    x[:, :, p] = c * kp - s * kq
-                    x[:, :, q] = s * kp + c * kq
-                pk, qk = m[:, p, :].clone(), m[:, q, :]   # rows p and q
-                m[:, p, :] = c * pk - s * qk
-                m[:, q, :] = s * pk + c * qk
+    m, v = small_eig_rotate(a)
     d = torch.diagonal(m, dim1=-2, dim2=-1)
     key = torch.where(torch.isnan(d), torch.full((), float("inf"), dtype=d.dtype,
                                                  device=a.device), d)
@@ -831,9 +885,10 @@ def small_eigh(a: torch.Tensor):
     float32 or float64 with n <= 12, read from its lower triangle as torch.linalg.eigh
     reads it -> (eigenvalues (B, n) ascending, eigenvectors (B, n, n), column
     k for eigenvalue k; each column's sign is the rotations' and is free).
-    SMALL_EIG_SWEEPS cyclic Jacobi sweeps, whatever the convergence;
-    nothing is read back to the host, so a call can be captured in a CUDA
-    graph."""
+    SMALL_EIG_SWEEPS Jacobi sweeps in the round-robin order of
+    `small_eig_schedule` (floor(n / 2) disjoint rotations a round),
+    whatever the convergence; nothing is read back to the host, so a call
+    can be captured in a CUDA graph."""
     if not _on_cuda(a):
         return small_eigh_twin(a)
     if a.ndim != 3 or a.shape[1] != a.shape[2] or not 1 <= a.shape[1] <= SMALL_EIG_MAX_N:
@@ -851,10 +906,10 @@ def small_eigh(a: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Pyramidal Lucas-Kanade tracking, forward and back, one warp a point
+# Pyramidal Lucas-Kanade tracking, forward and back, one block a point
 # ---------------------------------------------------------------------------
 
-KLT_LANES = 32          # the lanes that share a window's sums (one warp)
+KLT_LANES = 32          # the lanes that add a window's sums (the summing warp)
 KLT_MAX_LEVELS = 8
 KLT_MAX_RADIUS = 24
 
@@ -953,9 +1008,10 @@ def klt_track_twin(pyr0, pyr1, xy0, valid0, init_xy, radius: int = 10, iters: in
 
 
 class KltPlan(NamedTuple):
-    """The tracker's launch: a block of `threads` (one warp) a point, each
-    lane owning `cols` window pixels, `smem_bytes` of dynamic shared memory
-    (the template, its two gradients and an iteration's samples)."""
+    """The tracker's launch: a block of `threads` a point (one a window
+    slot, at most 1024), the summing warp's lanes adding `cols` window
+    pixels each, `smem_bytes` of dynamic shared memory (the template, its
+    two gradients and a pass's terms, `cols` x 32 slots each)."""
     threads: int
     cols: int
     smem_bytes: int
@@ -971,7 +1027,7 @@ def klt_plan(n: int, radius: int) -> KltPlan:
         raise ValueError(f"the KLT kernel takes n >= 1 and 0 <= radius <= {KLT_MAX_RADIUS}, "
                          f"got {n}, {radius}")
     cols = -(-(2 * radius + 1) ** 2 // KLT_LANES)
-    return KltPlan(KLT_LANES, cols, 4 * cols * KLT_LANES * 4, n)
+    return KltPlan(min(cols * KLT_LANES, 1024), cols, 4 * cols * KLT_LANES * 4, n)
 
 
 def compiled_klt_plan(n: int, radius: int) -> KltPlan:

@@ -5,7 +5,7 @@ The agent front-end tracks features between frames as the reference's
 `cv::calcOpticalFlowPyrLK` does, every feature at once. The JAX package
 compiles the forward (and backward) tracking into one program; here it is
 one call of `cuda_kernels.klt_track` on the two images' pyramids: on the
-card one kernel launch (one warp a point, both directions and the
+card one kernel launch (one block a point, both directions and the
 forward-backward gate), on the CPU its PyTorch twin. Building the pyramids
 is plain PyTorch, a few launches an image.
 """

@@ -122,7 +122,7 @@ def test_hamming_kernel(kind, dev):
         _same(ck.hamming_matrix(a, b, *masks), ck.hamming_matrix_twin(a, b, *masks))
 
 
-@pytest.mark.parametrize("n", [1, 3, 9, 12])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 11, 12])
 def test_small_eig_kernel(n, dev):
     rng = np.random.default_rng(n)
     for b in (128, 5):

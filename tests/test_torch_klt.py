@@ -183,10 +183,14 @@ def test_lane_sum_order():
 
 
 def test_klt_plan():
-    assert ck.klt_plan(150, 10) == ck.KltPlan(32, 14, 4 * 14 * 32 * 4, 150)
+    """A block a point, a thread a window slot (at most 1024), the summing
+    warp's lanes adding `cols` slots each."""
+    assert ck.klt_plan(150, 10) == ck.KltPlan(448, 14, 4 * 14 * 32 * 4, 150)
     assert ck.klt_plan(1, 0) == ck.KltPlan(32, 1, 512, 1)
-    assert ck.klt_plan(7, 3).cols == 2
+    assert ck.klt_plan(7, 3) == ck.KltPlan(64, 2, 4 * 2 * 32 * 4, 7)
+    assert ck.klt_plan(2, 15).threads == 31 * 32         # 961 pixels, 992 slots
     big = ck.klt_plan(3, ck.KLT_MAX_RADIUS)
+    assert big.threads == 1024 and big.cols == 76       # 2432 slots, up to 3 a thread
     assert big.smem_bytes <= 48 * 1024            # no opt-in above the static limit
     for n, r in ((0, 10), (5, -1), (5, ck.KLT_MAX_RADIUS + 1)):
         with pytest.raises(ValueError):
