@@ -1,8 +1,9 @@
-"""GPU smoke run of the PyTorch/CUDA port: builds the eight CUDA kernels
+"""GPU smoke run of the PyTorch/CUDA port: builds the nine CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
 hamming_matrix for the Pallas kernels; small_eig, the eigensolver of the
-8-point F and of the PnP's DLT, and klt_track, the agents' pyramidal LK
-tracker, which have no Pallas counterpart), holds each against its
+8-point F and of the PnP's DLT, klt_track, the agents' pyramidal LK
+tracker, and tsdf_integrate, a published map's TSDF integrate, which have
+no Pallas counterpart), holds each against its
 PyTorch twin on the card at its path's shapes (beside the launch floor: an
 empty kernel through the same launch path, timed the same way), then drives
 the port's paths at full width and checks that every kernel of each path
@@ -34,7 +35,10 @@ ran:
   `CollaborativeServer` (pose graph, per-client dense depth at 640x480x128
   bf16, TSDF fusion at 0.1 m with carving, the mesh), scored against the
   rendered depth and the analytic scene, with the dense graphs' shared
-  pool; then a short stream through the kernels and through the twins;
+  pool; each map's chunk walk (one graph replay and one read) held to its
+  CPU run, one tsdf_integrate launch a map, the mesh's replays (one a
+  256-chunk batch) held to the eager path; then a short stream through the
+  kernels and through the twins;
 - phase 7, distorted clients: the remap grids that `set_client_camera`
   builds for a radtan pinhole, an equidistant fisheye and a Mei camera (equal
   to the CPU's; an image rendered through the distorted camera and remapped
@@ -43,7 +47,9 @@ ran:
   port's `lift`, through the same whole server to phase 6's bounds;
 - phase 3 also holds klt_track to its twin bit for bit at the front-end's
   call (752x480 pyramids, 150 points, 4 levels x 15, the forward-backward
-  gate) and at edge shapes, and its tracks to the true motion;
+  gate) and at edge shapes, and its tracks to the true motion, and
+  tsdf_integrate at a published map's 640x480 frame into its chunks of a
+  4096-chunk pool (a stride-0 colour) and at edge shapes;
 - phase 8, the agents: two `AgentFrontend`s (FAST/BRIEF/KLT, IMU
   preintegration, the VI bootstrap, the sliding-window BA) on every 20 Hz
   frame of ~10 s of 752x480 radtan imagery with 200 Hz IMU, rendered in
@@ -116,13 +122,16 @@ dense path is measured, e.g.
     for t in build/parent . . build/parent; do
         python3 chip_smoke.py --dense-probe --package $t; done
 
-`--server-probe` (~1 min) prints one JSON line for the package on sys.path
+`--server-probe` (~1.5 min) prints one JSON line for the package on sys.path
 (`--package DIR` as above): phase 5's ingest host ms a keyframe with
 background solves and host syncs a keyframe, the 100-keyframe stream's
 inline ingest ms with host launch calls and device activities a keyframe
 (30 keyframes profiled one by one), and phase 6's whole-server host ms a
-keyframe, with each stream's keyframes a second; run it on parent, change,
-change, parent inside one call.
+keyframe, with each stream's keyframes a second, and its published maps:
+the `fuse` and `mesh` spans, each map's chunk walk, `_alloc` and device
+integrate ms, chunks a map, `extract_mesh` graphed and eager in turns
+with the memory its graphs keep, and one profiled `extract_mesh` and
+`integrate`; run it on parent, change, change, parent inside one call.
 
 `--kernels-probe` (seconds) prints one JSON line for the package on sys.path
 (`--package DIR` as above): the port's own hand kernels, `small_eig` and
@@ -190,16 +199,22 @@ SOURCES = {
     # no Pallas counterpart: the JAX package compiles track_points into one
     # program; the port ran it as ~40 small launches an LK iteration
     "klt_track": ("cvids_tpu_torch/csrc/klt_track.cu", "cvids_tpu/ops/klt.py:35"),
+    # no Pallas counterpart: the JAX package compiles _integrate_kernel into
+    # one program; the port ran it as ~40 eager launches and 3 index_copy_
+    "tsdf_integrate": ("cvids_tpu_torch/csrc/tsdf_integrate.cu",
+                       "cvids_tpu/mapping/tsdf.py:70"),
 }
 # each kernel's wrapper in cuda_kernels (its twin: the same name + "_twin")
 WRAPPERS = {"warp_banded": "projective_warp_banded", "plane_sweep": "plane_sweep",
             "sgm_scan": "sgm_scan_bidir", "wta": "wta",
             "depth_filter_update": "depth_filter_update", "hamming_matrix": "hamming_matrix",
-            "small_eig": "small_eigh", "klt_track": "klt_track"}
+            "small_eig": "small_eigh", "klt_track": "klt_track",
+            "tsdf_integrate": "tsdf_integrate"}
 DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
 SERVER_KERNELS = ("hamming_matrix",)
 RANSAC_KERNELS = ("small_eig",)     # every F-RANSAC: the agents' track step, the servers' cascade
 FRONTEND_KERNELS = ("klt_track",)   # the agents' track step alone
+MAP_KERNELS = ("tsdf_integrate",)   # a published map's integrate (the servers)
 # phase 3's tracker inputs: the front-end's call at the EuRoC rig
 KLT_H, KLT_W, KLT_N = 480, 752, 150
 KLT_ARGS = dict(radius=10, iters=15, max_residual=35.0, min_eig=1e-3, fb_thresh=1.5)
@@ -265,7 +280,7 @@ def time_ms(fn, runs: int) -> float:
 KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
                   "plane_sweep_kernel", "sgm_scan_kernel", "wta_kernel",
                   "depth_filter_kernel", "hamming_kernel", "small_eig_kernel", "klt_track_kernel",
-                  "empty_kernel")
+                  "tsdf_integrate_kernel", "empty_kernel")
 
 
 def print_ptxas_summary(log: str) -> None:
@@ -448,6 +463,9 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     ata, ftf, f3 = eight_point_systems(rng, dev)
     klt_in = klt_inputs(rng, dev)
     dlt_ata, dlt_mtm, dlt_m = dlt_systems(rng, dev)
+    tsdf_rng = np.random.default_rng(7)
+    tsdf_in = tsdf_inputs(tsdf_rng, dev)
+    tsdf_prof = (tsdf_in[0], _pool_copy(tsdf_in[1]), *tsdf_in[2:])
     if timed:
         # the kernels of microseconds under the profiler, before the volume
         # kernels and the twins run: each call must be one kernel launch and
@@ -463,12 +481,15 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                 ("hamming_2048", "hamming_kernel", lambda: ck.hamming_matrix(ha2, hb2)),
                 ("small_eig", "small_eig_kernel", lambda: ck.small_eigh(ata)),
                 ("small_eig_dlt", "small_eig_kernel", lambda: ck.small_eigh(dlt_ata)),
-                ("klt_track", "klt_track_kernel", lambda: ck.klt_track(*klt_in, **KLT_ARGS)))}
+                ("klt_track", "klt_track_kernel", lambda: ck.klt_track(*klt_in, **KLT_ARGS)),
+                ("tsdf_integrate", "tsdf_integrate_kernel",
+                 lambda: ck.tsdf_integrate(*tsdf_prof)))}
         print(f"  launch floor: an empty kernel through cuda_kernels._launch {extras['floor_ms']:.4f} "
               f"ms between CUDA events (median of {runs}), "
               f"{extras['profiler_ms']['empty']:.4f} ms under the profiler; the host "
               f"spends {extras['launch_host_us']:.2f} us a launch; one device activity a call "
-              f"of the warp, the filter, the Hamming kernel, small_eig and klt_track")
+              f"of the warp, the filter, the Hamming kernel, small_eig, klt_track and "
+              f"tsdf_integrate")
 
     # --- banded warp at phase 4's map and a small rotation, bands 96/48
     err = 0.0
@@ -639,6 +660,8 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
 
     # --- the pyramidal LK tracker at the front-end's call (and edge shapes)
     out["klt_track"] = klt_checks(dev, rng, klt_in, timed, runs, twin_runs)
+    # --- the TSDF integrate at a published map's frame (and edge shapes)
+    out["tsdf_integrate"] = tsdf_checks(dev, tsdf_rng, tsdf_in, timed, runs, twin_runs)
     print(f"  small_eig, one PnP DLT's eigen work (128 x 12x12 and 128 x 3x3, fp64): kernel == "
           f"twin bit for bit; kernel {dlt['ms']:.4f} ms (the 12x12 alone under the profiler "
           f"{dlt['profiler_ms'] or float('nan'):.4f} ms), twin {dlt['plain_ms']:.4f} ms, library "
@@ -907,9 +930,147 @@ def klt_checks(dev, rng, inputs, timed, runs, twin_runs):
     return 0.0, ms, pms, bound, by
 
 
+# phase 3's TSDF inputs: a published map's frame at phase 6's shapes and
+# TsdfConfig() (0.1 m voxels, 8^3 chunks, carving) into a mid-run pool
+TSDF_CAPACITY = 4096
+
+
+def tsdf_inputs(rng, dev, h=H, w=W, focal=FOCAL, cfg_kw=None, m=None, stride0=True,
+                slot0=False, off_image=False, capacity=TSDF_CAPACITY):
+    """(cfg, pool, slots, coords, depth, color, k, r_cw, t_cw) of one
+    `cuda_kernels.tsdf_integrate` call on `dev`: a rippled, tilted wall at
+    2-6 m (10 % holes, 1 % past max_depth) seen from a turned camera, the
+    chunks its walk touches (the first `m`; with `off_image` three behind
+    the camera and three far away too), distinct slots of a pool mid-run
+    (a third of the voxels unseen, weights up to the cap, slot 0 among them
+    with `slot0`), the colour the server's grey image on three channels (a
+    stride-0 view) or, without `stride0`, a contiguous colour image."""
+    from cvids_tpu_torch.mapping.tsdf import ChunkPool, TsdfConfig, TsdfVolume
+
+    cfg = TsdfConfig(**(cfg_kw or {}))
+    vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+    depth = 2.0 + 4.0 * uu / w + 0.4 * np.sin(vv / (h / 12)) + rng.normal(0, 0.01, (h, w))
+    depth[rng.random((h, w)) < 0.1] = 0.0
+    depth[rng.random((h, w)) < 0.01] = 25.0
+    depth = depth.astype(np.float32)
+    k = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]], np.float32)
+    r_wc = rotation_homography(np.eye(3, dtype=np.float32), 0.3, 0.1)
+    t_wc = np.array([0.4, -0.2, 0.1], np.float32)
+    coords = TsdfVolume(cfg, device="cpu")._touched_chunks(depth, k, r_wc, t_wc)[:m]
+    if off_image:
+        chunk = cfg.voxel_size * cfg.chunk_size
+        behind = np.floor((t_wc - 2.0 * r_wc[:, 2]) / chunk).astype(np.int32)
+        far = np.array([[400, -300, 250]], np.int32) + np.arange(3)[:, None]
+        coords = np.concatenate([coords, behind + np.arange(3)[:, None] * [1, 0, 0], far])
+    n = len(coords)
+    slots = rng.permutation(capacity)[:n].astype(np.int64)
+    if slot0:           # slot 0 and the pool's last slot among the chunks
+        for i, want in ((n // 2, 0), (n - 1, capacity - 1)):
+            if want not in slots:
+                slots[i] = want
+    s = cfg.chunk_size
+    shape = (capacity, s, s, s)
+    wgt = rng.uniform(0.5, 100.0, shape).astype(np.float32)
+    wgt[rng.random(shape) < 0.33] = 0.0
+    wgt[rng.random(shape) < 0.05] = 100.0
+    pool = ChunkPool(*(torch.from_numpy(a).to(dev) for a in (
+        rng.uniform(-0.2, 0.2, shape).astype(np.float32), wgt,
+        rng.uniform(0, 255, shape + (3,)).astype(np.float32))))
+    gray = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
+    color = (gray[..., None].expand(-1, -1, 3) if stride0 else
+             torch.from_numpy(rng.uniform(0, 255, (h, w, 3)).astype(np.float32)).to(dev))
+    to = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)  # noqa: E731
+    return (cfg, pool, to(slots, torch.int64), to(coords, torch.int32), to(depth), color, to(k),
+            to(r_wc.T), to(-r_wc.T @ t_wc))
+
+
+def tsdf_edge_cases(rng, dev) -> list:
+    """(what, inputs) of the TSDF kernel's edges: one chunk, chunks of 7³
+    and 9³ voxels (the voxel loop's ragged last pass), chunks whose voxels
+    all fall off the image, a contiguous colour, slot 0 and the pool's last
+    slot, carving off with a quadratic truncation, a ragged 37x53 image."""
+    return [
+        ("one chunk", tsdf_inputs(rng, dev, m=1)),
+        ("chunks of 7^3", tsdf_inputs(rng, dev, cfg_kw=dict(chunk_size=7), m=200,
+                                      capacity=512)),
+        ("chunks of 9^3", tsdf_inputs(rng, dev, cfg_kw=dict(chunk_size=9), m=200,
+                                      capacity=512)),
+        ("off-image chunks", tsdf_inputs(rng, dev, m=20, off_image=True)),
+        ("a contiguous colour", tsdf_inputs(rng, dev, m=300, stride0=False)),
+        ("slot 0 and the last slot", tsdf_inputs(rng, dev, m=300, slot0=True)),
+        ("no carving, quadratic truncation",
+         tsdf_inputs(rng, dev, cfg_kw=dict(carving=False, trunc_quad=0.02), m=300)),
+        ("a 37x53 image", tsdf_inputs(rng, dev, 37, 53, 30.0, m=50, capacity=256)),
+    ]
+
+
+def _pool_copy(pool):
+    return type(pool)(*(x.clone() for x in pool))
+
+
+def tsdf_checks(dev, rng, inputs, timed, runs, twin_runs):
+    """tsdf_integrate against its twin, bit for bit, at the path's shape (a
+    published map's frame at 640x480 into its chunks of a 4096-chunk pool)
+    and at `tsdf_edge_cases`, each from copies of one pool; then the path's
+    call timed (in place: every run integrates the frame again). Returns
+    (max |err|, ms, twin ms, bound ms, bound by)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+
+    def same(what, inp):
+        cfg, pool, *rest = inp
+        got, ref = _pool_copy(pool), _pool_copy(pool)
+        ck.tsdf_integrate(cfg, got, *rest)
+        ck.tsdf_integrate_twin(cfg, ref, *rest)
+        check(all(_same_bits(a, b) for a, b in zip(got, ref)),
+              f"tsdf_integrate {what}: the kernel's pool differs from the twin's")
+        return pool, got
+
+    before, after = same("at the path's shape", inputs)
+    # the data's counts: voxels whose weight changed, voxels in the band
+    # (their colour changed) and pool words whose bits changed, for the bound
+    moved = [(a.view(torch.int32) != b.view(torch.int32)) for a, b in zip(after, before)]
+    changed = int(moved[1].sum())
+    updated = int(moved[2].any(-1).sum())
+    written = int(sum(x.sum() for x in moved))
+    cases = tsdf_edge_cases(rng, dev)
+    for what, inp in cases:
+        same(what, inp)
+    cfg, pool, slots, coords, *rest = inputs
+    if dev.type == "cuda":
+        # a slot outside the pool (past its end, negative) is skipped by the
+        # kernel, which writes nothing else: the twin on the other chunks
+        # (the twin itself raises on such a slot)
+        bad = slots.clone()
+        bad[:2] = torch.tensor([pool.sdf.shape[0], -1], device=dev)
+        got, ref = _pool_copy(pool), _pool_copy(pool)
+        ck.tsdf_integrate(cfg, got, bad, coords, *rest)
+        ck.tsdf_integrate_twin(cfg, ref, slots[2:], coords[2:], *rest)
+        check(all(_same_bits(a, b) for a, b in zip(got, ref)),
+              "tsdf_integrate with two slots outside the pool: the pool differs from the "
+              "twin's on the other chunks")
+        cases.append(("two slots outside the pool",))
+    m = slots.shape[0]
+    work = _pool_copy(pool)
+    ms = time_ms(lambda: ck.tsdf_integrate(cfg, work, slots, coords, *rest),
+                 runs) if timed else 0.0
+    pms = time_ms(lambda: ck.tsdf_integrate_twin(cfg, work, slots, coords, *rest),
+                  twin_runs) if timed else 0.0
+    depth, color = rest[0], rest[1]
+    color_px = 4 * (1 if color.stride(-1) == 0 else 3)
+    bound, by = roofline("tsdf_integrate", m=m, s=cfg.chunk_size, h=depth.shape[0],
+                         w=depth.shape[1], updated=updated, written=written, color_px=color_px)
+    check(changed > m * 8, f"tsdf_integrate at the path's shape: {changed} voxels of {m} "
+                           f"chunks changed")
+    print(f"  tsdf_integrate, a {W}x{H} frame into {m} chunks of {cfg.chunk_size}^3 (pool "
+          f"{pool.sdf.shape[0]}, stride-0 colour): kernel == twin bit for bit (tolerance: "
+          f"exact), {changed} voxels changed ({updated} in the band, {written} pool words "
+          f"written); and at {', '.join(c[0] for c in cases)}")
+    return 0.0, ms, pms, bound, by
+
+
 def plan_checks() -> None:
-    """The scan's, the sweep's, the WTA's, the Hamming kernel's and the
-    tracker's launch plans as Python restates them (and the CPU tests hold
+    """The scan's, the sweep's, the WTA's, the Hamming kernel's, the
+    tracker's and the TSDF kernel's launch plans as Python restates them (and the CPU tests hold
     to the card's limits) against what the built library reports for the
     same shapes: every D and dtype, ragged line counts and tiles."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
@@ -940,6 +1101,12 @@ def plan_checks() -> None:
         for radius in (0, 3, 10, 15, 16, 24):
             want, got = ck.klt_plan(kn, radius), ck.compiled_klt_plan(kn, radius)
             check(want == got, f"klt plan at {kn} points, radius {radius}: Python {want}, "
+                               f"library {got}")
+            n += 1
+    for tm in (1, 33, 1000, 131_072):
+        for ts in (1, 5, 7, 8, 9, 16):
+            want, got = ck.tsdf_plan(tm, ts), ck.compiled_tsdf_plan(tm, ts)
+            check(want == got, f"tsdf plan at {tm} chunks of {ts}^3: Python {want}, "
                                f"library {got}")
             n += 1
     print(f"  launch plans: Python's equal the library's at {n} shapes")
@@ -1254,7 +1421,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def memory_checks(device, rng, repeats=3) -> int:
-    """An audit of the eight kernels' memory accesses that needs no sanitizer:
+    """An audit of the nine kernels' memory accesses that needs no sanitizer:
     each kernel runs at the path's shapes and at ragged ones with its inputs
     and outputs guarded (`GuardedTorch`), and must give the bits of its
     unguarded run every time, with every red zone intact. An out-of-bounds
@@ -1262,7 +1429,6 @@ def memory_checks(device, rng, repeats=3) -> int:
     red zone; a read of unwritten output reads NaN; a race shows as runs
     that differ. Returns the number of guarded launches."""
     from cvids_tpu_torch.ops import costvolume, cuda_kernels as ck
-    from cvids_tpu_torch.ops.depth_filter import FilterState
 
     dev = torch.device(device)
     cases = []
@@ -1304,6 +1470,19 @@ def memory_checks(device, rng, repeats=3) -> int:
                      (klt_inputs(rng, dev, 97, 131, 33, 3, 6.0),
                       dict(radius=3, iters=8, max_residual=40.0, min_eig=1e-3, fb_thresh=1.0))):
         cases.append(("klt_track", lambda *a, kw=kw: ck.klt_track(*a, **kw), args))
+    # the TSDF kernel writes the pool in place: the case returns the pool;
+    # the grey image is expanded to three channels inside, as the server's is
+    for inp in (tsdf_inputs(rng, dev, m=400),
+                tsdf_inputs(rng, dev, 37, 53, 30.0, cfg_kw=dict(chunk_size=7), m=9,
+                            capacity=64)):
+        cfg, pool, slots, coords, depth, color, *geom = inp
+
+        def integrated(pool, slots, coords, depth, gray, *geom, cfg=cfg):
+            ck.tsdf_integrate(cfg, pool, slots, coords, depth, gray[..., None].expand(-1, -1, 3),
+                              *geom)
+            return tuple(pool)
+        cases.append(("tsdf_integrate", integrated,
+                      (pool, slots, coords, depth, color[..., 0].contiguous(), *geom)))
 
     def flat(out):
         return [t for o in (out if isinstance(out, tuple) else (out,))
@@ -1311,13 +1490,13 @@ def memory_checks(device, rng, repeats=3) -> int:
 
     n_launches = 0
     for name, fn, args in cases:
-        ref = flat(fn(*args))
+        ref = flat(fn(*_clone_state(args)))     # a copy: the TSDF kernel writes its pool
         for _ in range(repeats):
             g = GuardedTorch()
 
             def guard(a, g=g):
-                if isinstance(a, FilterState):
-                    return FilterState(*(guard(t) for t in a))
+                if isinstance(a, tuple) and hasattr(a, "_fields"):   # FilterState, ChunkPool
+                    return type(a)(*(guard(t) for t in a))
                 if isinstance(a, list):             # the tracker's pyramids
                     return [guard(t) for t in a]
                 if isinstance(a, torch.Tensor):
@@ -1332,7 +1511,7 @@ def memory_checks(device, rng, repeats=3) -> int:
             check(all(torch.equal(_bits(o), _bits(r)) for o, r in zip(out, ref)),
                   f"{name} {shape}: a guarded run differs from the unguarded one")
             check(g.red_zones_intact(), f"{name} {shape}: a red zone was written")
-    print(f"  memory audit: {n_launches} guarded launches of the eight kernels (path and ragged "
+    print(f"  memory audit: {n_launches} guarded launches of the nine kernels (path and ragged "
           f"shapes, {RED_ZONE} B red zones, {repeats} runs each): every run bit-identical "
           f"to the unguarded one, every red zone intact")
     return n_launches
@@ -1653,15 +1832,12 @@ def server_probe(device) -> None:
     ms a keyframe, host syncs a keyframe), its 100-keyframe stream with
     inline solves (host ms, and keyframes 40-69 under the profiler one by
     one: host launch calls and device activities a keyframe), then phase
-    6's whole server on its 4 x 36 rendered keyframes (host ms a
-    keyframe); keyframes a second of each stream, its final solve or sync
-    included. Uses only what the parent's package also has."""
+    6's whole server on its 4 x 36 rendered keyframes (`whole_server_probe`:
+    host ms a keyframe and its published maps); keyframes a second of each
+    stream, its final solve or sync included. Uses only what the parent's
+    package also has."""
     import cvids_tpu_torch
-    from cvids_tpu_torch.dense.estimator import DenseConfig
-    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
     from cvids_tpu_torch.server import vocab
-    from cvids_tpu_torch.server.pipeline import PipelineConfig
-    from cvids_tpu_torch.server.posegraph import ServerConfig
 
     dev = torch.device(device)
     print(f"server probe of {cvids_tpu_torch.__path__[0]}")
@@ -1671,11 +1847,6 @@ def server_probe(device) -> None:
     ingest = np.asarray(stats["ingest_ms"])
     cmp_packets, _ = server_stream(COMPARE_AGENTS, COMPARE_DURATION)
     edges, inline_ms, prof = server_edges(dev, cmp_packets, tree, profile=(40, 70))
-    scene, _, k = scene_stream(PIPE_AGENTS, PIPE_KF)
-    cfg = PipelineConfig(server=ServerConfig(), dense=DenseConfig(), tsdf=TsdfConfig())
-    t0 = time.perf_counter()
-    _, kf_ms, _ = pipeline_run(dev, scene, tree, k, cfg)
-    whole_s = time.perf_counter() - t0
     out = {"package": cvids_tpu_torch.__path__[0],
            "ingest_ms": {"median": float(np.median(ingest)),
                          "p90": float(np.percentile(ingest, 90)), "keyframes": len(ingest)},
@@ -1686,11 +1857,83 @@ def server_probe(device) -> None:
            "inline_loops": len(edges),
            "launch_calls_per_kf": float(np.median(prof["launch_calls"])),
            "activities_per_kf": float(np.median(prof["activities"])),
-           "profiled_kf": len(prof["launch_calls"]),
-           "whole_server_ms": {"median": float(np.median(kf_ms)),
-                               "p90": float(np.percentile(kf_ms, 90)), "keyframes": len(kf_ms)},
-           "whole_server_kf_per_s": len(kf_ms) / whole_s}
+           "profiled_kf": len(prof["launch_calls"]), **whole_server_probe(dev, tree)}
     print(json.dumps({"server_probe": out}))
+
+
+def whole_server_probe(dev, tree, mesh_runs: int = 10) -> dict:
+    """Phase 6's whole server on its 4 x 36 rendered keyframes: host ms a
+    keyframe (median, p90) and keyframes a second over the stream; its
+    published maps: the `fuse` and `mesh` spans' host ms, each map's chunk
+    walk, `_alloc` and device integrate ms (`IntegrateTimer`; median,
+    p90), chunks a map; then `extract_mesh` of the final map, `mesh_runs`
+    times graphed and eager (`disable_graphs()`) in turns after one of
+    each (host ms, median and spread), with the device memory that its
+    first graphed call leaves reserved (the mesh graphs' pool; the
+    allocator's free cache emptied before and after); then one profiled
+    graphed `extract_mesh` and one profiled `integrate` of the last
+    published map again (wall ms with the profiler on, device busy ms,
+    device activities, host launch calls, the four largest activities).
+    Uses only what the parent's package also has."""
+    from cvids_tpu_torch.dense.estimator import DenseConfig
+    from cvids_tpu_torch.mapping.mesh import extract_mesh
+    from cvids_tpu_torch.mapping.tsdf import TsdfConfig
+    from cvids_tpu_torch.server.pipeline import PipelineConfig
+    from cvids_tpu_torch.server.posegraph import ServerConfig
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+    scene, _, k = scene_stream(PIPE_AGENTS, PIPE_KF)
+    cfg = PipelineConfig(server=ServerConfig(), dense=DenseConfig(), tsdf=TsdfConfig())
+    t0 = time.perf_counter()
+    server, kf_ms, timer = pipeline_run(dev, scene, tree, k, cfg)
+    stream_s = time.perf_counter() - t0
+    vol = server.volume
+
+    def stats(v):
+        return {"median": float(np.median(v)), "p90": float(np.percentile(v, 90))}
+
+    def timed_mesh():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        extract_mesh(vol)
+        return (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    timed_mesh()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev) - reserved
+    with disable_graphs():
+        timed_mesh()
+    graphed, eager = [], []
+    for _ in range(mesh_runs):
+        graphed.append(timed_mesh())
+        with disable_graphs():
+            eager.append(timed_mesh())
+    rec = server.depth_records[-1]
+    depth = torch.from_numpy(rec["depth"]).to(dev)
+    color = (depth * 40.0)[..., None].expand(-1, -1, 3)
+    profiles = {}
+    for name, fn in (("extract_mesh", lambda: extract_mesh(vol)),
+                     ("integrate", lambda: vol.integrate(depth, color, rec["k"], rec["r_wc"],
+                                                         rec["t_wc"]))):
+        fn()
+        wall, rows, calls = profile_frame(fn, host_launches=True)
+        profiles[name] = {"wall_ms": wall, "device_busy_ms": sum(r[1] for r in rows),
+                          "activities": sum(r[2] for r in rows), "host_launch_calls": calls,
+                          "largest": [(n[:60], round(ms, 4), c) for n, ms, c in rows[:4]]}
+    spans = {n: np.asarray(v) * 1e3 for n, v in server.tracer.samples.items()}
+    return {"whole_server_ms": {**stats(kf_ms), "keyframes": len(kf_ms)},
+            "whole_server_kf_per_s": len(kf_ms) / stream_s,
+            "spans_ms": {n: stats(spans[n]) for n in ("fuse", "mesh") if n in spans},
+            "walk_ms": stats(timer.walk_ms), "alloc_ms": stats(timer.alloc_ms),
+            "integrate_ms": stats(timer.device_ms()), "maps": timer.maps(),
+            "chunks_per_map": stats(timer.chunks), "chunks": len(vol.slot_of),
+            "extract_mesh_ms": {"graphed": [float(np.median(graphed)), min(graphed),
+                                            max(graphed)],
+                                "eager": [float(np.median(eager)), min(eager), max(eager)],
+                                "runs": mesh_runs},
+            "mesh_graph_reserved_mib": reserved / 2 ** 20, "profiles": profiles}
 
 
 def kernels_probe(device, runs: int = 50) -> None:
@@ -2518,54 +2761,84 @@ def scene_stream(n_agents, n_kf, h=H, w=W, focal=FOCAL, n_landmarks=PIPE_LANDMAR
 
 
 class IntegrateTimer:
-    """Times each `TsdfVolume.integrate` of a volume: the host's chunk walk
-    and allocation (host clock) and the device integrate (CUDA events on a
-    card), without adding a sync to the path."""
+    """Times each `TsdfVolume.integrate` of a volume by part, without adding
+    a sync to the path: the chunk walk (host clock around `_touched_chunks`,
+    which ends in its read of the keys), the allocation (host clock around
+    `_alloc`) and the device integrate (CUDA events around
+    `integrate_chunks` on a card, summed over a map's calls: one launch, or
+    batches of 1024 chunks before the TSDF kernel). With `cpu_walk`, each
+    map's depth is kept (a device copy) with the walk's inputs and chunks,
+    and `walk_check` runs each walk again on the CPU after the run."""
 
-    def __init__(self, volume):
+    def __init__(self, volume, cpu_walk=False):
         from cvids_tpu_torch.mapping import tsdf
-        self.host_ms, self.events, self.chunks = [], [], []
+        self.walk_ms, self.alloc_ms, self.events, self.chunks = [], [], [], []
+        self.walks = []
         real_touched, real_alloc = volume._touched_chunks, volume._alloc
         real_chunks = tsdf.integrate_chunks
         self._restore = lambda: setattr(tsdf, "integrate_chunks", real_chunks)
         timed = volume.device.type == "cuda"
+        self._cpu = tsdf.TsdfVolume(volume.cfg, device="cpu") if cpu_walk else None
 
-        def touched(*args):
-            self._t0 = time.perf_counter()
-            return real_touched(*args)
+        def touched(depth, *args):
+            t0 = time.perf_counter()
+            out = real_touched(depth, *args)
+            self.walk_ms.append((time.perf_counter() - t0) * 1e3)
+            self.events.append([])
+            if cpu_walk:
+                self.walks.append((depth.clone() if torch.is_tensor(depth) else depth, args, out))
+            return out
 
         def alloc(coords):
+            t0 = time.perf_counter()
             slots = real_alloc(coords)
-            self.host_ms.append((time.perf_counter() - self._t0) * 1e3)
+            self.alloc_ms.append((time.perf_counter() - t0) * 1e3)
             self.chunks.append(len(slots))
             return slots
 
-        def chunks(*args):
+        def chunks(*args, **kwargs):
             if not timed:
-                return real_chunks(*args)
+                return real_chunks(*args, **kwargs)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            real_chunks(*args)
+            real_chunks(*args, **kwargs)
             end.record()
-            self.events.append((start, end))
+            self.events[-1].append((start, end))
 
         volume._touched_chunks, volume._alloc = touched, alloc
         tsdf.integrate_chunks = chunks
 
     def device_ms(self) -> list[float]:
-        """Device ms of each integrate_chunks call (syncs once, at the end)."""
-        if self.events:
-            self.events[-1][1].synchronize()
-        return [s.elapsed_time(e) for s, e in self.events]
+        """Device ms of each map's integrate (syncs once, at the end)."""
+        if any(self.events):
+            torch.cuda.synchronize()
+        return [sum(s.elapsed_time(e) for s, e in ev) for ev in self.events if ev]
+
+    def maps(self) -> int:
+        """Maps that integrated chunks."""
+        return sum(1 for c in self.chunks if c)
+
+    def walk_check(self) -> list[int]:
+        """Each kept map's walk run again on a CPU copy of its depth: the
+        chunks that differ from the run's, a map (a map whose chunks are
+        the same but in another order counts 1)."""
+        diffs = []
+        for depth, args, out in self.walks:
+            ref = self._cpu._touched_chunks(depth.cpu() if torch.is_tensor(depth) else depth,
+                                            *args)
+            diffs.append(0 if np.array_equal(out, ref) else max(
+                len(set(map(tuple, out)) ^ set(map(tuple, ref))), 1))
+        return diffs
 
     def close(self):
         self._restore()
 
 
-def pipeline_run(device, packets, vocabulary, k, cfg, cams=None):
+def pipeline_run(device, packets, vocabulary, k, cfg, cams=None, cpu_walk=False):
     """Streams the packets through CollaborativeServer; returns the server
-    (its worker stopped), per-keyframe host ms, and the integrate timer.
-    Every client gets the intrinsics `k`, or, with `cams` (a camera a
+    (its worker stopped), per-keyframe host ms, and the integrate timer
+    (`IntegrateTimer`, with `cpu_walk` holding each map's walk to its CPU
+    run). Every client gets the intrinsics `k`, or, with `cams` (a camera a
     client), its camera through `set_client_camera`."""
     from cvids_tpu_torch.server.pipeline import CollaborativeServer
 
@@ -2575,7 +2848,7 @@ def pipeline_run(device, packets, vocabulary, k, cfg, cams=None):
             server.set_client_intrinsics(cid, k)
         else:
             server.set_client_camera(cid, cams[cid])
-    timer = IntegrateTimer(server.volume)
+    timer = IntegrateTimer(server.volume, cpu_walk)
     kf_ms = []
     try:
         for pkt in packets:
@@ -2629,13 +2902,23 @@ def pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s,
     bounds of phases 6 and 7: every client aligned, >= 4 depth maps an
     agent, median inverse-depth RMS < 0.12 against the rendered truth, a mesh
     of > 1000 triangles with median scene distance < 0.15 m, the TSDF pool on
-    the device, all six kernels launched. Returns the tracer's spans (host ms
-    per sample)."""
+    the device, all seven kernels of the server launched, `tsdf_integrate`
+    once a map, the walk's chunks equal to its CPU run's on every map (where
+    the timer ran it), and `extract_mesh` one replay a 256-chunk batch with
+    the eager path's triangles bit for bit. Returns the tracer's spans (host
+    ms per sample)."""
     import tempfile
 
-    from cvids_tpu_torch.mapping.mesh import extract_mesh, read_ply
+    from cvids_tpu_torch.mapping.mesh import MESH_BATCH, extract_mesh, read_ply
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
 
     vol = server.volume
+    # the device memory that the mesh's first (capturing) call leaves
+    # reserved: its graphs' pool, the allocator's free cache emptied around it
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ply = f"{tmp}/scene.ply"
         t1 = time.perf_counter()
@@ -2643,28 +2926,47 @@ def pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s,
         save_ms = (time.perf_counter() - t1) * 1e3
         verts, faces, _ = read_ply(ply)
     _sync(dev)
+    if cuda:
+        torch.cuda.empty_cache()
+        reserved = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+    replays = vol.mesh_graph.replays
     t1 = time.perf_counter()
-    extract_mesh(vol)
+    graphed = extract_mesh(vol)
     mesh_ms = (time.perf_counter() - t1) * 1e3
+    replays = vol.mesh_graph.replays - replays
+    with disable_graphs():
+        t1 = time.perf_counter()
+        eager = extract_mesh(vol)
+        eager_ms = (time.perf_counter() - t1) * 1e3
+    batches = -(-len(vol.slot_of) // MESH_BATCH)
     per_client = [sum(r["client"] == c for r in server.depth_records) for c in range(n_agents)]
     rms = depth_rms(server, truth)
     med_rms = float(np.median(rms)) if rms else float("inf")
     dist = float(np.median(scene_distance(verts.astype(np.float64)))) if len(verts) else float("inf")
     dev_ms = timer.device_ms()
+    walk_diffs = timer.walk_check()
     spans = {name: np.asarray(v) * 1e3 for name, v in server.tracer.samples.items()}
     print(f"  stream {stream_s:.2f} s; host ms per keyframe median {np.median(kf_ms):.3f} "
           f"p90 {np.percentile(kf_ms, 90):.3f}; peak device memory {peak:.2f} GiB")
     print("  tracer host ms per span: " + "; ".join(
         f"{n} x{len(v)} median {np.median(v):.3f} p90 {np.percentile(v, 90):.3f}"
         for n, v in spans.items()))
-    print(f"  TsdfVolume.integrate per depth map: chunk walk + alloc (host) ms median "
-          f"{np.median(timer.host_ms):.3f} p90 {np.percentile(timer.host_ms, 90):.3f}; device "
-          f"integrate ms median {np.median(dev_ms) if dev_ms else float('nan'):.4f} max "
+    print(f"  TsdfVolume.integrate per depth map, host ms: chunk walk median "
+          f"{np.median(timer.walk_ms):.3f} p90 {np.percentile(timer.walk_ms, 90):.3f}, _alloc "
+          f"median {np.median(timer.alloc_ms):.3f} p90 {np.percentile(timer.alloc_ms, 90):.3f}; "
+          f"device integrate ms median {np.median(dev_ms) if dev_ms else float('nan'):.4f} max "
           f"{max(dev_ms, default=float('nan')):.4f}; chunks per map median "
-          f"{np.median(timer.chunks):.0f} max {max(timer.chunks)}")
-    print(f"  extract_mesh {mesh_ms:.3f} ms, save_mesh {save_ms:.3f} ms; chunks allocated "
-          f"{len(vol.slot_of)} (pool {vol.capacity}, dropped {vol.dropped_chunks}); "
-          f"triangles {n_tri}")
+          f"{np.median(timer.chunks):.0f} max {max(timer.chunks)}; tsdf_integrate launches "
+          f"{counts['tsdf_integrate']} for {timer.maps()} maps"
+          + (f"; the walk against its CPU run on a copy of each map's depth: "
+             f"{sum(walk_diffs)} chunks differ over {len(walk_diffs)} maps"
+             if walk_diffs else ""))
+    print(f"  extract_mesh graphed {mesh_ms:.3f} ms ({replays} replays for {batches} batches "
+          f"of {MESH_BATCH}), eager {eager_ms:.3f} ms, the same triangles bit for bit; "
+          f"save_mesh {save_ms:.3f} ms"
+          + (f" (its graphs keep {reserved:.1f} MiB reserved)" if cuda else "")
+          + f"; chunks allocated {len(vol.slot_of)} (pool "
+          f"{vol.capacity}, dropped {vol.dropped_chunks}); triangles {n_tri}")
     print(f"  aligned {[c.aligned for c in server.graph.clients[:n_agents]]}; loops "
           f"{server.graph.loop_count}; depth maps {server.depth_maps_published}, per agent "
           f"{per_client}; inverse-depth RMS median {med_rms:.4f} over {len(rms)} maps "
@@ -2677,8 +2979,16 @@ def pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s,
     check(dist < 0.15, f"mesh median scene distance {dist} m >= 0.15")
     check(vol.pool.sdf.device == dev and vol.pool.weight.device == dev,
           f"TSDF pool on {vol.pool.sdf.device}, not {dev}")
-    check(all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS),
+    check(all(counts[n] > 0 for n in DENSE_KERNELS + SERVER_KERNELS + MAP_KERNELS),
           f"a kernel did not run in the pipeline: {counts}")
+    check(dev.type != "cuda" or counts["tsdf_integrate"] == timer.maps(),
+          f"{counts['tsdf_integrate']} tsdf_integrate launches for {timer.maps()} maps")
+    check(sum(walk_diffs) == 0,
+          f"the walk on the device differs from its CPU run by {walk_diffs} chunks")
+    check(all(a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+              for a, b in zip(graphed, eager)), "extract_mesh's replays differ from the eager path")
+    check(dev.type != "cuda" or replays == batches,
+          f"extract_mesh replayed {replays} graphs for {batches} batches")
     return spans
 
 
@@ -2704,7 +3014,8 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
     (640x480x128 bf16, 0.1 m voxels, carving), inline solves; then a short
     stream through the kernels and through the twins. `dense` replaces
     DenseConfig() for a smaller rehearsal on the CPU. Returns the main
-    run's launch counts."""
+    run's launch counts and its maps' medians (maps, walk, alloc, device
+    integrate and `mesh` span ms)."""
     from cvids_tpu_torch.dense.estimator import DenseConfig
     from cvids_tpu_torch.mapping.tsdf import TsdfConfig
     from cvids_tpu_torch.ops import cuda_kernels as ck
@@ -2724,11 +3035,16 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
         torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
     t0 = time.perf_counter()
-    server, kf_ms, timer = pipeline_run(dev, packets, vocabulary, k, cfg)
+    server, kf_ms, timer = pipeline_run(dev, packets, vocabulary, k, cfg, cpu_walk=True)
     stream_s = time.perf_counter() - t0
     counts = dict(ck.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
-    pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s, peak)
+    spans = pipeline_score(server, kf_ms, timer, truth, n_agents, counts, dev, stream_s, peak)
+    dev_ms = timer.device_ms()
+    maps = {"maps": timer.maps(), "walk_ms": float(np.median(timer.walk_ms)),
+            "alloc_ms": float(np.median(timer.alloc_ms)),
+            "integrate_ms": float(np.median(dev_ms)) if dev_ms else None,
+            "mesh_span_ms": float(np.median(spans["mesh"])) if "mesh" in spans else None}
     print(f"  whole-server host ms per keyframe median {np.median(kf_ms):.3f}, beside "
           f"{PARENT_WHOLE_SERVER_MS} before the ingest programs were graphs (PERF.md section 6; "
           f"`--server-probe --package` measures two trees in one call)")
@@ -2761,7 +3077,7 @@ def pipeline_phase(device, vocabulary, n_agents=PIPE_AGENTS, n_kf=PIPE_KF, h=H, 
           f"{sk.depth_maps_published} maps agreeing within 1e-4 relative at >= {agree:.5f} of "
           f"pixels (tolerance 0.999), the same {len(sk.volume.slot_of)} chunks")
     print("phase 6 pipeline: ok")
-    return counts
+    return counts, maps
 
 
 def distorted_cameras(device, h=H, w=W, focal=FOCAL) -> dict:
@@ -4011,7 +4327,8 @@ def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:
     rank where the machine has n_ranks cards, else on gloo with every rank on
     this card (a stated layout: every tensor stays on the card), held to the
     single-process path by `multichip_checks`. Returns the dense kernels'
-    launches on the production dense step, summed over the ranks."""
+    launches on the production dense step and tsdf_integrate's on the
+    production TSDF, summed over the ranks."""
     from cvids_tpu_torch.entry import dryrun_multichip, dryrun_problems
 
     dev = torch.device(device)
@@ -4038,7 +4355,9 @@ def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:
           f"{[r['dense']['launches'] for r in res['ranks']]}")
     print(f"phase 11 multi-GPU: ok in {time.perf_counter() - t_phase:.1f} s (dry run "
           f"{run_s:.1f} s, of it the ranks' start and stop; the checks on one card the rest)")
-    return {k: sum(r["dense"]["launches"][k] for r in res["ranks"]) for k in SOURCES}
+    counts = {k: sum(r["dense"]["launches"][k] for r in res["ranks"]) for k in SOURCES}
+    counts["tsdf_integrate"] = sum(r["tsdf"]["launches"]["tsdf_integrate"] for r in res["ranks"])
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4290,7 +4609,7 @@ def main() -> int:
     tree, server_info = server_phase(dev)
 
     # phase 6: the whole server, packets with images -> depth -> TSDF -> mesh
-    pipe_counts = pipeline_phase(dev, tree)
+    pipe_counts, pipe_maps = pipeline_phase(dev, tree)
 
     # phase 7: distorted, fisheye and Mei clients through the whole server
     dist_counts = distorted_phase(dev, tree)
@@ -4315,7 +4634,9 @@ def main() -> int:
     fish_counts = fisheye_phase(dev)
     checkpoint_phase(dev)
 
-    # launches: the whole server's run (phase 6), which drives all six;
+    # launches: the whole server's run (phase 6), which drives the server's
+    # seven (the five dense kernels, hamming_matrix and tsdf_integrate) and
+    # small_eig;
     # launches_phase7: the distorted clients' run, which drives them again;
     # launches_phase8: the server fed by the agents' front-ends;
     # launches_phase9: the topology's server; launches_phase11: the dry
@@ -4331,7 +4652,7 @@ def main() -> int:
     # profiler_ms: the device time of a kernel of microseconds in one profiled
     # call (null for the volume kernels: phase 4's profiled frame prints theirs).
     # library_ms: null, no single PyTorch call computes any of the six
-    # ported kernels, nor klt_track; for small_eig torch.linalg.eigh of the
+    # ported kernels, nor klt_track, nor tsdf_integrate; for small_eig torch.linalg.eigh of the
     # same batches (replaced_ms: the torch.linalg calls it replaced on the
     # path, eigh and svd; accuracy: against float64 eigh, phase 3).
     # small_eig's launches_frontend_phase8: phase 8's front-ends (graph
@@ -4365,6 +4686,11 @@ def main() -> int:
     # launches_phase* of the server runs are 0 (no front-end there) but
     # phase 9's, which sums its agent processes', and phase 12's
     fe_klt = agent_scores["frontend_launches"]["klt_track"]
+    # tsdf_integrate: one launch a published map (phase 6's maps and the
+    # medians of its parts: the walk, _alloc, the device integrate, the
+    # `mesh` span)
+    rate["tsdf_integrate"] = {"launches_per_map_phase6": pipe_counts["tsdf_integrate"]
+                              / max(pipe_maps["maps"], 1), "phase6_maps": pipe_maps}
     rate["klt_track"] = {"launches_frontend_phase8": fe_klt,
                          "launches_per_frame_phase8": fe_klt / agent_scores["frames"],
                          "tracked_frames_phase8": agent_scores["tracked_frames"]}

@@ -41,8 +41,9 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream as c_void_p, ints as c_int,
-# floats as c_float; each returns a cudaError_t as int
+_L = ctypes.c_long
+# C signatures: every pointer and the stream as c_void_p, ints as c_int
+# (longs as c_long), floats as c_float; each returns a cudaError_t as int
 SIGNATURES = {
     "cvids_warp_banded": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cvids_plane_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -60,6 +61,9 @@ SIGNATURES = {
                         ctypes.POINTER(_I), _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                         _I, _P],
     "cvids_klt_plan": [_I, _I, ctypes.POINTER(_I)],
+    "cvids_tsdf_integrate": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _I, _I, _L, _L, _P, _L, _L, _L,
+                             _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "cvids_tsdf_integrate_plan": [_I, _I, ctypes.POINTER(_I)],
     "cvids_empty": [_P],
 }
 

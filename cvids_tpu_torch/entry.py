@@ -333,12 +333,14 @@ def _dryrun_rank(mesh, production: bool) -> dict:
         cfg, mine = d["cfg"], mesh.block(d["cfg"].capacity)
         pool = tsdf.shard_pool(tsdf._empty_pool(cfg.capacity, cfg.chunk_size, dev), mesh)
         active = torch.ones(cfg.capacity, dtype=torch.bool, device=dev)
+        ck.reset_launches()
         pool = run(name, f"TSDF integrate {cfg.capacity} chunks x {cfg.chunk_size}^3 "
                          f"@ {d['depth'].shape[1]}x{d['depth'].shape[0]}",
                    lambda: tsdf.sharded_integrate(cfg, pool, d["coords"][mine], active[mine],
                                                   d["depth"], d["color"], d["k"], d["r"],
                                                   d["t"], mesh))
-        report[name] = {"digest": tensor_digest(*pool), "weight": float(pool.weight.sum())}
+        report[name] = {"digest": tensor_digest(*pool), "weight": float(pool.weight.sum()),
+                        "launches": dict(ck.launches)}
 
     result = {"n_devices": mesh.size, "production": production}
     dense("toy_dense", probs["toy_dense"])

@@ -23,7 +23,11 @@ Each kernel has a wrapper and a twin with the same contract:
   (one thread a window pixel), one launch (``csrc/klt_track.cu``; no
   Pallas counterpart: the JAX package compiles `track_points` into one
   program). Its window sums run in one
-  fixed order, `lane_sum`'s, in the kernel and the twin.
+  fixed order, `lane_sum`'s, in the kernel and the twin;
+- `tsdf_integrate` — a depth + colour frame into M chunks of the TSDF
+  pool, in place, one block a chunk (``csrc/tsdf_integrate.cu``; no Pallas
+  counterpart: the JAX package compiles `_integrate_kernel` into one
+  program).
 
 Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
 tensors it launches its kernel, or raises on anything the kernel does not
@@ -37,8 +41,9 @@ Callers reach the wrappers as attributes of this module
 The volume kernels need D a multiple of 32 with D <= 256; the twins take any
 D. The scan's, the sweep's and the WTA's launches (lane groups, ring depth,
 tile, grid, dynamic shared memory) are decided in their ``.cu`` files, as is
-the Hamming kernel's tile and the tracker's shared memory; `sgm_scan_plan`,
-`plane_sweep_plan`, `wta_plan`, `hamming_plan` and `klt_plan` restate them
+the Hamming kernel's tile, the tracker's shared memory and the TSDF
+kernel's block; `sgm_scan_plan`, `plane_sweep_plan`, `wta_plan`,
+`hamming_plan`, `klt_plan` and `tsdf_plan` restate them
 as pure functions, and the ``compiled_*_plan`` functions read them from the
 built library. `kernel_work` gives the bytes and operations a call must at
 least move and do, for a roofline bound. Descriptors are (N, 8) int32
@@ -69,10 +74,12 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "compiled_wta_plan", "hamming_plan", "compiled_hamming_plan",
            "kernel_work", "SgmScanPlan", "PlaneSweepPlan", "WtaPlan",
            "HammingPlan", "MAX_DYNAMIC_SMEM", "empty_launch", "counted_apart",
-           "add_launches"]
+           "add_launches", "tsdf_integrate", "tsdf_integrate_twin", "tsdf_plan",
+           "compiled_tsdf_plan", "TsdfPlan"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
-            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0, "klt_track": 0}
+            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0, "klt_track": 0,
+            "tsdf_integrate": 0}
 
 _BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
@@ -1088,6 +1095,145 @@ def klt_track(pyr0, pyr1, xy0: torch.Tensor, valid0: torch.Tensor, init_xy: torc
 
 
 # ---------------------------------------------------------------------------
+# TSDF integration of a frame into the chunk pool, one block a chunk
+# ---------------------------------------------------------------------------
+
+TSDF_THREADS = 256      # voxels a block works on at once
+TSDF_TWIN_BATCH = 1024  # chunks a pass of the twin, which bound its (chunks, S³) temporaries
+
+
+def tsdf_integrate_twin(cfg, pool, slots: torch.Tensor, coords: torch.Tensor,
+                        depth: torch.Tensor, color: torch.Tensor, k_mat: torch.Tensor,
+                        r_cw: torch.Tensor, t_cw: torch.Tensor,
+                        batch: int = TSDF_TWIN_BATCH) -> None:
+    """Plain PyTorch twin of `tsdf_integrate`, in its one explicit order:
+    R c + t and K p as three-term sums in fp32, the rounding half to even
+    and clamped as a float before the integer cast, every division a
+    tensor's. Updates `pool` in place, `batch` chunks a pass (the chunks
+    are independent, so any batch gives the same bits)."""
+    for start in range(0, slots.shape[0], batch):
+        _tsdf_twin_pass(cfg, pool, slots[start:start + batch], coords[start:start + batch],
+                        depth, color, k_mat, r_cw, t_cw)
+
+
+def _tsdf_twin_pass(cfg, pool, slots, coords, depth, color, k_mat, r_cw, t_cw) -> None:
+    s = cfg.chunk_size
+    vx = cfg.voxel_size
+    h, w = depth.shape
+    m = slots.shape[0]
+    dev = depth.device
+    r = torch.arange(s, dtype=torch.float32, device=dev) + 0.5
+    zz, yy, xx = torch.meshgrid(r, r, r, indexing="ij")
+    offs = torch.stack([xx, yy, zz], -1).reshape(-1, 3)          # (V, 3), [z][y][x]
+    origin = coords.to(torch.float32) * (s * vx)                 # (M, 3)
+    cx, cy, cz = (origin[:, None, :] + offs * vx).unbind(-1)    # (M, V) each
+    px, py, pz = (((cx * r_cw[i, 0] + cy * r_cw[i, 1]) + cz * r_cw[i, 2]) + t_cw[i]
+                  for i in range(3))
+    q0, q1, q2 = ((px * k_mat[i, 0] + py * k_mat[i, 1]) + pz * k_mat[i, 2] for i in range(3))
+    den = torch.clamp(q2, min=1e-6)
+    u, v = q0 / den, q1 / den
+    # clip before the integer cast: a far off-image u stays a valid index
+    ui = torch.clamp(torch.round(u), 0, w - 1).to(torch.int64)
+    vi = torch.clamp(torch.round(v), 0, h - 1).to(torch.int64)
+    in_img = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1) & (pz > 1e-3)
+    d = depth[vi, ui]                                            # (M, V)
+    col = color[vi, ui]                                          # (M, V, 3)
+    d_ok = in_img & (d > cfg.min_depth) & (d < cfg.max_depth)
+    surf_dist = d - pz  # >0: voxel in front of surface
+    tau = cfg.trunc_scale * vx + cfg.trunc_quad * d * d
+
+    old_sdf = pool.sdf[slots].reshape(m, -1)
+    old_w = pool.weight[slots].reshape(m, -1)
+    old_c = pool.color[slots].reshape(m, -1, 3)
+
+    upd = d_ok & (surf_dist > -tau) & (surf_dist < tau)
+    u_clamped = torch.minimum(torch.maximum(surf_dist, -tau), tau)
+    one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
+    wsum = old_w + torch.where(upd, one, zero)
+    denom = torch.clamp(wsum, min=1e-9)
+    sdf = torch.where(upd, (old_sdf * old_w + u_clamped) / denom, old_sdf)
+    cnew = torch.where(upd[..., None], (old_c * old_w[..., None] + col) / denom[..., None],
+                       old_c)
+    wout = torch.clamp(torch.where(upd, wsum, old_w), max=cfg.max_weight)
+    if cfg.carving:
+        carve = d_ok & (surf_dist > tau) & (old_w > 0)
+        wout = torch.where(carve, torch.clamp(wout - cfg.carve_weight, min=0.0), wout)
+        sdf = torch.where(carve & (wout <= 0.0), zero, sdf)
+    pool.sdf.index_copy_(0, slots, sdf.reshape(m, s, s, s))
+    pool.weight.index_copy_(0, slots, wout.reshape(m, s, s, s))
+    pool.color.index_copy_(0, slots, cnew.reshape(m, s, s, s, 3))
+
+
+class TsdfPlan(NamedTuple):
+    """The TSDF kernel's launch: a block of `threads` a chunk, each thread
+    `loops` voxels of it."""
+    threads: int
+    loops: int
+    grid: int
+
+
+def tsdf_plan(m: int, s: int) -> TsdfPlan:
+    """Threads, voxel loops and grid of one `tsdf_integrate` launch over `m`
+    chunks of s³ voxels, as ``csrc/tsdf_integrate.cu`` compiles them,
+    restated here so that they can be held without the card;
+    `compiled_tsdf_plan` reads the built library's own."""
+    if m < 1 or s < 1:
+        raise ValueError(f"the TSDF kernel takes m, s >= 1, got {m}, {s}")
+    return TsdfPlan(TSDF_THREADS, -(-s ** 3 // TSDF_THREADS), m)
+
+
+def compiled_tsdf_plan(m: int, s: int) -> TsdfPlan:
+    """`tsdf_plan` as the built library reports it."""
+    return TsdfPlan(*_compiled_plan("cvids_tsdf_integrate_plan", 3, m, s))
+
+
+def tsdf_integrate(cfg, pool, slots: torch.Tensor, coords: torch.Tensor,
+                   depth: torch.Tensor, color: torch.Tensor, k_mat: torch.Tensor,
+                   r_cw: torch.Tensor, t_cw: torch.Tensor) -> None:
+    """Integrate one depth + colour frame into the chunks at pool `slots`
+    (M,) int64, distinct, whose grid coordinates are `coords` (M, 3) int32;
+    updates `pool` (`mapping.tsdf.ChunkPool`: sdf and weight (C, S, S, S),
+    color (C, S, S, S, 3), fp32, contiguous) IN PLACE. depth (H, W) and
+    color (H, W, 3) fp32 with any strides (a stride-0 expand is read as
+    it is); k_mat, r_cw (world -> camera) (3, 3) and t_cw (3,) fp32. `cfg`
+    is a `mapping.tsdf.TsdfConfig`. The contract of the JAX package's
+    `_integrate_kernel` on active chunks. On the card all M chunks are one
+    launch and nothing is read back (so the slots are not checked on the
+    host: the kernel skips a slot outside the pool, where the twin
+    raises)."""
+    tensors = (*pool, slots, coords, depth, color, k_mat, r_cw, t_cw)
+    if not _on_cuda(*tensors):
+        return tsdf_integrate_twin(cfg, pool, slots, coords, depth, color, k_mat, r_cw, t_cw)
+    s = cfg.chunk_size
+    c = pool.sdf.shape[0]
+    _require(pool.sdf, "pool.sdf", (c, s, s, s), (torch.float32,))
+    _require(pool.weight, "pool.weight", (c, s, s, s), (torch.float32,))
+    _require(pool.color, "pool.color", (c, s, s, s, 3), (torch.float32,))
+    m = slots.shape[0] if slots.ndim == 1 else -1
+    _require(slots, "slots", (m,), (torch.int64,))
+    _require(coords, "coords", (m, 3), (torch.int32,))
+    for t, name, shape in ((k_mat, "k_mat", (3, 3)), (r_cw, "r_cw", (3, 3)), (t_cw, "t_cw", (3,))):
+        _require(t, name, shape, (torch.float32,))
+    if depth.ndim != 2 or min(depth.shape) < 1 or depth.dtype != torch.float32:
+        raise ValueError(f"depth must be (H, W) fp32 with H, W >= 1, got "
+                         f"{tuple(depth.shape)} {depth.dtype}")
+    h, w = depth.shape
+    if tuple(color.shape) != (h, w, 3) or color.dtype != torch.float32:
+        raise ValueError(f"color must be ({h}, {w}, 3) fp32, got {tuple(color.shape)} "
+                         f"{color.dtype}")
+    if m == 0:
+        return
+    tsdf_plan(m, s)             # raises on a shape the kernel does not take
+    _launch("tsdf_integrate", "cvids_tsdf_integrate", depth.device, pool.sdf.data_ptr(),
+            pool.weight.data_ptr(), pool.color.data_ptr(), slots.data_ptr(), coords.data_ptr(),
+            c, m, s, depth.data_ptr(), h, w, depth.stride(0), depth.stride(1), color.data_ptr(),
+            *color.stride(), k_mat.data_ptr(), r_cw.data_ptr(), t_cw.data_ptr(),
+            cfg.voxel_size, s * cfg.voxel_size, cfg.trunc_scale * cfg.voxel_size,
+            cfg.trunc_quad, cfg.min_depth, cfg.max_depth, cfg.max_weight, cfg.carve_weight,
+            int(cfg.carving))
+
+
+# ---------------------------------------------------------------------------
 # The least work of a call, for a roofline bound
 # ---------------------------------------------------------------------------
 
@@ -1108,7 +1254,11 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
     hamming_matrix n, m, a_mask, b_mask (True: the validity mask is given);
     small_eig batch, n, itemsize (4 or 8: its operations are fp64 at 8);
     klt_track n points, p window pixels, levels, iters, fb (True: tracked
-    back too), h, w (level 0; the levels halve with the floor)."""
+    back too), h, w (level 0; the levels halve with the floor);
+    tsdf_integrate m chunks of s³ voxels from an h x w frame, `updated`
+    of the voxels in the band, `written` pool words changed and `color_px`
+    bytes a colour pixel as stored (by default the most: every voxel
+    updated, every word written, 12)."""
     g = shape.get
     if name == "warp_banded":
         px = g("h") * g("w")
@@ -1164,4 +1314,20 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
         per_level = p * (162 + 38 * iters + 34) + 20 + 12 * iters
         directions = 2 if g("fb", True) else 1
         return 2 * 4 * pixels + 17 * n + 13 * n, n * directions * levels * per_level
+    if name == "tsdf_integrate":
+        vox = g("m") * g("s") ** 3
+        updated = g("updated", vox)
+        pixels = min(g("h") * g("w"), vox)
+        # every voxel's sdf and weight read (8 bytes); an updated voxel's
+        # colour read (12); the pool words that change written (`written`,
+        # at most sdf, weight and colour of every voxel); at most a depth
+        # and a colour sample a pixel, as stored (`color_px` bytes: 4 for
+        # the server's stride-0 grey); the slots (8) and coords (12) a
+        # chunk; K, R, t. Per voxel: the centre 6, R c + t 15, K p 15, the
+        # division and the rounding 8, the in-image test 5, the depth
+        # tests, d - z and tau 6: 55; an updated one the band and the
+        # update 12, the colour 9, carving 6 more: 27
+        return (8 * vox + 12 * updated + 4 * g("written", 5 * vox)
+                + (4 + g("color_px", 12)) * pixels + 20 * g("m") + 84,
+                55 * vox + 27 * updated)
     raise KeyError(f"no kernel named {name!r}")

@@ -5,7 +5,9 @@ Plays the role of OpenChisel's marching cubes (`MarchingCubes.h:35-130`):
 each cube splits into 6 tetrahedra whose 16-case triangle table is generated
 below, the output is watertight across cube and chunk boundaries, and every
 cube has fixed triangle slots with a validity mask, so a whole batch of
-chunks is one set of tensor ops.
+chunks is one set of tensor ops, which reads nothing back and copies
+nothing from the host (its tables are made once a device), so that a call
+can be captured in a CUDA graph.
 
 Convention: sdf < 0 is inside; triangles are oriented so that their normals
 point toward positive sdf (outside), by the tet's exact linear-field
@@ -68,6 +70,25 @@ def _build_tet_table() -> np.ndarray:
 
 TET_TABLE = _build_tet_table()
 
+_CONSTANTS: dict = {}    # str(device) -> the tables as tensors there
+
+
+def _constants(dev: torch.device) -> dict:
+    """The cube, tet and case tables as tensors on `dev`, made once a
+    device: a copy from host memory is what a CUDA graph cannot capture,
+    so a captured call finds them made by its warm-up call."""
+    key = str(dev)
+    got = _CONSTANTS.get(key)
+    if got is None:
+        got = _CONSTANTS[key] = {
+            "corners": torch.as_tensor(CUBE_CORNERS, device=dev),
+            "tets": torch.as_tensor(TETS, dtype=torch.int64, device=dev),
+            "ea": torch.as_tensor(TET_EDGES[:, 0], dtype=torch.int64, device=dev),
+            "eb": torch.as_tensor(TET_EDGES[:, 1], dtype=torch.int64, device=dev),
+            "table": torch.as_tensor(TET_TABLE, dtype=torch.int64, device=dev),
+            "flip": torch.as_tensor([0, 2, 1], dtype=torch.int64, device=dev)}
+    return got
+
 
 def marching_tets(sdf: torch.Tensor, wgt: torch.Tensor, origin: torch.Tensor,
                   voxel_size: float, color: torch.Tensor):
@@ -82,12 +103,13 @@ def marching_tets(sdf: torch.Tensor, wgt: torch.Tensor, origin: torch.Tensor,
     (the role of OpenChisel's vertex normals, `ChunkManager.cpp:259-296`).
     """
     dev = sdf.device
+    const = _constants(dev)
     b, s = sdf.shape[0], sdf.shape[1] - 1
     # corner samples per cube: (C, 8) with C = S³ cubes in [z][y][x] order
     g = torch.arange(s, device=dev)
     gz, gy, gx = torch.meshgrid(g, g, g, indexing="ij")
     base = torch.stack([gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)], -1)
-    corners = base[:, None, :] + torch.as_tensor(CUBE_CORNERS, device=dev)[None]
+    corners = base[:, None, :] + const["corners"][None]
     cx, cy, cz = corners[..., 0], corners[..., 1], corners[..., 2]   # (C, 8)
     vals = sdf[:, cz, cy, cx]                                        # (B, C, 8)
     wvals = wgt[:, cz, cy, cx]
@@ -95,7 +117,7 @@ def marching_tets(sdf: torch.Tensor, wgt: torch.Tensor, origin: torch.Tensor,
     pos = (corners.to(torch.float32) * voxel_size)[None] + origin[:, None, None, :]
     cols = color[:, cz, cy, cx]                                      # (B, C, 8, 3)
 
-    tets = torch.as_tensor(TETS, dtype=torch.int64, device=dev)      # (6, 4)
+    tets = const["tets"]                                             # (6, 4)
     tv = vals[:, :, tets]                                            # (B, C, 6, 4)
     tp = pos[:, :, tets]                                             # (B, C, 6, 4, 3)
     tc = cols[:, :, tets]
@@ -105,8 +127,7 @@ def marching_tets(sdf: torch.Tensor, wgt: torch.Tensor, origin: torch.Tensor,
     case = bits[..., 0] + 2 * bits[..., 1] + 4 * bits[..., 2] + 8 * bits[..., 3]
 
     # all 6 edge crossings (B, C, 6, 6 edges, 3)
-    ea = torch.as_tensor(TET_EDGES[:, 0], dtype=torch.int64, device=dev)
-    eb = torch.as_tensor(TET_EDGES[:, 1], dtype=torch.int64, device=dev)
+    ea, eb = const["ea"], const["eb"]
     va = tv[..., ea]
     vb = tv[..., eb]
     denom = va - vb
@@ -122,7 +143,7 @@ def marching_tets(sdf: torch.Tensor, wgt: torch.Tensor, origin: torch.Tensor,
     ccross = ca + t[..., None] * (cb - ca)
 
     # gather triangles via the case table
-    table = torch.as_tensor(TET_TABLE, dtype=torch.int64, device=dev)  # (16, 2, 3)
+    table = const["table"]                                           # (16, 2, 3)
     tri_edges = table[case]                                          # (B, C, 6, 2, 3)
     tri_valid = tri_edges[..., 0] >= 0                               # (B, C, 6, 2)
     safe = torch.clamp(tri_edges, min=0)
@@ -150,7 +171,7 @@ def marching_tets(sdf: torch.Tensor, wgt: torch.Tensor, origin: torch.Tensor,
     det = torch.where(torch.abs(det) > 1e-12, det, torch.full_like(det, 1e-12))
     grad = (r1[..., None] * c23 + r2[..., None] * c31 + r3[..., None] * c12) / det
     flip = torch.sum(normal * grad[..., None, :], -1) < 0.0          # (B, C, 6, 2)
-    v1 = torch.where(flip[..., None, None], verts[..., [0, 2, 1], :], verts)
+    v1 = torch.where(flip[..., None, None], verts[..., const["flip"], :], verts)
 
     # per-vertex normals: the tet's gradient, normalized — shared by both
     # triangle slots and all 3 vertices (outward by construction)

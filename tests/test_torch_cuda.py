@@ -1,9 +1,10 @@
-"""The eight CUDA kernels against their PyTorch twins, the front-end's and
+"""The nine CUDA kernels against their PyTorch twins, the front-end's and
 the server's CUDA graphs (the front-end's track step, re-detection, packet
 image program, preintegration, window solve and marginalization; the dense
 frame, the 4-DoF solve, the pose graph's loop-verification cascade and BoW
-query-and-insert, one capture a capacity tier) against their eager calls, the deployment topology and the multi-GPU dry run on two ranks
-that share the card, on a CUDA card.
+query-and-insert, one capture a capacity tier; a published map's chunk walk
+and mesh batch) against their eager calls, the deployment topology and the
+multi-GPU dry run on two ranks that share the card, on a CUDA card.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
 
@@ -470,7 +471,7 @@ def test_graphed_dense_frame_counts_its_launches(dev):
         step.fuse(meas, a, b, gate)
     assert ck.launches == {"warp_banded": 3, "plane_sweep": 3, "sgm_scan": 6, "wta": 3,
                            "hamming_matrix": 0, "depth_filter_update": 3, "small_eig": 0,
-                           "klt_track": 0}
+                           "klt_track": 0, "tsdf_integrate": 0}
 
 
 def _solve_problem(dev, n, seed):
@@ -628,3 +629,96 @@ def test_server_ingest_graphs_equal_eager_with_background_solves(dev):
     assert rec["cascade_calls"] > 0 and rec["cascade_captures"] == 1
     assert rec["bow_calls"] == len(packets) and rec["bow_captures"] == rec["bow_tiers"]
     assert rec["cascade_differ"] == 0 and rec["bow_differ"] == 0, rec
+
+
+@pytest.mark.parametrize("kind", [SMALL, RAGGED])
+def test_tsdf_integrate_kernel(kind, dev):
+    """The TSDF kernel against its twin bit for bit: a 60x80 frame into 50
+    chunks of 8³ (stride-0 colour), or a ragged 37x53 one into chunks of
+    7³ (the voxel loop's ragged pass, a contiguous colour); one launch a
+    call."""
+    rng = np.random.default_rng(8)
+    if kind == SMALL:
+        inp = cs.tsdf_inputs(rng, dev, 60, 80, 60.0, m=50, capacity=128)
+    else:
+        inp = cs.tsdf_inputs(rng, dev, 37, 53, 30.0, cfg_kw=dict(chunk_size=7), m=40,
+                             stride0=False, off_image=True, capacity=64)
+    cfg, pool, *rest = inp
+    got, ref = cs._pool_copy(pool), cs._pool_copy(pool)
+    before = ck.launches["tsdf_integrate"]
+    ck.tsdf_integrate(cfg, got, *rest)
+    assert ck.launches["tsdf_integrate"] == before + 1
+    ck.tsdf_integrate_twin(cfg, ref, *rest)
+    assert all(cs._same_bits(a, b) for a, b in zip(got, ref))
+    assert (got.weight != pool.weight).any()
+
+
+def test_tsdf_plan_matches_library(dev):
+    for m in (1, 1000):
+        for s in (1, 7, 8, 9):
+            assert ck.tsdf_plan(m, s) == ck.compiled_tsdf_plan(m, s)
+
+
+def _map_frames(rng, n, h=120, w=160):
+    """n frames of a tilted wall at 2-6 m from cameras turning about it."""
+    k = np.array([[115.0, 0, w / 2], [0, 115.0, h / 2], [0, 0, 1]], np.float32)
+    for i in range(n):
+        vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+        depth = (2.0 + 4.0 * uu / w + 0.4 * np.sin(vv / 10.0)).astype(np.float32)
+        depth[rng.random((h, w)) < 0.1] = 0.0
+        r_wc = cs.rotation_homography(np.eye(3, dtype=np.float32), 0.1 * i, 0.05)
+        yield depth, np.repeat(depth[..., None] * 40.0, 3, -1), k, r_wc, \
+            np.array([0.1 * i, 0.0, 0.0], np.float32)
+
+
+def test_graphed_walk_equals_eager_and_cpu(dev):
+    """The chunk walk on the card: one capture a depth shape, its replays'
+    chunks equal to the eager walk's and to the CPU's."""
+    from cvids_tpu_torch.mapping import tsdf
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+    cfg = tsdf.TsdfConfig()
+    vol = tsdf.TsdfVolume(cfg, device=dev)
+    cpu = tsdf.TsdfVolume(cfg, device="cpu")
+    for depth, _, k, r_wc, t_wc in _map_frames(np.random.default_rng(0), 3):
+        got = vol._touched_chunks(torch.from_numpy(depth).to(dev), k, r_wc, t_wc)
+        with disable_graphs():
+            eager = vol._touched_chunks(depth, k, r_wc, t_wc)
+        want = cpu._touched_chunks(depth, k, r_wc, t_wc)
+        assert len(got) > 50
+        np.testing.assert_array_equal(got, eager)
+        np.testing.assert_array_equal(got, want)
+    assert vol.walk_graph.captures == 1 and vol.walk_graph.replays == 3
+
+
+def test_integrate_launches_once_per_map_and_graphed_mesh(dev):
+    """`integrate` on a card volume: one `tsdf_integrate` launch a map, the
+    volume equal to the CPU's bit for bit (the twin on the same chunks);
+    then `extract_mesh`: one replay a 256-chunk batch, the eager path's
+    triangles bit for bit, and a new pool (growth) clears its graphs."""
+    from cvids_tpu_torch.mapping import mesh, tsdf
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+
+    cfg = tsdf.TsdfConfig(voxel_size=0.05, capacity=256)
+    vol = tsdf.TsdfVolume(cfg, device=dev)
+    cpu = tsdf.TsdfVolume(cfg, device="cpu")
+    before = ck.launches["tsdf_integrate"]
+    frames = list(_map_frames(np.random.default_rng(1), 4))
+    for frame in frames:
+        vol.integrate(*frame)
+        cpu.integrate(*frame)
+    assert ck.launches["tsdf_integrate"] == before + len(frames)
+    assert vol.slot_of == cpu.slot_of and vol.capacity > 256
+    for a, b in zip(vol.pool, cpu.pool):
+        assert cs._same_bits(a.cpu(), b)
+    replays = vol.mesh_graph.replays
+    got = mesh.extract_mesh(vol)
+    assert vol.mesh_graph.replays - replays == -(-len(vol.slot_of) // mesh.MESH_BATCH)
+    with disable_graphs():
+        eager = mesh.extract_mesh(vol)
+    assert len(got[0]) > 1000
+    for a, b in zip(got, eager):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert vol.mesh_graph.graphs
+    vol._grow()
+    assert not vol.mesh_graph.graphs

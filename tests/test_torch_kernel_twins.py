@@ -354,7 +354,7 @@ def test_cpu_dispatch_routes_to_twins(rng):
     # nothing was launched: the CPU tensors went to the twins
     assert ck.launches == {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
                            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0,
-                           "klt_track": 0}
+                           "klt_track": 0, "tsdf_integrate": 0}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -579,6 +579,15 @@ _WORK = {
     # 38 x 15 + 34) + 20 + 12 x 15)
     "klt_track": (dict(n=150, p=441, levels=4, iters=15, fb=True, h=480, w=752),
                   8 * 479_400 + 30 * 150, 150 * 2 * 4 * (441 * 766 + 200)),
+    # a 640x480 frame into 198 chunks of 8^3 (101,376 voxels, 30,000 of them
+    # in the band, 150,000 pool words changed, a stride-0 grey colour): sdf
+    # and weight 8 a voxel, an updated voxel's colour 12, the words 4 each,
+    # depth and colour 8 a pixel for 101,376 pixels, 20 a chunk, K, R and t;
+    # 55 operations a voxel and 27 more an updated one
+    "tsdf_integrate": (dict(m=198, s=8, h=480, w=640, updated=30_000, written=150_000,
+                            color_px=4),
+                       8 * 101_376 + 12 * 30_000 + 4 * 150_000 + 8 * 101_376 + 20 * 198 + 84,
+                       55 * 101_376 + 27 * 30_000),
 }
 
 
@@ -590,10 +599,10 @@ def test_kernel_work(name):
     assert got == (want_bytes, want_ops)
     assert all(isinstance(v, int) for v in got)
     # in MB: 3.7, 83.4, 157.9 (315.8 for a frame's two launches), 158.8, 11.4,
-    # 0.35, 0.18, 3.84
+    # 0.35, 0.18, 3.84, 2.59
     mb = {"warp_banded": 3.7, "plane_sweep": 83.4, "sgm_scan": 157.9, "wta": 158.8,
           "depth_filter_update": 11.4, "hamming_matrix": 0.35, "small_eig": 0.18,
-          "klt_track": 3.84}[name]
+          "klt_track": 3.84, "tsdf_integrate": 2.59}[name]
     assert abs(got[0] / 1e6 - mb) < 0.06
     if name == "plane_sweep":
         # the weights and in-bounds tests of one coordinate are counted per
