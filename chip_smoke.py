@@ -1,9 +1,10 @@
-"""GPU smoke run of the PyTorch/CUDA port: builds the nine CUDA kernels
+"""GPU smoke run of the PyTorch/CUDA port: builds the ten CUDA kernels
 (warp_banded, plane_sweep, sgm_scan, wta, depth_filter_update,
 hamming_matrix for the Pallas kernels; small_eig, the eigensolver of the
 8-point F and of the PnP's DLT, klt_track, the agents' pyramidal LK
-tracker, and tsdf_integrate, a published map's TSDF integrate, which have
-no Pallas counterpart), holds each against its
+tracker, tsdf_integrate, a published map's TSDF integrate, and window_lm,
+the agents' whole window solve, which have no Pallas counterpart), holds
+each against its
 PyTorch twin on the card at its path's shapes (beside the launch floor: an
 empty kernel through the same launch path, timed the same way), then drives
 the port's paths at full width and checks that every kernel of each path
@@ -49,7 +50,9 @@ ran:
   call (752x480 pyramids, 150 points, 4 levels x 15, the forward-backward
   gate) and at edge shapes, and its tracks to the true motion, and
   tsdf_integrate at a published map's 640x480 frame into its chunks of a
-  4096-chunk pool (a stride-0 colour) and at edge shapes;
+  4096-chunk pool (a stride-0 colour) and at edge shapes, and window_lm at
+  the front-end's window (K = 10, 600 slots, a 150-row prior, 8
+  iterations) and at edge windows, and against the CPU solve;
 - phase 8, the agents: two `AgentFrontend`s (FAST/BRIEF/KLT, IMU
   preintegration, the VI bootstrap, the sliding-window BA) on every 20 Hz
   frame of ~10 s of 752x480 radtan imagery with 200 Hz IMU, rendered in
@@ -62,8 +65,9 @@ ran:
   with its F-RANSAC, the re-detection, the packet's image program, the
   preintegration, the window solve, the marginalization's Schur
   complement) each captured, replayed and equal to its eager call, which
-  reads nothing back, the eager call's klt_track held to its twin; the
-  tracker launched once a tracked frame (phases 8, 9 and 12); four
+  reads nothing back, the eager call's klt_track and window_lm held to
+  their twins; the tracker launched once a tracked frame and window_lm
+  once a solve (phases 8, 9 and 12); four
   loop-verification cascades (their Hamming
   and small_eig calls) and two graphed dense
   frames of that server run (480x752x128 volumes) are kept, each rerun
@@ -134,13 +138,16 @@ with the memory its graphs keep, and one profiled `extract_mesh` and
 `integrate`; run it on parent, change, change, parent inside one call.
 
 `--kernels-probe` (seconds) prints one JSON line for the package on sys.path
-(`--package DIR` as above): the port's own hand kernels, `small_eig` and
-`klt_track`, at phase 3's inputs (one F-RANSAC's 128 9x9 and 3x3 fp64
-systems, one PnP DLT's 128 12x12 and 3x3, the front-end's tracker call):
-each call's median CUDA-event ms over 50 runs, each single kernel's device
-ms under the profiler, the launch floor, whether each kernel equals its
-twin bit for bit, and torch.linalg.eigh's ms on the same batches; run it on
-parent, change, change, parent inside one call.
+(`--package DIR` as above): the port's own hand kernels, `small_eig`,
+`klt_track` and (where the package has it) `window_lm`, at phase 3's
+inputs (one F-RANSAC's 128 9x9 and 3x3 fp64 systems, one PnP DLT's 128
+12x12 and 3x3, the front-end's tracker call, the front-end's window), and
+the window solve as the front-end calls it (a `GraphedCall` of
+`frontend._solve_window_fast`, in any package): each call's median
+CUDA-event ms over 50 runs, each single kernel's device ms under the
+profiler, the launch floor, whether each kernel equals its twin bit for
+bit, and torch.linalg.eigh's ms on the same batches; run it on parent,
+change, change, parent inside one call.
 
 `--kernels-only` is the run to put under compute-sanitizer (memcheck,
 initcheck, racecheck). Needs one CUDA card and nvcc (PATH or
@@ -203,17 +210,20 @@ SOURCES = {
     # one program; the port ran it as ~40 eager launches and 3 index_copy_
     "tsdf_integrate": ("cvids_tpu_torch/csrc/tsdf_integrate.cu",
                        "cvids_tpu/mapping/tsdf.py:70"),
+    # no Pallas counterpart: the JAX package compiles _solve_window_fast_jit
+    # into one program; the port replayed it as a graph of ~18,000 kernels
+    "window_lm": ("cvids_tpu_torch/csrc/window_lm.cu", "cvids_tpu/vio/window_ba.py:689"),
 }
 # each kernel's wrapper in cuda_kernels (its twin: the same name + "_twin")
 WRAPPERS = {"warp_banded": "projective_warp_banded", "plane_sweep": "plane_sweep",
             "sgm_scan": "sgm_scan_bidir", "wta": "wta",
             "depth_filter_update": "depth_filter_update", "hamming_matrix": "hamming_matrix",
             "small_eig": "small_eigh", "klt_track": "klt_track",
-            "tsdf_integrate": "tsdf_integrate"}
+            "tsdf_integrate": "tsdf_integrate", "window_lm": "window_lm"}
 DENSE_KERNELS = ("warp_banded", "plane_sweep", "sgm_scan", "wta", "depth_filter_update")
 SERVER_KERNELS = ("hamming_matrix",)
 RANSAC_KERNELS = ("small_eig",)     # every F-RANSAC: the agents' track step, the servers' cascade
-FRONTEND_KERNELS = ("klt_track",)   # the agents' track step alone
+FRONTEND_KERNELS = ("klt_track", "window_lm")   # the agents' track step, their window solve
 MAP_KERNELS = ("tsdf_integrate",)   # a published map's integrate (the servers)
 # phase 3's tracker inputs: the front-end's call at the EuRoC rig
 KLT_H, KLT_W, KLT_N = 480, 752, 150
@@ -280,7 +290,7 @@ def time_ms(fn, runs: int) -> float:
 KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
                   "plane_sweep_kernel", "sgm_scan_kernel", "wta_kernel",
                   "depth_filter_kernel", "hamming_kernel", "small_eig_kernel", "klt_track_kernel",
-                  "tsdf_integrate_kernel", "empty_kernel")
+                  "tsdf_integrate_kernel", "window_lm_kernel", "empty_kernel")
 
 
 def print_ptxas_summary(log: str) -> None:
@@ -466,6 +476,7 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     tsdf_rng = np.random.default_rng(7)
     tsdf_in = tsdf_inputs(tsdf_rng, dev)
     tsdf_prof = (tsdf_in[0], _pool_copy(tsdf_in[1]), *tsdf_in[2:])
+    wlm_in = window_lm_inputs(dev)
     if timed:
         # the kernels of microseconds under the profiler, before the volume
         # kernels and the twins run: each call must be one kernel launch and
@@ -483,13 +494,14 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
                 ("small_eig_dlt", "small_eig_kernel", lambda: ck.small_eigh(dlt_ata)),
                 ("klt_track", "klt_track_kernel", lambda: ck.klt_track(*klt_in, **KLT_ARGS)),
                 ("tsdf_integrate", "tsdf_integrate_kernel",
-                 lambda: ck.tsdf_integrate(*tsdf_prof)))}
+                 lambda: ck.tsdf_integrate(*tsdf_prof)),
+                ("window_lm", "window_lm_kernel", lambda: ck.window_lm(*wlm_in, WLM_ITERS)))}
         print(f"  launch floor: an empty kernel through cuda_kernels._launch {extras['floor_ms']:.4f} "
               f"ms between CUDA events (median of {runs}), "
               f"{extras['profiler_ms']['empty']:.4f} ms under the profiler; the host "
               f"spends {extras['launch_host_us']:.2f} us a launch; one device activity a call "
-              f"of the warp, the filter, the Hamming kernel, small_eig, klt_track and "
-              f"tsdf_integrate")
+              f"of the warp, the filter, the Hamming kernel, small_eig, klt_track, "
+              f"tsdf_integrate and window_lm")
 
     # --- banded warp at phase 4's map and a small rotation, bands 96/48
     err = 0.0
@@ -662,6 +674,8 @@ def kernel_checks(device, rng, h=H, w=W, d=D, runs=10, twin_runs=3):
     out["klt_track"] = klt_checks(dev, rng, klt_in, timed, runs, twin_runs)
     # --- the TSDF integrate at a published map's frame (and edge shapes)
     out["tsdf_integrate"] = tsdf_checks(dev, tsdf_rng, tsdf_in, timed, runs, twin_runs)
+    # --- the window solve at the front-end's window (and edge windows)
+    out["window_lm"], extras["window_lm"] = window_lm_checks(dev, wlm_in, timed, runs, twin_runs)
     print(f"  small_eig, one PnP DLT's eigen work (128 x 12x12 and 128 x 3x3, fp64): kernel == "
           f"twin bit for bit; kernel {dlt['ms']:.4f} ms (the 12x12 alone under the profiler "
           f"{dlt['profiler_ms'] or float('nan'):.4f} ms), twin {dlt['plain_ms']:.4f} ms, library "
@@ -930,6 +944,147 @@ def klt_checks(dev, rng, inputs, timed, runs, twin_runs):
     return 0.0, ms, pms, bound, by
 
 
+# phase 3's window-solve inputs: the front-end's window (K = 10 keyframes,
+# 4 x 150 landmark slots, 8 iterations, a camera-only prior of 15K rows)
+WLM_K, WLM_L, WLM_ITERS = 10, 600, 8
+
+
+def window_lm_inputs(dev, k=WLM_K, n_lm=WLM_L, seed=0, prior=True, huber=5.0, fill=0.6,
+                     kf_invalid=(), pre_invalid=(), no_landmarks=False):
+    """(state, meas) of one `solve_window_fast` call on `dev`, built on the
+    CPU by the port alone: `io.synthetic`'s circle (keyframes at 2 Hz, a
+    landmark box around it), the port's preintegration, positions and
+    landmarks perturbed by 5 cm, a `fill` share of the slots that two
+    keyframes see valid, the front-end's weights (460 px, bias 50); with
+    `prior`, the camera-only prior that `marginalize_prior_cam` makes of
+    this window, linearized 2 cm away. `kf_invalid` / `pre_invalid` clear
+    those slots' and intervals' flags."""
+    from cvids_tpu_torch.geometry import yaw_of
+    from cvids_tpu_torch.io import synthetic
+    from cvids_tpu_torch.vio import imu, window_ba as ba
+
+    seq = synthetic.generate_sequence(synthetic.Trajectory.circle(radius=5.0, omega=0.5),
+                                      duration=(k - 1) / 2.0, kf_rate=2.0,
+                                      num_landmarks=n_lm, seed=seed)
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))     # noqa: E731
+    g, a, dt, v = synthetic.imu_slices(seq)
+    zero = torch.zeros(3)
+    pre = imu.preintegrate(f(g), f(a), f(dt), zero, zero, sample_valid=torch.as_tensor(v))
+    lm_valid = (seq.vis.sum(0) >= 2) & (rng.random(n_lm) < fill) & (not no_landmarks)
+    kf_valid = np.ones(k, bool)
+    kf_valid[list(kf_invalid)] = False
+    pre_valid = np.ones(k - 1, bool)
+    pre_valid[list(pre_invalid)] = False
+    st = ba.WindowState(
+        p=f(seq.p_gt + rng.normal(0, 0.05, (k, 3))), q=f(seq.q_gt), v=f(seq.v_gt),
+        bg=torch.zeros((k, 3)), ba=torch.zeros((k, 3)),
+        lm=f(np.where(lm_valid[:, None], seq.landmarks + rng.normal(0, 0.05, (n_lm, 3)), 0.0)),
+        kf_valid=torch.as_tensor(kf_valid), lm_valid=torch.as_tensor(lm_valid))
+    meas = ba.WindowMeasurements(
+        obs=f(np.nan_to_num(seq.obs)), vis=torch.as_tensor(seq.vis), pre=pre,
+        pre_valid=torch.as_tensor(pre_valid), r_cb=f([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0],
+                                                       [1.0, 0.0, 0.0]]),
+        p_bc=zero, pix_weight=460.0, huber_delta=huber, bias_weight=50.0, prior=None,
+        anchor_p=f(seq.p_gt[0]), anchor_yaw=yaw_of(f(seq.q_gt[0])))
+    if prior:
+        dying = meas.vis[0] & ~meas.vis[1:].any(0)
+        j, r0 = ba.marginalize_prior_cam(st, meas, dying)
+        meas = meas._replace(prior=ba.CamPriorFactor(j=j, r0=r0, p=st.p + 0.02, q=st.q,
+                                                     v=st.v, bg=st.bg, ba=st.ba))
+    # contiguous, as the front-end's stacked window is
+    to = lambda t: t.to(dev).contiguous()      # noqa: E731
+    return (ba.WindowState(*(to(x) for x in st)),
+            meas._replace(obs=to(meas.obs), vis=to(meas.vis),
+                          pre=type(pre)(*(to(x) for x in pre)), pre_valid=to(meas.pre_valid),
+                          r_cb=to(meas.r_cb), p_bc=to(meas.p_bc), anchor_p=to(meas.anchor_p),
+                          anchor_yaw=to(meas.anchor_yaw),
+                          prior=None if meas.prior is None else
+                          type(meas.prior)(*(to(x) for x in meas.prior))))
+
+
+def window_lm_edge_cases(dev) -> list:
+    """(what, state, meas, iters, init_lambda) of the window kernel's edges:
+    no prior, the Huber branch on most observations, invalid keyframe slots
+    and intervals, no valid landmark, one and 25 iterations, rejected steps
+    (the yaw anchor 3 rad off and λ = 1e-10: the first step is taken, the
+    next ones rejected while λ grows), K = 12 (the kernel's limit) with 1100
+    slots (two a thread, a ragged tile), K = 2 with 37 slots."""
+    st, m = window_lm_inputs(dev, seed=4)
+    return [
+        ("no prior", *window_lm_inputs(dev, prior=False), WLM_ITERS, 1e-3),
+        ("huber_delta 1.0", *window_lm_inputs(dev, huber=1.0, seed=1), WLM_ITERS, 1e-3),
+        ("slots 8-9 and interval 3 invalid",
+         *window_lm_inputs(dev, seed=2, kf_invalid=(8, 9), pre_invalid=(3,)), WLM_ITERS, 1e-3),
+        ("no valid landmark", *window_lm_inputs(dev, seed=3, no_landmarks=True), WLM_ITERS,
+         1e-3),
+        ("1 iteration", st, m, 1, 1e-3),
+        ("25 iterations", *window_lm_inputs(dev, seed=5), 25, 1e-3),
+        ("rejected steps", st, m._replace(anchor_yaw=m.anchor_yaw + 3.0), WLM_ITERS, 1e-10),
+        ("K = 12, L = 1100", *window_lm_inputs(dev, k=12, n_lm=1100, seed=6), WLM_ITERS, 1e-3),
+        ("K = 2, L = 37", *window_lm_inputs(dev, k=2, n_lm=37, seed=7, prior=False), WLM_ITERS,
+         1e-3),
+    ]
+
+
+def window_to(state, meas, dev):
+    """A window problem's tensors moved to `dev` (a prior included)."""
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda x: x.to(dev) if torch.is_tensor(x) else x, (state, meas))
+
+
+def window_work(state, meas) -> dict:
+    """The data's counts for `kernel_work("window_lm", ...)`: valid
+    observations (visible from a valid keyframe of a valid landmark) and
+    co-observations (a landmark with a pair of its keyframes, m <= k)."""
+    valid = meas.vis & state.kf_valid[:, None] & state.lm_valid[None, :]
+    per_lm = valid.sum(0)
+    return {"obs": int(valid.sum()), "pairs": int((per_lm * (per_lm + 1) // 2).sum())}
+
+
+def window_lm_checks(dev, inputs, timed, runs, twin_runs):
+    """window_lm against its twin, bit for bit, at the front-end's window
+    (K = 10, 600 slots, a 150-row prior, 8 iterations) and at
+    `window_lm_edge_cases`; the path's result against the port's CPU solve
+    (`solve_window_fast`'s body, test_solvers_match's tolerances); then the
+    path's call timed. Returns ((max |err|, ms, twin ms, bound ms, bound
+    by), the data's counts)."""
+    from cvids_tpu_torch.ops import cuda_kernels as ck
+    from cvids_tpu_torch.vio import window_ba as ba
+
+    def same(what, st, m, iters, lam=1e-3):
+        got, ref = ck.window_lm(st, m, iters, lam), ck.window_lm_twin(st, m, iters, lam)
+        check(all(_same_bits(a, b) for a, b in zip(tuple(got[0]) + (got[1],),
+                                                   tuple(ref[0]) + (ref[1],))),
+              f"window_lm {what}: the kernel's state or cost differs from the twin's")
+        return got
+
+    st, m = inputs
+    got = same("at the path's window", st, m, WLM_ITERS)
+    cases = window_lm_edge_cases(dev)
+    for what, st2, m2, iters, lam in cases:
+        same(what, st2, m2, iters, lam)
+    cpu, cpu_cost = ba.solve_window_fast(*window_to(st, m, "cpu"), iters=WLM_ITERS)
+    p_err = float((got[0].p.cpu() - cpu.p).abs().max())
+    lm_err = float((got[0].lm.cpu() - cpu.lm).abs().max())
+    cost_rel = abs(float(got[1]) - float(cpu_cost)) / float(cpu_cost)
+    check(p_err < 1e-3 and lm_err < 1e-2 and cost_rel < 1e-3,
+          f"window_lm at the path's window against the CPU solve: |p| {p_err}, |lm| {lm_err}, "
+          f"cost {float(got[1])} against {float(cpu_cost)}")
+    ms = time_ms(lambda: ck.window_lm(st, m, WLM_ITERS), runs) if timed else 0.0
+    pms = time_ms(lambda: ck.window_lm_twin(st, m, WLM_ITERS), twin_runs) if timed else 0.0
+    work = window_work(st, m)
+    bound, by = roofline("window_lm", k=WLM_K, l=WLM_L, iters=WLM_ITERS,
+                         prior=m.prior.j.shape[0], **work)
+    print(f"  window_lm at K = {WLM_K}, L = {WLM_L} ({int(st.lm_valid.sum())} valid, "
+          f"{work['obs']} observations, {work['pairs']} co-observations), a "
+          f"{m.prior.j.shape[0]}-row prior, {WLM_ITERS} iterations: kernel == twin bit for bit "
+          f"(tolerance: exact), cost {float(got[1]):.4f}; against the CPU solve |p| "
+          f"{p_err:.3g} m, |lm| {lm_err:.3g} m, cost {cost_rel:.3g} relative (tolerances 1e-3, "
+          f"1e-2, 1e-3); and at {', '.join(c[0] for c in cases)}")
+    return (0.0, ms, pms, bound, by), work
+
+
 # phase 3's TSDF inputs: a published map's frame at phase 6's shapes and
 # TsdfConfig() (0.1 m voxels, 8^3 chunks, carving) into a mid-run pool
 TSDF_CAPACITY = 4096
@@ -1070,7 +1225,8 @@ def tsdf_checks(dev, rng, inputs, timed, runs, twin_runs):
 
 def plan_checks() -> None:
     """The scan's, the sweep's, the WTA's, the Hamming kernel's, the
-    tracker's and the TSDF kernel's launch plans as Python restates them (and the CPU tests hold
+    tracker's, the TSDF kernel's and the window solve's launch plans as
+    Python restates them (and the CPU tests hold
     to the card's limits) against what the built library reports for the
     same shapes: every D and dtype, ragged line counts and tiles."""
     from cvids_tpu_torch.ops import cuda_kernels as ck
@@ -1109,6 +1265,13 @@ def plan_checks() -> None:
             check(want == got, f"tsdf plan at {tm} chunks of {ts}^3: Python {want}, "
                                f"library {got}")
             n += 1
+    for wk in (1, 2, 5, 10, 11, 12):
+        for wl in (0, 37, WLM_L, 1100):
+            for wp in (0, 15 * wk, 15 * wk + 1):
+                want, got = ck.window_lm_plan(wk, wl, wp), ck.compiled_window_lm_plan(wk, wl, wp)
+                check(want == got, f"window_lm plan at K {wk}, L {wl}, prior {wp}: Python "
+                                   f"{want}, library {got}")
+                n += 1
     print(f"  launch plans: Python's equal the library's at {n} shapes")
 
 
@@ -1421,13 +1584,15 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def memory_checks(device, rng, repeats=3) -> int:
-    """An audit of the nine kernels' memory accesses that needs no sanitizer:
+    """An audit of the ten kernels' memory accesses that needs no sanitizer:
     each kernel runs at the path's shapes and at ragged ones with its inputs
     and outputs guarded (`GuardedTorch`), and must give the bits of its
     unguarded run every time, with every red zone intact. An out-of-bounds
     read that reaches a result reads NaN; an out-of-bounds write lands in a
     red zone; a read of unwritten output reads NaN; a race shows as runs
     that differ. Returns the number of guarded launches."""
+    from torch.utils import _pytree as pytree
+
     from cvids_tpu_torch.ops import costvolume, cuda_kernels as ck
 
     dev = torch.device(device)
@@ -1483,6 +1648,13 @@ def memory_checks(device, rng, repeats=3) -> int:
             return tuple(pool)
         cases.append(("tsdf_integrate", integrated,
                       (pool, slots, coords, depth, color[..., 0].contiguous(), *geom)))
+    # the window solve: its outputs and scratch guarded, the path's window
+    # and the edges of its tiles and threads
+    for (wst, wm), iters in ((window_lm_inputs(dev), 2),
+                             (window_lm_inputs(dev, k=12, n_lm=1100, seed=6), 1),
+                             (window_lm_inputs(dev, k=2, n_lm=37, seed=7, prior=False), 3)):
+        cases.append(("window_lm", lambda st, m, iters=iters: ck.window_lm(st, m, iters),
+                      (wst, wm)))
 
     def flat(out):
         return [t for o in (out if isinstance(out, tuple) else (out,))
@@ -1495,7 +1667,8 @@ def memory_checks(device, rng, repeats=3) -> int:
             g = GuardedTorch()
 
             def guard(a, g=g):
-                if isinstance(a, tuple) and hasattr(a, "_fields"):   # FilterState, ChunkPool
+                # FilterState, ChunkPool, a window's state and measurements
+                if isinstance(a, tuple) and hasattr(a, "_fields"):
                     return type(a)(*(guard(t) for t in a))
                 if isinstance(a, list):             # the tracker's pyramids
                     return [guard(t) for t in a]
@@ -1507,11 +1680,11 @@ def memory_checks(device, rng, repeats=3) -> int:
                 out = flat(fn(*(guard(a) for a in args)))
             torch.cuda.synchronize()
             n_launches += 1
-            shape = next(tuple(a.shape) for a in args if torch.is_tensor(a))
+            shape = next(tuple(a.shape) for a in pytree.tree_leaves(args) if torch.is_tensor(a))
             check(all(torch.equal(_bits(o), _bits(r)) for o, r in zip(out, ref)),
                   f"{name} {shape}: a guarded run differs from the unguarded one")
             check(g.red_zones_intact(), f"{name} {shape}: a red zone was written")
-    print(f"  memory audit: {n_launches} guarded launches of the nine kernels (path and ragged "
+    print(f"  memory audit: {n_launches} guarded launches of the ten kernels (path and ragged "
           f"shapes, {RED_ZONE} B red zones, {repeats} runs each): every run bit-identical "
           f"to the unguarded one, every red zone intact")
     return n_launches
@@ -1943,25 +2116,39 @@ def kernels_probe(device, runs: int = 50) -> None:
     import cvids_tpu_torch
     from cvids_tpu_torch.ops import cuda_kernels as ck
 
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall
+    from cvids_tpu_torch.vio import frontend
+
     dev = torch.device(device)
     rng = np.random.default_rng(1)
     ata, ftf, _ = eight_point_systems(rng, dev)
     klt_in = klt_inputs(rng, dev)
     dlt_ata, dlt_mtm, _ = dlt_systems(rng, dev)
+    wst, wm = window_lm_inputs(dev)
+    solve = GraphedCall(frontend._solve_window_fast)
     calls = {"f_pair": lambda: (ck.small_eigh(ata), ck.small_eigh(ftf)),
              "dlt_pair": lambda: (ck.small_eigh(dlt_ata), ck.small_eigh(dlt_mtm)),
              "eig_9x9": lambda: ck.small_eigh(ata),
              "eig_12x12": lambda: ck.small_eigh(dlt_ata),
              "eig_3x3": lambda: ck.small_eigh(ftf),
-             "klt_track": lambda: ck.klt_track(*klt_in, **KLT_ARGS)}
+             "klt_track": lambda: ck.klt_track(*klt_in, **KLT_ARGS),
+             "solve_graph": lambda: solve(wst, wm, WLM_ITERS)}
     singles = {"eig_9x9": "small_eig_kernel", "eig_12x12": "small_eig_kernel",
                "eig_3x3": "small_eig_kernel", "klt_track": "klt_track_kernel"}
+    has_wlm = hasattr(ck, "window_lm")
+    if has_wlm:
+        calls["window_lm"] = lambda: ck.window_lm(wst, wm, WLM_ITERS)
+        singles["window_lm"] = "window_lm_kernel"
     profiled = {k: profiled_kernel_ms(calls[k], e) for k, e in singles.items()}
     same = {"small_eig": all(_same_bits(x, y) for a in (ata, ftf, dlt_ata, dlt_mtm)
                              for x, y in zip(ck.small_eigh(a), ck.small_eigh_twin(a))),
             "klt_track": all(_same_bits(x, y) for x, y in
                              zip(ck.klt_track(*klt_in, **KLT_ARGS),
                                  ck.klt_track_twin(*klt_in, **KLT_ARGS)))}
+    if has_wlm:
+        got, ref = ck.window_lm(wst, wm, WLM_ITERS), ck.window_lm_twin(wst, wm, WLM_ITERS)
+        same["window_lm"] = all(_same_bits(x, y) for x, y in zip(tuple(got[0]) + (got[1],),
+                                                                  tuple(ref[0]) + (ref[1],)))
     check(all(same.values()), f"kernels probe: a kernel differs from its twin: {same}")
     print(json.dumps({"kernels_probe": {
         "package": cvids_tpu_torch.__path__[0], "runs": runs,
@@ -3514,6 +3701,19 @@ def track_launch_checks(fes, counts, what) -> None:
           f"{calls} tracked frames' track graphs and once in each of {warm} captures' warm-up")
 
 
+def solve_launch_checks(fes, counts, what) -> None:
+    """The window kernel ran once a solve: its launches equal the solve
+    graphs' replays plus their captures' warm-up calls, summed over the
+    front-ends `fes`."""
+    calls = sum(fe._solve_fast.replays for fe in fes)
+    warm = sum(fe._solve_fast.captures for fe in fes)
+    check(calls > 0 and counts["window_lm"] == calls + warm,
+          f"{what}: {counts['window_lm']} window_lm launches for {calls} solves and {warm} "
+          f"captures")
+    print(f"  {what}: window_lm launched {counts['window_lm']} times: once in each of the "
+          f"{calls} solve graphs' replays and once in each of {warm} captures' warm-up")
+
+
 def graph_checks(fe, img0, img1, imu) -> None:
     """The front-end's CUDA graphs, each of which must have been captured and
     replayed in the run, against the eager calls on the same inputs: the
@@ -3525,7 +3725,8 @@ def graph_checks(fe, img0, img1, imu) -> None:
     integers exactly, and the largest difference printed). Each eager call
     runs under torch's sync debug mode "error": none reads a value back to
     the host (fundamental_ransac, FAST, BRIEF and the blur included). The
-    eager track step's small_eig calls are held to the twin."""
+    eager track step's small_eig and klt_track calls and the eager solve's
+    window_lm call are held to the twins."""
     from torch.utils import _pytree as pytree
 
     from cvids_tpu_torch.vio import frontend, window_ba
@@ -3562,7 +3763,7 @@ def graph_checks(fe, img0, img1, imu) -> None:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            with rec if name == "track" else contextlib.nullcontext():
+            with rec if name in ("track", "solve") else contextlib.nullcontext():
                 eager = fn(*args)
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -3576,8 +3777,9 @@ def graph_checks(fe, img0, img1, imu) -> None:
     worst = max(diffs, key=diffs.get)
     check(diffs[worst] <= 1e-6, f"graph replay differs from the eager call: {diffs}")
     compared = rec.compare()
-    check(compared.get("small_eig", 0) >= 2 and compared.get("klt_track", 0) == 1,
-          f"the track step's small_eig and klt_track calls {compared}")
+    check(compared.get("small_eig", 0) >= 2 and compared.get("klt_track", 0) == 1
+          and compared.get("window_lm", 0) == 1,
+          f"the track step's small_eig and klt_track calls and the solve's window_lm {compared}")
     print(f"  CUDA graphs (captured, replays) in the run: {ran}; each replayed against its "
           f"eager call: largest relative difference {diffs[worst]:.3g} ({worst}; tolerance "
           f"1e-6); every eager call, fundamental_ransac, FAST, BRIEF and the blur included, "
@@ -3722,10 +3924,12 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
           f"{AGENT_SYNC_WINDOW[1] - 1}): {syncs:.1f}; track stats {fes[0].track_stats}")
     print(f"  front-ends' kernel launches (graph replays count their kernels): {fe_counts}")
     tracked = sum(fe._track.replays for fe in fes)      # before graph_checks' replay
+    solves = sum(fe._solve_fast.replays + fe._solve_fast.captures for fe in fes)
     if dev.type == "cuda":
         check(all(fe_counts[n] > 0 for n in RANSAC_KERNELS + FRONTEND_KERNELS),
               f"a kernel of the front-ends did not run: {fe_counts}")
         track_launch_checks(fes, fe_counts, "phase 8")
+        solve_launch_checks(fes, fe_counts, "phase 8")
         graph_checks(fes[0], seqs[0]["images"][-2], seqs[0]["images"][-1],
                      frame_imu(seqs[0], len(seqs[0]["cam_t"]) - 1))
     check(all(f.vi_initialized for f in fes), "an agent never VI-initialized")
@@ -3803,7 +4007,8 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     print("phase 8 agents: ok")
     return counts, seqs, {"ate_cm": [a * 100 for a in ates], "rms": med_rms, "mesh_m": dist,
                           "frontend_launches": fe_counts, "frames": len(rows),
-                          "tracked_frames": tracked}
+                          "tracked_frames": tracked, "solves": solves,
+                          "keyframes": sum(f.kf_count for f in fes)}
 
 
 # ---------------------------------------------------------------------------
@@ -3864,12 +4069,16 @@ def same_codec_dicts(a: dict, b: dict) -> bool:
 
 def saved_tracker(path: str) -> dict | None:
     """What an agent process (`apps.agent_process.run_agent`) saved of its
-    tracker: its klt_track launches, the track graph's replays (one a
-    tracked frame) and captures; None from a package that saves none (an
+    tracker and window solver: its klt_track launches, the track graph's
+    replays (one a tracked frame) and captures, and the same of window_lm
+    and the solve graph (None where a package saved none of them: an
     earlier tree under a probe's `--package`)."""
     keys = ("klt_launches", "track_replays", "track_captures")
+    solver = ("wlm_launches", "solve_replays", "solve_captures")
     with np.load(path, allow_pickle=False) as z:
-        return {k: int(z[k]) for k in keys} if all(k in z.files for k in keys) else None
+        if not all(k in z.files for k in keys):
+            return None
+        return {k: int(z[k]) if k in z.files else None for k in keys + solver}
 
 
 def topology_run(device, roots, cfg, dense, vocab_shape=(10, 4), drain_s=None):
@@ -4072,12 +4281,19 @@ def topology_phase(device, seqs, phase8, root, camera=None, dense=None, vocab_sh
         check(not on_card or (tr is not None and tr["track_replays"] > 0 and tr["klt_launches"]
                               == tr["track_replays"] + tr["track_captures"]),
               f"agent {cid}'s process: {tr}: klt_track did not launch once a tracked frame")
+    for cid, tr in enumerate(run["tracker"]):
+        check(not on_card or (tr is not None and tr["solve_replays"] and tr["wlm_launches"]
+                              == tr["solve_replays"] + tr["solve_captures"]),
+              f"agent {cid}'s process: {tr}: window_lm did not launch once a solve")
     if on_card:
         print(f"  the agent processes' klt_track launches (each its own process): "
               f"{[tr['klt_launches'] for tr in run['tracker']]}, once in each tracked frame "
-              f"({[tr['track_replays'] for tr in run['tracker']]}) and each capture's warm-up")
+              f"({[tr['track_replays'] for tr in run['tracker']]}) and each capture's warm-up; "
+              f"window_lm {[tr['wlm_launches'] for tr in run['tracker']]}, once in each solve "
+              f"({[tr['solve_replays'] for tr in run['tracker']]}) and each capture's warm-up")
     print(f"phase 9 topology: ok in {time.perf_counter() - t_phase:.1f} s")
     counts["klt_track"] = sum(tr["klt_launches"] for tr in run["tracker"] if tr)
+    counts["window_lm"] = sum(tr["wlm_launches"] or 0 for tr in run["tracker"] if tr)
     return server, roots, counts
 
 
@@ -4310,13 +4526,14 @@ def multichip_checks(res: dict, probs: dict, n_ranks: int, dev) -> None:
         check(phases[name]["collectives"] == [{"op": "all-reduce", **want_c}],
               f"{name}: collectives {phases[name]['collectives']}, expected {want_c}")
         if name == "window":
+            # K = 21 is past the window kernel's 12 keyframes: the reference
+            # is solve_window_fast's body on the CPU
             t0 = time.perf_counter()
-            ref, ref_cost = ba.solve_window_fast(state, meas, iters=iters)
-            _sync(dev)
+            ref, ref_cost = ba.solve_window_fast(*window_to(state, meas, "cpu"), iters=iters)
             one_s = time.perf_counter() - t0
-            p_err = float((got["p"].to(dev) - ref.p).abs().max())
+            p_err = float((got["p"].cpu() - ref.p).abs().max())
             print(f"  window: cost {float(got['cost']):.2f} sharded, {float(ref_cost):.2f} "
-                  f"by solve_window_fast ({one_s:.3f} s on one card); max |p| difference "
+                  f"by solve_window_fast on the CPU ({one_s:.3f} s); max |p| difference "
                   f"{p_err:.3g} (bound 5e-2)")
             check(float(got["cost"]) < 1.2 * float(ref_cost) + 5.0 and p_err < 5e-2,
                   "window: the sharded Schur solve misses test_parallel.py's bounds")
@@ -4421,6 +4638,7 @@ def fisheye_phase(device) -> dict:
                   f"a kernel of the rig did not run: {counts}")
             if on_card:
                 track_launch_checks(fes, counts, "phase 12")
+                solve_launch_checks(fes, counts, "phase 12")
             seq0 = seqs[0]
             last = len(seq0.cam_t) - 1
             sel = (seq0.imu_t >= seq0.cam_t[last - 1]) & (seq0.imu_t < seq0.cam_t[last])
@@ -4694,6 +4912,15 @@ def main() -> int:
     rate["klt_track"] = {"launches_frontend_phase8": fe_klt,
                          "launches_per_frame_phase8": fe_klt / agent_scores["frames"],
                          "tracked_frames_phase8": agent_scores["tracked_frames"]}
+    # window_lm's launches: phase 8's front-ends (one a solve: each solve
+    # graph's replay and each capture's warm-up), per keyframe; the data's
+    # counts of phase 3's window for its bound
+    fe_wlm = agent_scores["frontend_launches"]["window_lm"]
+    rate["window_lm"] = {"launches_frontend_phase8": fe_wlm,
+                         "launches_per_keyframe_phase8": fe_wlm / max(agent_scores["keyframes"], 1),
+                         "solves_phase8": agent_scores["solves"],
+                         "keyframes_phase8": agent_scores["keyframes"],
+                         "phase3_window": extras["window_lm"]}
     floor = extras["floor_ms"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": pipe_counts[name],
@@ -4711,6 +4938,7 @@ def main() -> int:
                 "library_ms": extras["library_ms"].get(name)}
                for name in SOURCES]
     next(k for k in kernels if k["name"] == "klt_track")["launches"] = fe_klt
+    next(k for k in kernels if k["name"] == "window_lm")["launches"] = fe_wlm
     big = extras["hamming_2048"]
     next(k for k in kernels if k["name"] == "hamming_matrix")["at_2048x2048"] = {
         **big, "share": big["bound_ms"] / big["ms"],

@@ -64,6 +64,8 @@ SIGNATURES = {
     "cvids_tsdf_integrate": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _I, _I, _L, _L, _P, _L, _L, _L,
                              _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "cvids_tsdf_integrate_plan": [_I, _I, ctypes.POINTER(_I)],
+    "cvids_window_lm": [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F), _P],
+    "cvids_window_lm_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     "cvids_empty": [_P],
 }
 

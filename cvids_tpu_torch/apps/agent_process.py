@@ -50,8 +50,8 @@ def run_agent(root: str, client_id: int, port: int, out: str | None = None,
               device=None, host: str = "127.0.0.1", threads: int | None = None):
     """Track every frame of the sequence at `root` with the calibration of
     its `sensor.yaml` files, on `device` (None: the card), publishing each
-    packet to `host:port`. Saves the sent codec dicts and the frame times
-    to `out` when given. `threads` sets this process's intra-op threads
+    packet to `host:port`. Saves the sent codec dicts, the frame times and
+    the tracker's and window solver's launch counts to `out` when given. `threads` sets this process's intra-op threads
     (None keeps torch's default; agents that share a machine's cores on the
     CPU want 1). Returns the front-end."""
     from ..utils.config import AgentConfig
@@ -87,7 +87,10 @@ def run_agent(root: str, client_id: int, port: int, out: str | None = None,
                  packets=np.int64(len(sent)),
                  klt_launches=np.int64(cuda_kernels.launches["klt_track"]),
                  track_replays=np.int64(fe._track.replays),
-                 track_captures=np.int64(fe._track.captures), **arrays)
+                 track_captures=np.int64(fe._track.captures),
+                 wlm_launches=np.int64(cuda_kernels.launches["window_lm"]),
+                 solve_replays=np.int64(fe._solve_fast.replays),
+                 solve_captures=np.int64(fe._solve_fast.captures), **arrays)
     return fe
 
 

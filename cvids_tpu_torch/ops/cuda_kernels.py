@@ -27,7 +27,13 @@ Each kernel has a wrapper and a twin with the same contract:
 - `tsdf_integrate` — a depth + colour frame into M chunks of the TSDF
   pool, in place, one block a chunk (``csrc/tsdf_integrate.cu``; no Pallas
   counterpart: the JAX package compiles `_integrate_kernel` into one
-  program).
+  program);
+- `window_lm` — the agent's whole window solve (`solve_window_fast`'s
+  Levenberg-Marquardt with the landmarks' Schur complement) in one launch
+  of one block (``csrc/window_lm.cu``; no Pallas counterpart: it replaces
+  the JAX package's compiled `_solve_window_fast_jit`). Its twin
+  `window_lm_twin` states the kernel's order of operations
+  (``ops/window_lm.py``).
 
 Dispatch: a wrapper given CPU tensors returns its twin's result; given CUDA
 tensors it launches its kernel, or raises on anything the kernel does not
@@ -42,8 +48,9 @@ The volume kernels need D a multiple of 32 with D <= 256; the twins take any
 D. The scan's, the sweep's and the WTA's launches (lane groups, ring depth,
 tile, grid, dynamic shared memory) are decided in their ``.cu`` files, as is
 the Hamming kernel's tile, the tracker's shared memory and the TSDF
-kernel's block; `sgm_scan_plan`, `plane_sweep_plan`, `wta_plan`,
-`hamming_plan`, `klt_plan` and `tsdf_plan` restate them
+kernel's block and the window solve's shared memory and scratch;
+`sgm_scan_plan`, `plane_sweep_plan`, `wta_plan`, `hamming_plan`,
+`klt_plan`, `tsdf_plan` and `window_lm_plan` restate them
 as pure functions, and the ``compiled_*_plan`` functions read them from the
 built library. `kernel_work` gives the bytes and operations a call must at
 least move and do, for a roofline bound. Descriptors are (N, 8) int32
@@ -75,11 +82,12 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "kernel_work", "SgmScanPlan", "PlaneSweepPlan", "WtaPlan",
            "HammingPlan", "MAX_DYNAMIC_SMEM", "empty_launch", "counted_apart",
            "add_launches", "tsdf_integrate", "tsdf_integrate_twin", "tsdf_plan",
-           "compiled_tsdf_plan", "TsdfPlan"]
+           "compiled_tsdf_plan", "TsdfPlan", "window_lm", "window_lm_twin", "window_lm_plan",
+           "compiled_window_lm_plan", "WindowLmPlan", "WINDOW_LM_MAX_K"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
             "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0, "klt_track": 0,
-            "tsdf_integrate": 0}
+            "tsdf_integrate": 0, "window_lm": 0}
 
 _BIG = 3.0e38   # the kernels' end-of-axis pad for the d±1 neighbours
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
@@ -1234,6 +1242,125 @@ def tsdf_integrate(cfg, pool, slots: torch.Tensor, coords: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The window solve, one block a window
+# ---------------------------------------------------------------------------
+
+WINDOW_LM_MAX_K = 12        # keyframes: the (15K + 1) x 15K system in shared memory
+_WLM_THREADS, _WLM_TL, _WLM_REC, _WLM_LREC = 1024, 16, 52, 32
+
+
+class WindowLmPlan(NamedTuple):
+    """The window solve's launch: one block of `threads`, `smem_bytes` of
+    dynamic shared memory (the reduced system and its right-hand side, a
+    tile of landmarks' observation records, the camera factors' rows), and
+    `scratch` float32 words of device scratch (the prior's Gram matrix,
+    h_cc, every observation's and landmark's record, the stepped landmarks)."""
+    smem_bytes: int
+    scratch: int
+    threads: int
+
+
+def window_lm_plan(k: int, l: int, n_prior: int) -> WindowLmPlan:
+    """Shared memory, scratch and threads of one `window_lm` launch over k
+    keyframes, l landmark slots and a prior of n_prior rows (0: none), as
+    ``csrc/window_lm.cu``'s `layout` computes them, restated here so that
+    they can be held without the card; `compiled_window_lm_plan` reads the
+    built library's own."""
+    if not 1 <= k <= WINDOW_LM_MAX_K or l < 0 or not 0 <= n_prior <= 15 * k + 1:
+        raise ValueError(f"the window kernel takes 1 <= K <= {WINDOW_LM_MAX_K}, L >= 0 and a "
+                         f"prior of at most 15K + 1 rows, got K = {k}, L = {l}, {n_prior} rows")
+    n, pose = 15 * k, 6 * k
+    low = pose * (pose + 1) // 2
+    rows = 15 * (k - 1) + 4 + 6 * k + n_prior
+    smem = (n + 1) * n
+    smem = (smem + 3) & ~3
+    smem += (_WLM_TL * _WLM_REC + 12) * k + _WLM_TL * 4 + 2 * low + 2 * pose + (k - 1) * 450
+    smem += 2 * rows + n + 9 * k + 4 + 4 * n + 2 * 16 * k + 9 * k + 8 * 32 + 16
+    scratch = (2 * n * n + 3) & ~3
+    scratch += k * l * _WLM_REC + l * _WLM_LREC + 4 * l
+    if 4 * smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"the window kernel needs {4 * smem} bytes of shared memory at K = {k}")
+    return WindowLmPlan(4 * smem, scratch, _WLM_THREADS)
+
+
+def compiled_window_lm_plan(k: int, l: int, n_prior: int) -> WindowLmPlan:
+    """`window_lm_plan` as the built library reports it."""
+    return WindowLmPlan(*_compiled_plan("cvids_window_lm_plan", 3, k, l, n_prior))
+
+
+def window_lm_twin(state, meas, iters: int = 8, init_lambda: float = 1e-3,
+                   anchor_weight: float = 1e3):
+    """Plain PyTorch twin of `window_lm`: the kernel's order of operations
+    (``ops/window_lm.py``). Returns (state, cost)."""
+    from . import window_lm as wl
+    return wl.solve(state, meas, iters, init_lambda, anchor_weight)
+
+
+def window_lm(state, meas, iters: int = 8, init_lambda: float = 1e-3,
+              anchor_weight: float = 1e3):
+    """The window solve of `vio.window_ba.solve_window_fast` (state a
+    `WindowState`, meas a `WindowMeasurements` with a camera-only prior or
+    none, float32) in one launch: returns (state, cost), kf_valid and
+    lm_valid unchanged. On CPU tensors its twin. Raises, on either device,
+    on what the kernel does not take: another dtype or shape, a full-tangent
+    prior, K outside 1-12, a prior of more than 15K + 1 rows, iters < 0.
+    Reads nothing back to the host."""
+    from ..vio.window_ba import CamPriorFactor
+
+    prior = meas.prior
+    if prior is not None and not isinstance(prior, CamPriorFactor):
+        raise ValueError("window_lm takes a camera-only prior (CamPriorFactor) or none")
+    k, l = state.p.shape[0], state.lm.shape[0]
+    n_prior = 0 if prior is None else prior.j.shape[0]
+    plan = window_lm_plan(k, l, n_prior)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    f32, b8 = (torch.float32,), (torch.bool,)
+    shapes = [(state.p, "p", (k, 3), f32), (state.q, "q", (k, 4), f32),
+              (state.v, "v", (k, 3), f32), (state.bg, "bg", (k, 3), f32),
+              (state.ba, "ba", (k, 3), f32), (state.lm, "lm", (l, 3), f32),
+              (state.kf_valid, "kf_valid", (k,), b8), (state.lm_valid, "lm_valid", (l,), b8),
+              (meas.obs, "obs", (k, l, 2), f32), (meas.vis, "vis", (k, l), b8)]
+    pre_shapes = {"dp": (3,), "dv": (3,), "dq": (4,), "dt": (), "j_p_bg": (3, 3),
+                  "j_p_ba": (3, 3), "j_v_bg": (3, 3), "j_v_ba": (3, 3), "j_q_bg": (3, 3),
+                  "sqrt_info": (9, 9), "bg": (3,), "ba": (3,)}
+    shapes += [(getattr(meas.pre, f), f"pre.{f}", (k - 1, *sh), f32)
+               for f, sh in pre_shapes.items()]
+    shapes += [(meas.pre_valid, "pre_valid", (k - 1,), b8), (meas.r_cb, "r_cb", (3, 3), f32),
+               (meas.p_bc, "p_bc", (3,), f32), (meas.anchor_p, "anchor_p", (3,), f32),
+               (meas.anchor_yaw, "anchor_yaw", (), f32)]
+    if prior is not None:
+        shapes += [(prior.j, "prior.j", (n_prior, 15 * k), f32),
+                   (prior.r0, "prior.r0", (n_prior,), f32), (prior.p, "prior.p", (k, 3), f32),
+                   (prior.q, "prior.q", (k, 4), f32), (prior.v, "prior.v", (k, 3), f32),
+                   (prior.bg, "prior.bg", (k, 3), f32), (prior.ba, "prior.ba", (k, 3), f32)]
+    ins = []
+    for t, name, shape, dtypes in shapes:
+        t = t.contiguous()
+        _require(t, name, shape, dtypes)
+        ins.append(t)
+    if not _on_cuda(*ins):
+        return window_lm_twin(state, meas, iters, init_lambda, anchor_weight)
+    if prior is None:
+        ins += [None] * 7
+    dev = state.p.device
+    outs = [torch.empty_like(ins[i]) for i in range(6)]
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+    import ctypes
+    ptrs = (ctypes.c_void_p * 42)(*(0 if t is None else t.data_ptr()
+                                    for t in ins + outs + [cost, scratch]))
+    ints = (ctypes.c_int * 5)(k, l, n_prior, int(iters), plan.scratch)
+    floats = (ctypes.c_float * 7)(float(init_lambda), float(anchor_weight),
+                                  float(meas.pix_weight), float(meas.huber_delta),
+                                  float(meas.bias_weight), float(meas.ba_prior_weight),
+                                  float(meas.bg_prior_weight))
+    _launch("window_lm", "cvids_window_lm", dev, ptrs, ints, floats)
+    return state._replace(p=outs[0], q=outs[1], v=outs[2], bg=outs[3], ba=outs[4],
+                          lm=outs[5]), cost
+
+
+# ---------------------------------------------------------------------------
 # The least work of a call, for a roofline bound
 # ---------------------------------------------------------------------------
 
@@ -1258,7 +1385,10 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
     tsdf_integrate m chunks of s³ voxels from an h x w frame, `updated`
     of the voxels in the band, `written` pool words changed and `color_px`
     bytes a colour pixel as stored (by default the most: every voxel
-    updated, every word written, 12)."""
+    updated, every word written, 12); window_lm k keyframes, l landmark
+    slots, iters, prior (its rows, 0: none), `obs` valid observations and
+    `pairs` co-observations (landmark, keyframe pair m <= k) of this
+    window (by default every slot observed from every keyframe)."""
     g = shape.get
     if name == "warp_banded":
         px = g("h") * g("w")
@@ -1330,4 +1460,23 @@ def kernel_work(name: str, **shape) -> tuple[int, int]:
         return (8 * vox + 12 * updated + 4 * g("written", 5 * vox)
                 + (4 + g("color_px", 12)) * pixels + 20 * g("m") + 84,
                 55 * vox + 27 * updated)
+    if name == "window_lm":
+        k, l, iters, prior = g("k"), g("l"), g("iters"), g("prior", 0)
+        n = 15 * k
+        obs, pairs = g("obs", k * l), g("pairs", l * k * (k + 1) // 2)
+        # the state, landmarks, masks, observations (8 bytes and a mask
+        # byte each), the K-1 preintegrations (143 floats and a flag), the
+        # rig, the anchor and the prior in; the state, landmarks, cost out
+        nbytes = (2 * (64 * k + 12 * l + 4) + k + l + 9 * k * l + 573 * (k - 1) + 64
+                  + (4 * prior * (n + 1) + 64 * k if prior else 0))
+        # an iteration: an observation's blocks (projection, Huber, the 2x6
+        # and 2x3 Jacobians, its H_ll, g_l, H_pl and H_pp terms) ~300, its W
+        # 90, back-substitution 36 and cost 50; a landmark's inverse and
+        # step ~80; a co-observation's 6x6 Schur block 216; the camera
+        # factors' duals ~700 a seed column of an IMU factor, the system's
+        # lower triangle ~70 an entry, the Cholesky n³/3, the prior's rows
+        # and gradient 4 P n. Once: the prior's Gram matrix P n (n + 1)
+        per_iter = (476 * obs + 80 * l + 216 * pairs + 700 * 30 * (k - 1)
+                    + 70 * n * (n + 1) // 2 + n ** 3 // 3 + 2 * n * n + 4 * prior * n)
+        return nbytes, iters * per_iter + prior * n * (n + 1)
     raise KeyError(f"no kernel named {name!r}")

@@ -30,7 +30,8 @@ inside. They are the track step (KLT, both lifts, the F-RANSAC gate and its
 inlier mask: `_track_step`), the re-detection (`_redetect_step`, JAX
 `_redetect_compute`), the packet's image program (`_describe_step`, JAX
 `_emit_compute`), the preintegration (`_preintegrate_step`), the window
-solve and the marginalization up to its float64 `eigh`
+solve (one launch of the hand kernel `cuda_kernels.window_lm` inside its
+graph) and the marginalization up to its float64 `eigh`
 (`window_ba.marg_schur_cam`). The camera is a bound argument of the graphs
 that lift, so they are keyed by the camera as well as by shape. Host arrays
 cross to the card through pinned memory without a sync; each graph's result

@@ -39,6 +39,7 @@ from torch.func import jacfwd
 
 from ..geometry import (quat_inverse, quat_multiply, quat_normalize,
                         quat_to_matrix, so3_exp, so3_hat, so3_log, yaw_of)
+from ..ops import cuda_kernels
 from .imu import Preintegrated, imu_residual
 
 __all__ = ["WindowState", "WindowMeasurements", "PriorFactor",
@@ -665,11 +666,18 @@ def solve_window_fast(state: WindowState, meas: WindowMeasurements,
     front-end's per-keyframe solve (the agent's 8-iteration / 0.04 s budget,
     `euroc_config.yaml:54-55`). Same semantics as `solve_window_schur`; a
     camera-only prior (`CamPriorFactor`) only: a full-tangent `PriorFactor`
-    couples landmarks and breaks the Schur structure, and is rejected."""
+    couples landmarks and breaks the Schur structure, and is rejected.
+
+    On CUDA tensors the whole solve is one launch of the hand kernel
+    `cuda_kernels.window_lm` (``csrc/window_lm.cu``), which raises on what it
+    does not take (K above 12, another dtype); on CPU tensors it is the body
+    below."""
     if meas.prior is not None and not isinstance(meas.prior, CamPriorFactor):
         raise ValueError("solve_window_fast needs a camera-only prior "
                          "(CamPriorFactor): full-tangent priors couple "
                          "landmarks and break the Schur structure")
+    if state.p.is_cuda:
+        return cuda_kernels.window_lm(state, meas, iters, init_lambda, anchor_weight)
     k = state.p.shape[0]
     pc = 15 * k
     dev, f32 = state.p.device, state.p.dtype

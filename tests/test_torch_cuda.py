@@ -1,4 +1,4 @@
-"""The nine CUDA kernels against their PyTorch twins, the front-end's and
+"""The ten CUDA kernels against their PyTorch twins, the front-end's and
 the server's CUDA graphs (the front-end's track step, re-detection, packet
 image program, preintegration, window solve and marginalization; the dense
 frame, the 4-DoF solve, the pose graph's loop-verification cascade and BoW
@@ -324,6 +324,48 @@ def test_graphed_solve_equals_eager(dev):
         got, want = call(s, m), tba.solve_window_fast(s, m, iters=4)
         _same(tuple(got[0]) + (got[1],), tuple(want[0]) + (want[1],))
     assert len(call.graphs) == 1 and call.replays == 2
+
+
+def test_window_lm_kernel(dev):
+    """The window kernel equals its twin bit for bit at the front-end's
+    window (K = 10, 600 slots, a 150-row prior, 8 iterations) and at
+    `chip_smoke.window_lm_edge_cases` (no prior, Huber, invalid slots, no
+    landmark, 1 and 25 iterations, rejected steps, K = 12 with 1100 slots,
+    K = 2)."""
+    cases = [("path", *cs.window_lm_inputs(dev), cs.WLM_ITERS, 1e-3)]
+    cases += cs.window_lm_edge_cases(dev)
+    for what, st, m, iters, lam in cases:
+        got, ref = ck.window_lm(st, m, iters, lam), ck.window_lm_twin(st, m, iters, lam)
+        for a, b in zip(tuple(got[0]) + (got[1],), tuple(ref[0]) + (ref[1],)):
+            assert _same_bits(a, b), what
+
+
+def test_window_lm_plan_matches_library(dev):
+    for k in (1, 2, 10, 12):
+        for l in (0, 37, 600):
+            for p in (0, 15 * k):
+                assert ck.window_lm_plan(k, l, p) == ck.compiled_window_lm_plan(k, l, p)
+
+
+def test_solve_window_fast_launches_the_kernel_once(dev):
+    """On the card `solve_window_fast` is one window_lm launch a call, eager
+    or replayed in the front-end's solve graph (a capture's warm-up call
+    counts one), and a window past the kernel's 12 keyframes raises."""
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall
+    from cvids_tpu_torch.vio import frontend, window_ba as tba
+
+    st, m = cs.window_lm_inputs(dev, k=5, n_lm=60, seed=3)
+    ck.reset_launches()
+    tba.solve_window_fast(st, m, iters=4)
+    assert ck.launches["window_lm"] == 1
+    call = GraphedCall(frontend._solve_window_fast)
+    ck.reset_launches()
+    for _ in range(3):
+        call(st, m, 4)
+    assert ck.launches["window_lm"] == 4 and call.replays == 3 and call.captures == 1
+    st13, m13 = cs.window_lm_inputs(dev, k=13, n_lm=20, prior=False)
+    with pytest.raises(ValueError):
+        tba.solve_window_fast(st13, m13)
 
 
 def test_topology_on_the_card(dev, tmp_path):

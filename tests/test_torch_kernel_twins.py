@@ -351,10 +351,15 @@ def test_cpu_dispatch_routes_to_twins(rng):
     for o, r in zip(ck.klt_track(*track, radius=2, iters=3, fb_thresh=1.0),
                     ck.klt_track_twin(*track, radius=2, iters=3, fb_thresh=1.0)):
         np.testing.assert_array_equal(_np(o), _np(r))
+    from test_torch_vio import _problem
+    _, _, _, st, wm = _problem(seed=5, perturb=0.05, duration=1.0, n_lm=10)
+    for o, r in zip(ck.window_lm(st, wm, 2), ck.window_lm_twin(st, wm, 2)):
+        for a, b in zip(*((o, r) if isinstance(o, tuple) else ((o,), (r,)))):
+            np.testing.assert_array_equal(_np(a), _np(b))
     # nothing was launched: the CPU tensors went to the twins
     assert ck.launches == {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
                            "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0,
-                           "klt_track": 0, "tsdf_integrate": 0}
+                           "klt_track": 0, "tsdf_integrate": 0, "window_lm": 0}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -588,6 +593,17 @@ _WORK = {
                             color_px=4),
                        8 * 101_376 + 12 * 30_000 + 4 * 150_000 + 8 * 101_376 + 20 * 198 + 84,
                        55 * 101_376 + 27 * 30_000),
+    # phase 3's window: K = 10, 600 slots, a 150-row prior, 8 iterations, its
+    # 1,204 valid observations and 4,233 co-observations. Bytes: the state
+    # and landmarks in and out, the masks, 9 a slot-observation, 573 an
+    # interval, the rig and anchor, the prior's j, r0 and state. Operations
+    # an iteration: 476 an observation, 80 a slot, 216 a co-observation,
+    # 700 x 30 an interval, 70 an entry of the lower triangle, n³/3, 2 n²,
+    # 4 P n; once: the prior's Gram matrix P n (n + 1)
+    "window_lm": (dict(k=10, l=600, iters=8, prior=150, obs=1204, pairs=4233),
+                  2 * (640 + 7200 + 4) + 10 + 600 + 54_000 + 573 * 9 + 64 + 4 * 150 * 151 + 640,
+                  8 * (476 * 1204 + 80 * 600 + 216 * 4233 + 700 * 30 * 9 + 70 * 11_325
+                       + 150 ** 3 // 3 + 2 * 22_500 + 4 * 22_500) + 150 * 150 * 151),
 }
 
 
@@ -599,10 +615,10 @@ def test_kernel_work(name):
     assert got == (want_bytes, want_ops)
     assert all(isinstance(v, int) for v in got)
     # in MB: 3.7, 83.4, 157.9 (315.8 for a frame's two launches), 158.8, 11.4,
-    # 0.35, 0.18, 3.84, 2.59
+    # 0.35, 0.18, 3.84, 2.59, 0.17
     mb = {"warp_banded": 3.7, "plane_sweep": 83.4, "sgm_scan": 157.9, "wta": 158.8,
           "depth_filter_update": 11.4, "hamming_matrix": 0.35, "small_eig": 0.18,
-          "klt_track": 3.84, "tsdf_integrate": 2.59}[name]
+          "klt_track": 3.84, "tsdf_integrate": 2.59, "window_lm": 0.17}[name]
     assert abs(got[0] / 1e6 - mb) < 0.06
     if name == "plane_sweep":
         # the weights and in-bounds tests of one coordinate are counted per
@@ -617,6 +633,9 @@ def test_kernel_work(name):
         # under the ~5 us launch floor; one direction is half the work
         assert got[1] / 67e12 > got[0] / 3.35e12 and got[1] / 67e12 < 1e-5
         assert ck.kernel_work(name, **{**shape, "fb": False}) == (want_bytes, want_ops // 2)
+    if name == "window_lm":
+        # ~34 MFLOP: ~0.5 us at 67 TFLOP/s, a hundredth of the launch floor
+        assert got[1] / 67e12 > got[0] / 3.35e12 and got[1] / 67e12 < 1e-6
     with pytest.raises(KeyError):
         ck.kernel_work("no_such_kernel")
 
