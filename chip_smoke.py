@@ -52,7 +52,8 @@ ran:
   tsdf_integrate at a published map's 640x480 frame into its chunks of a
   4096-chunk pool (a stride-0 colour) and at edge shapes, and window_lm at
   the front-end's window (K = 10, 600 slots, a 150-row prior, 8
-  iterations) and at edge windows, and against the CPU solve;
+  iterations) and at edge windows up to K = 21, and against the CPU
+  solve, with its cluster, registers and local memory a thread;
 - phase 8, the agents: two `AgentFrontend`s (FAST/BRIEF/KLT, IMU
   preintegration, the VI bootstrap, the sliding-window BA) on every 20 Hz
   frame of ~10 s of 752x480 radtan imagery with 200 Hz IMU, rendered in
@@ -141,7 +142,9 @@ with the memory its graphs keep, and one profiled `extract_mesh` and
 (`--package DIR` as above): the port's own hand kernels, `small_eig`,
 `klt_track` and (where the package has it) `window_lm`, at phase 3's
 inputs (one F-RANSAC's 128 9x9 and 3x3 fp64 systems, one PnP DLT's 128
-12x12 and 3x3, the front-end's tracker call, the front-end's window), and
+12x12 and 3x3, the front-end's tracker call, the front-end's window; and
+where the package takes it, the K = 21 window of phase 11 and the
+kernel's registers and local memory), and
 the window solve as the front-end calls it (a `GraphedCall` of
 `frontend._solve_window_fast`, in any package): each call's median
 CUDA-event ms over 50 runs, each single kernel's device ms under the
@@ -293,9 +296,9 @@ KERNEL_ENTRIES = ("warp_banded_kernel", "warp_rows_kernel", "warp_cols_kernel",
                   "tsdf_integrate_kernel", "window_lm_kernel", "empty_kernel")
 
 
-def print_ptxas_summary(log: str) -> None:
-    """One line per kernel from nvcc's -Xptxas -v output: registers over the
-    template instances, and the spill bytes."""
+def ptxas_summary(log: str) -> tuple[dict, dict]:
+    """From nvcc's -Xptxas -v output: each kernel's registers over its
+    template instances, and its spill bytes (stores and loads)."""
     import re
     regs = {n: [] for n in KERNEL_ENTRIES}
     spills = {n: 0 for n in KERNEL_ENTRIES}
@@ -307,6 +310,13 @@ def print_ptxas_summary(log: str) -> None:
             regs[current].append(int(re.search(r"Used (\d+) registers", line).group(1)))
         elif current and "spill" in line:
             spills[current] += sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+    return regs, spills
+
+
+def print_ptxas_summary(log: str) -> None:
+    """One line per kernel: registers over the template instances, and the
+    spill bytes."""
+    regs, spills = ptxas_summary(log)
     for n in KERNEL_ENTRIES:
         if regs[n]:
             print(f"  ptxas {n}: {len(regs[n])} instance(s), registers "
@@ -1008,8 +1018,9 @@ def window_lm_edge_cases(dev) -> list:
     no prior, the Huber branch on most observations, invalid keyframe slots
     and intervals, no valid landmark, one and 25 iterations, rejected steps
     (the yaw anchor 3 rad off and λ = 1e-10: the first step is taken, the
-    next ones rejected while λ grows), K = 12 (the kernel's limit) with 1100
-    slots (two a thread, a ragged tile), K = 2 with 37 slots."""
+    next ones rejected while λ grows), K = 12, 13 and 21 (the kernel's
+    limit, its system over the cluster's shared memory) with 1100 slots (two
+    a logical thread, a ragged tile), K = 2 with 37 slots."""
     st, m = window_lm_inputs(dev, seed=4)
     return [
         ("no prior", *window_lm_inputs(dev, prior=False), WLM_ITERS, 1e-3),
@@ -1022,6 +1033,8 @@ def window_lm_edge_cases(dev) -> list:
         ("25 iterations", *window_lm_inputs(dev, seed=5), 25, 1e-3),
         ("rejected steps", st, m._replace(anchor_yaw=m.anchor_yaw + 3.0), WLM_ITERS, 1e-10),
         ("K = 12, L = 1100", *window_lm_inputs(dev, k=12, n_lm=1100, seed=6), WLM_ITERS, 1e-3),
+        ("K = 13, L = 1100", *window_lm_inputs(dev, k=13, n_lm=1100, seed=8), WLM_ITERS, 1e-3),
+        ("K = 21, L = 1100", *window_lm_inputs(dev, k=21, n_lm=1100, seed=10), WLM_ITERS, 1e-3),
         ("K = 2, L = 37", *window_lm_inputs(dev, k=2, n_lm=37, seed=7, prior=False), WLM_ITERS,
          1e-3),
     ]
@@ -1045,10 +1058,12 @@ def window_work(state, meas) -> dict:
 def window_lm_checks(dev, inputs, timed, runs, twin_runs):
     """window_lm against its twin, bit for bit, at the front-end's window
     (K = 10, 600 slots, a 150-row prior, 8 iterations) and at
-    `window_lm_edge_cases`; the path's result against the port's CPU solve
-    (`solve_window_fast`'s body, test_solvers_match's tolerances); then the
-    path's call timed. Returns ((max |err|, ms, twin ms, bound ms, bound
-    by), the data's counts)."""
+    `window_lm_edge_cases`; the path's result and the K = 13 and K = 21
+    windows' against the port's CPU solve (`solve_window_fast`'s body,
+    test_solvers_match's tolerances); the compiled kernel's cluster,
+    registers and local memory; then the path's call timed. Returns ((max
+    |err|, ms, twin ms, bound ms, bound by), the data's counts)."""
+    from cvids_tpu_torch import _build
     from cvids_tpu_torch.ops import cuda_kernels as ck
     from cvids_tpu_torch.vio import window_ba as ba
 
@@ -1059,18 +1074,34 @@ def window_lm_checks(dev, inputs, timed, runs, twin_runs):
               f"window_lm {what}: the kernel's state or cost differs from the twin's")
         return got
 
+    def against_cpu(what, st, m, got, iters=WLM_ITERS):
+        cpu, cpu_cost = ba.solve_window_fast(*window_to(st, m, "cpu"), iters=iters)
+        p_err = float((got[0].p.cpu() - cpu.p).abs().max())
+        lm_err = float((got[0].lm.cpu() - cpu.lm).abs().max())
+        cost_rel = abs(float(got[1]) - float(cpu_cost)) / float(cpu_cost)
+        check(p_err < 1e-3 and lm_err < 1e-2 and cost_rel < 1e-3,
+              f"window_lm {what} against the CPU solve: |p| {p_err}, |lm| {lm_err}, "
+              f"cost {float(got[1])} against {float(cpu_cost)}")
+        return p_err, lm_err, cost_rel
+
     st, m = inputs
     got = same("at the path's window", st, m, WLM_ITERS)
     cases = window_lm_edge_cases(dev)
     for what, st2, m2, iters, lam in cases:
-        same(what, st2, m2, iters, lam)
-    cpu, cpu_cost = ba.solve_window_fast(*window_to(st, m, "cpu"), iters=WLM_ITERS)
-    p_err = float((got[0].p.cpu() - cpu.p).abs().max())
-    lm_err = float((got[0].lm.cpu() - cpu.lm).abs().max())
-    cost_rel = abs(float(got[1]) - float(cpu_cost)) / float(cpu_cost)
-    check(p_err < 1e-3 and lm_err < 1e-2 and cost_rel < 1e-3,
-          f"window_lm at the path's window against the CPU solve: |p| {p_err}, |lm| {lm_err}, "
-          f"cost {float(got[1])} against {float(cpu_cost)}")
+        got2 = same(what, st2, m2, iters, lam)
+        if st2.p.shape[0] > 12:
+            errs = against_cpu(what, st2, m2, got2, iters)
+            print(f"  window_lm {what}: kernel == twin bit for bit; against the CPU solve |p| "
+                  f"{errs[0]:.3g} m, |lm| {errs[1]:.3g} m, cost {errs[2]:.3g} relative "
+                  f"(tolerances 1e-3, 1e-2, 1e-3)")
+    p_err, lm_err, cost_rel = against_cpu("at the path's window", st, m, got)
+    attrs = ck.window_lm_attrs()
+    spills = ptxas_summary(_build.build()[1])[1]["window_lm_kernel"]
+    print(f"  window_lm compiled: a cluster of {attrs['cluster']} blocks of {attrs['threads']} "
+          f"threads, {attrs['registers']} registers and {attrs['local_bytes']} local bytes a "
+          f"thread (cudaFuncGetAttributes: the stack frame of sinf's and cosf's argument "
+          f"reduction); ptxas: {spills} spill bytes")
+    check(spills == 0, f"window_lm spills {spills} bytes")
     ms = time_ms(lambda: ck.window_lm(st, m, WLM_ITERS), runs) if timed else 0.0
     pms = time_ms(lambda: ck.window_lm_twin(st, m, WLM_ITERS), twin_runs) if timed else 0.0
     work = window_work(st, m)
@@ -1265,7 +1296,7 @@ def plan_checks() -> None:
             check(want == got, f"tsdf plan at {tm} chunks of {ts}^3: Python {want}, "
                                f"library {got}")
             n += 1
-    for wk in (1, 2, 5, 10, 11, 12):
+    for wk in (1, 2, 5, 10, 11, 12, 13, 20, 21):
         for wl in (0, 37, WLM_L, 1100):
             for wp in (0, 15 * wk, 15 * wk + 1):
                 want, got = ck.window_lm_plan(wk, wl, wp), ck.compiled_window_lm_plan(wk, wl, wp)
@@ -1652,6 +1683,7 @@ def memory_checks(device, rng, repeats=3) -> int:
     # and the edges of its tiles and threads
     for (wst, wm), iters in ((window_lm_inputs(dev), 2),
                              (window_lm_inputs(dev, k=12, n_lm=1100, seed=6), 1),
+                             (window_lm_inputs(dev, k=21, n_lm=1100, seed=10), 1),
                              (window_lm_inputs(dev, k=2, n_lm=37, seed=7, prior=False), 3)):
         cases.append(("window_lm", lambda st, m, iters=iters: ck.window_lm(st, m, iters),
                       (wst, wm)))
@@ -2139,6 +2171,10 @@ def kernels_probe(device, runs: int = 50) -> None:
     if has_wlm:
         calls["window_lm"] = lambda: ck.window_lm(wst, wm, WLM_ITERS)
         singles["window_lm"] = "window_lm_kernel"
+    if getattr(ck, "WINDOW_LM_MAX_K", 0) >= 21:
+        # bench.py's and phase 11's window: K = 21, 600 slots, a 315-row prior
+        w21 = window_lm_inputs(dev, k=21)
+        calls["window_lm_k21"] = lambda: ck.window_lm(*w21, WLM_ITERS)
     profiled = {k: profiled_kernel_ms(calls[k], e) for k, e in singles.items()}
     same = {"small_eig": all(_same_bits(x, y) for a in (ata, ftf, dlt_ata, dlt_mtm)
                              for x, y in zip(ck.small_eigh(a), ck.small_eigh_twin(a))),
@@ -2155,6 +2191,7 @@ def kernels_probe(device, runs: int = 50) -> None:
         "ms": {k: time_ms(fn, runs) for k, fn in calls.items()},
         "profiler_ms": profiled, "floor_ms": time_ms(lambda: ck.empty_launch(dev), runs),
         "equal_to_twin": same,
+        "window_lm_attrs": ck.window_lm_attrs() if hasattr(ck, "window_lm_attrs") else None,
         "library_eigh_ms": {
             "f_pair": time_ms(lambda: (torch.linalg.eigh(ata), torch.linalg.eigh(ftf)), runs),
             "dlt_pair": time_ms(lambda: (torch.linalg.eigh(dlt_ata),
@@ -4526,17 +4563,20 @@ def multichip_checks(res: dict, probs: dict, n_ranks: int, dev) -> None:
         check(phases[name]["collectives"] == [{"op": "all-reduce", **want_c}],
               f"{name}: collectives {phases[name]['collectives']}, expected {want_c}")
         if name == "window":
-            # K = 21 is past the window kernel's 12 keyframes: the reference
-            # is solve_window_fast's body on the CPU
-            t0 = time.perf_counter()
-            ref, ref_cost = ba.solve_window_fast(*window_to(state, meas, "cpu"), iters=iters)
-            one_s = time.perf_counter() - t0
-            p_err = float((got["p"].cpu() - ref.p).abs().max())
-            print(f"  window: cost {float(got['cost']):.2f} sharded, {float(ref_cost):.2f} "
-                  f"by solve_window_fast on the CPU ({one_s:.3f} s); max |p| difference "
-                  f"{p_err:.3g} (bound 5e-2)")
-            check(float(got["cost"]) < 1.2 * float(ref_cost) + 5.0 and p_err < 5e-2,
-                  "window: the sharded Schur solve misses test_parallel.py's bounds")
+            # K = 21: the references are solve_window_fast's body on the CPU
+            # and, on the card, its one window_lm launch
+            for where in ("cpu", dev):
+                t0 = time.perf_counter()
+                ref, ref_cost = ba.solve_window_fast(*window_to(state, meas, where), iters=iters)
+                float(ref_cost)
+                one_s = time.perf_counter() - t0
+                p_err = float((got["p"].cpu() - ref.p.cpu()).abs().max())
+                print(f"  window: cost {float(got['cost']):.2f} sharded, {float(ref_cost):.2f} "
+                      f"by solve_window_fast on {torch.device(where)} ({one_s:.3f} s); max |p| "
+                      f"difference {p_err:.3g} (bound 5e-2)")
+                check(float(got["cost"]) < 1.2 * float(ref_cost) + 5.0 and p_err < 5e-2,
+                      f"window: the sharded Schur solve misses test_parallel.py's bounds "
+                      f"against solve_window_fast on {where}")
 
 
 def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:

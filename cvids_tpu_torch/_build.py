@@ -66,6 +66,7 @@ SIGNATURES = {
     "cvids_tsdf_integrate_plan": [_I, _I, ctypes.POINTER(_I)],
     "cvids_window_lm": [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F), _P],
     "cvids_window_lm_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    "cvids_window_lm_attrs": [ctypes.POINTER(_I)],
     "cvids_empty": [_P],
 }
 

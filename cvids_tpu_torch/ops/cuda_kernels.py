@@ -83,7 +83,8 @@ __all__ = ["projective_warp_banded", "plane_sweep", "sgm_scan_bidir", "wta",
            "HammingPlan", "MAX_DYNAMIC_SMEM", "empty_launch", "counted_apart",
            "add_launches", "tsdf_integrate", "tsdf_integrate_twin", "tsdf_plan",
            "compiled_tsdf_plan", "TsdfPlan", "window_lm", "window_lm_twin", "window_lm_plan",
-           "compiled_window_lm_plan", "WindowLmPlan", "WINDOW_LM_MAX_K"]
+           "compiled_window_lm_plan", "WindowLmPlan", "WINDOW_LM_MAX_K",
+           "window_lm_attrs"]
 
 launches = {"warp_banded": 0, "plane_sweep": 0, "sgm_scan": 0, "wta": 0,
             "hamming_matrix": 0, "depth_filter_update": 0, "small_eig": 0, "klt_track": 0,
@@ -1242,50 +1243,67 @@ def tsdf_integrate(cfg, pool, slots: torch.Tensor, coords: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The window solve, one block a window
+# The window solve, one cluster of blocks a window
 # ---------------------------------------------------------------------------
 
-WINDOW_LM_MAX_K = 12        # keyframes: the (15K + 1) x 15K system in shared memory
-_WLM_THREADS, _WLM_TL, _WLM_REC, _WLM_LREC = 1024, 16, 52, 32
+WINDOW_LM_MAX_K = 21        # keyframes: bench.py's window, its system over the cluster
+_WLM_CLUSTER, _WLM_THREADS, _WLM_TL, _WLM_REC, _WLM_LREC = 4, 256, 16, 56, 32
+_WLM_PB, _WLM_PS, _WLM_PBUFS = 16, 20, 3   # the Cholesky's panels: width, row stride, copies
 
 
 class WindowLmPlan(NamedTuple):
-    """The window solve's launch: one block of `threads`, `smem_bytes` of
-    dynamic shared memory (the reduced system and its right-hand side, a
-    tile of landmarks' observation records, the camera factors' rows), and
-    `scratch` float32 words of device scratch (the prior's Gram matrix,
-    h_cc, every observation's and landmark's record, the stepped landmarks)."""
+    """The window solve's launch: one cluster of `cluster` blocks of
+    `threads`, `smem_bytes` of dynamic shared memory a block (two tiles of
+    landmark records, or the block's panels of the reduced system and
+    copies of three panels in flight; the camera factors' rows; the state;
+    the observed landmarks), and `scratch` float32 words of device scratch (the prior's
+    Gram matrix, h_cc, every observation's and landmark's record, the
+    stepped landmarks, the landmark sums, the prior's j transposed)."""
     smem_bytes: int
     scratch: int
     threads: int
+    cluster: int
 
 
 def window_lm_plan(k: int, l: int, n_prior: int) -> WindowLmPlan:
-    """Shared memory, scratch and threads of one `window_lm` launch over k
-    keyframes, l landmark slots and a prior of n_prior rows (0: none), as
-    ``csrc/window_lm.cu``'s `layout` computes them, restated here so that
-    they can be held without the card; `compiled_window_lm_plan` reads the
-    built library's own."""
+    """Shared memory, scratch, threads and cluster of one `window_lm` launch
+    over k keyframes, l landmark slots and a prior of n_prior rows (0:
+    none), as ``csrc/window_lm.cu``'s `layout` computes them, restated here
+    so that they can be held without the card; `compiled_window_lm_plan`
+    reads the built library's own."""
     if not 1 <= k <= WINDOW_LM_MAX_K or l < 0 or not 0 <= n_prior <= 15 * k + 1:
         raise ValueError(f"the window kernel takes 1 <= K <= {WINDOW_LM_MAX_K}, L >= 0 and a "
                          f"prior of at most 15K + 1 rows, got K = {k}, L = {l}, {n_prior} rows")
     n, pose = 15 * k, 6 * k
     low = pose * (pose + 1) // 2
     rows = 15 * (k - 1) + 4 + 6 * k + n_prior
-    smem = (n + 1) * n
-    smem = (smem + 3) & ~3
-    smem += (_WLM_TL * _WLM_REC + 12) * k + _WLM_TL * 4 + 2 * low + 2 * pose + (k - 1) * 450
-    smem += 2 * rows + n + 9 * k + 4 + 4 * n + 2 * 16 * k + 9 * k + 8 * 32 + 16
+    # block r holds panels r, r + cluster, ...; panel q is rows q PB .. n
+    own_rows = max(sum(n + 1 - q * _WLM_PB for q in range(r, -(-n // _WLM_PB), _WLM_CLUSTER))
+                   for r in range(_WLM_CLUSTER))
+    tiles = 2 * k * (_WLM_TL * _WLM_REC + 12) + 8 * _WLM_TL
+    panels = (own_rows + _WLM_PBUFS * max(0, n + 1 - _WLM_PB)) * _WLM_PS
+    smem = (max(tiles, panels) + 3) & ~3
+    smem += (k - 1) * 450 + 2 * rows + 9 * n + 9 * k + 4 + 2 * 16 * k + 9 * k + 2 * 7 * 32 + 16
+    smem += _WLM_THREADS // 32 + l          # the warps' counts, the observed landmarks
     scratch = (2 * n * n + 3) & ~3
-    scratch += k * l * _WLM_REC + l * _WLM_LREC + 4 * l
+    scratch += k * l * _WLM_REC + l * _WLM_LREC + 3 * l + 2 * low + 2 * pose + n * n_prior
     if 4 * smem > MAX_DYNAMIC_SMEM:
         raise ValueError(f"the window kernel needs {4 * smem} bytes of shared memory at K = {k}")
-    return WindowLmPlan(4 * smem, scratch, _WLM_THREADS)
+    return WindowLmPlan(4 * smem, scratch, _WLM_THREADS, _WLM_CLUSTER)
 
 
 def compiled_window_lm_plan(k: int, l: int, n_prior: int) -> WindowLmPlan:
     """`window_lm_plan` as the built library reports it."""
-    return WindowLmPlan(*_compiled_plan("cvids_window_lm_plan", 3, k, l, n_prior))
+    return WindowLmPlan(*_compiled_plan("cvids_window_lm_plan", 4, k, l, n_prior))
+
+
+def window_lm_attrs() -> dict:
+    """The built window kernel as `cudaFuncGetAttributes` reports it:
+    registers and local memory bytes a thread (0 when nothing spills), and
+    its threads a block and blocks a cluster (builds the library; launches
+    nothing)."""
+    regs, local, threads, cluster = _compiled_plan("cvids_window_lm_attrs", 4)
+    return {"registers": regs, "local_bytes": local, "threads": threads, "cluster": cluster}
 
 
 def window_lm_twin(state, meas, iters: int = 8, init_lambda: float = 1e-3,
@@ -1303,7 +1321,7 @@ def window_lm(state, meas, iters: int = 8, init_lambda: float = 1e-3,
     none, float32) in one launch: returns (state, cost), kf_valid and
     lm_valid unchanged. On CPU tensors its twin. Raises, on either device,
     on what the kernel does not take: another dtype or shape, a full-tangent
-    prior, K outside 1-12, a prior of more than 15K + 1 rows, iters < 0.
+    prior, K outside 1-21, a prior of more than 15K + 1 rows, iters < 0.
     Reads nothing back to the host."""
     from ..vio.window_ba import CamPriorFactor
 

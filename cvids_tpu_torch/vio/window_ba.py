@@ -669,9 +669,9 @@ def solve_window_fast(state: WindowState, meas: WindowMeasurements,
     couples landmarks and breaks the Schur structure, and is rejected.
 
     On CUDA tensors the whole solve is one launch of the hand kernel
-    `cuda_kernels.window_lm` (``csrc/window_lm.cu``), which raises on what it
-    does not take (K above 12, another dtype); on CPU tensors it is the body
-    below."""
+    `cuda_kernels.window_lm` (``csrc/window_lm.cu``, one thread-block
+    cluster), which raises on what it does not take (K above 21, another
+    dtype); on CPU tensors it is the body below."""
     if meas.prior is not None and not isinstance(meas.prior, CamPriorFactor):
         raise ValueError("solve_window_fast needs a camera-only prior "
                          "(CamPriorFactor): full-tangent priors couple "

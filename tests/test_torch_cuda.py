@@ -330,8 +330,8 @@ def test_window_lm_kernel(dev):
     """The window kernel equals its twin bit for bit at the front-end's
     window (K = 10, 600 slots, a 150-row prior, 8 iterations) and at
     `chip_smoke.window_lm_edge_cases` (no prior, Huber, invalid slots, no
-    landmark, 1 and 25 iterations, rejected steps, K = 12 with 1100 slots,
-    K = 2)."""
+    landmark, 1 and 25 iterations, rejected steps, K = 12, 13 and 21 with
+    1100 slots, K = 2)."""
     cases = [("path", *cs.window_lm_inputs(dev), cs.WLM_ITERS, 1e-3)]
     cases += cs.window_lm_edge_cases(dev)
     for what, st, m, iters, lam in cases:
@@ -341,7 +341,7 @@ def test_window_lm_kernel(dev):
 
 
 def test_window_lm_plan_matches_library(dev):
-    for k in (1, 2, 10, 12):
+    for k in (1, 2, 10, 12, 13, 21):
         for l in (0, 37, 600):
             for p in (0, 15 * k):
                 assert ck.window_lm_plan(k, l, p) == ck.compiled_window_lm_plan(k, l, p)
@@ -350,7 +350,8 @@ def test_window_lm_plan_matches_library(dev):
 def test_solve_window_fast_launches_the_kernel_once(dev):
     """On the card `solve_window_fast` is one window_lm launch a call, eager
     or replayed in the front-end's solve graph (a capture's warm-up call
-    counts one), and a window past the kernel's 12 keyframes raises."""
+    counts one), at K = 21 too, and a window past the kernel's 21 keyframes
+    raises."""
     from cvids_tpu_torch.utils.cuda_graph import GraphedCall
     from cvids_tpu_torch.vio import frontend, window_ba as tba
 
@@ -363,9 +364,13 @@ def test_solve_window_fast_launches_the_kernel_once(dev):
     for _ in range(3):
         call(st, m, 4)
     assert ck.launches["window_lm"] == 4 and call.replays == 3 and call.captures == 1
-    st13, m13 = cs.window_lm_inputs(dev, k=13, n_lm=20, prior=False)
+    st21, m21 = cs.window_lm_inputs(dev, k=21, n_lm=60, seed=5)
+    ck.reset_launches()
+    tba.solve_window_fast(st21, m21, iters=2)
+    assert ck.launches["window_lm"] == 1
+    st22, m22 = cs.window_lm_inputs(dev, k=22, n_lm=20, prior=False)
     with pytest.raises(ValueError):
-        tba.solve_window_fast(st13, m13)
+        tba.solve_window_fast(st22, m22)
 
 
 def test_topology_on_the_card(dev, tmp_path):

@@ -4,7 +4,8 @@ against the port's CPU `solve_window_fast` and the JAX package's on the
 CPU; and what the wrapper `window_lm` takes.
 
 Windows are test_vio.py's (`test_torch_vio._problem`: K = 10 and 5
-keyframes, 60 and 40 landmark slots), made from numpy seeds and carried to
+keyframes, 60 and 40 landmark slots; K = 13 and 21, the kernel's limit,
+with 40), made from numpy seeds and carried to
 both packages by `interop`; a camera-only prior is the port's
 `marginalize_prior_cam` of the window, carried the same way. Tolerances,
 after the same iterations:
@@ -102,6 +103,25 @@ def test_twin_matches_both_solvers(kind):
     _close(got, jba.solve_window_fast(sj, mj, iters=8), JAX)
 
 
+@pytest.mark.parametrize("k", [13, 21])
+def test_twin_matches_both_solvers_long_windows(k):
+    """Past the 12 keyframes one SM's shared memory holds (the kernel spreads
+    the system over its cluster): K = 13 and K = 21, bench.py's window, with
+    a camera-only prior and 40 landmark slots, 2 iterations."""
+    _, sj, mj, st, m = _problem(seed=k, perturb=0.05, duration=(k - 1) / 2.0, n_lm=40)
+    assert st.p.shape[0] == k
+    dying = m.vis[0] & ~m.vis[1:].any(0)
+    j, r0 = tba.marginalize_prior_cam(st, m, dying)
+    prior = tba.CamPriorFactor(j=j, r0=r0, p=st.p + 0.02, q=st.q, v=st.v, bg=st.bg, ba=st.ba)
+    m = m._replace(prior=prior)
+    mj = mj._replace(prior=jba.CamPriorFactor(
+        *(jnp.asarray(x) for x in interop.cam_prior_to_numpy(prior))))
+    got = ck.window_lm_twin(st, m, 2)
+    assert torch.isfinite(got[0].p).all() and torch.isfinite(got[1])
+    _close(got, tba.solve_window_fast(st, m, iters=2), PORT)
+    _close(got, jba.solve_window_fast(sj, mj, iters=2), JAX)
+
+
 @pytest.mark.parametrize("iters", [1, 25])
 def test_twin_iterations(iters):
     """One iteration and 25."""
@@ -176,25 +196,29 @@ def test_block_sum_order():
 
 def test_kernel_work_and_plan():
     """The roofline's counts grow with the iterations and the data; the
-    launch plan fits the card's shared memory up to K = 12 and refuses
-    beyond it."""
+    launch plan (one cluster of 4 blocks of 256 threads) fits a block's
+    shared memory up to K = 21 and refuses beyond it."""
     b0, o0 = ck.kernel_work("window_lm", k=10, l=600, iters=0, prior=150)
     b8, o8 = ck.kernel_work("window_lm", k=10, l=600, iters=8, prior=150)
     assert b0 == b8 and o0 == 150 * 150 * 151 and o8 > o0
     few = ck.kernel_work("window_lm", k=10, l=600, iters=8, prior=150, obs=1204, pairs=4233)
     assert few[0] == b8 and few[1] < o8
     assert ck.kernel_work("window_lm", k=10, l=600, iters=8)[0] < b8       # no prior to read
+    assert ck.WINDOW_LM_MAX_K == 21
     for k in range(1, ck.WINDOW_LM_MAX_K + 1):
-        plan = ck.window_lm_plan(k, 600, 15 * k)
-        assert plan.threads == 1024 and plan.smem_bytes <= ck.MAX_DYNAMIC_SMEM
-    assert ck.window_lm_plan(10, 600, 150) == ck.WindowLmPlan(164840, 378600, 1024)
+        for p in (0, 15 * k, 15 * k + 1):
+            plan = ck.window_lm_plan(k, 1100, p)
+            assert plan.threads * plan.cluster == 1024 and plan.cluster == 4
+            assert plan.smem_bytes <= ck.MAX_DYNAMIC_SMEM
+    assert ck.window_lm_plan(10, 600, 150) == ck.WindowLmPlan(103848, 428280, 256, 4)
+    assert ck.window_lm_plan(21, 600, 315) == ck.WindowLmPlan(214860, 1040531, 256, 4)
     with pytest.raises(ValueError):
-        ck.window_lm_plan(13, 600, 0)
+        ck.window_lm_plan(22, 600, 0)
 
 
 def test_wrapper_refusals():
     """What the kernel does not take raises on either device: float64, a
-    full-tangent `PriorFactor`, K above 12, a prior of more than 15K + 1
+    full-tangent `PriorFactor`, K above 21, a prior of more than 15K + 1
     rows, a negative iteration count."""
     _, _, st, m = _window("K5")
     k = st.p.shape[0]
@@ -210,10 +234,10 @@ def test_wrapper_refusals():
         ck.window_lm(st, m._replace(prior=big))
     with pytest.raises(ValueError, match="iters"):
         ck.window_lm(st, m, -1)
-    _, _, _, st13, m13 = _problem(seed=2, duration=6.0, n_lm=20)
-    assert st13.p.shape[0] == 13
+    _, _, _, st22, m22 = _problem(seed=2, duration=10.5, n_lm=20)
+    assert st22.p.shape[0] == 22
     with pytest.raises(ValueError, match="K"):
-        ck.window_lm(st13, m13)
+        ck.window_lm(st22, m22)
 
 
 def test_cpu_solve_keeps_its_body(monkeypatch):
