@@ -93,7 +93,10 @@ ran:
   on four ranks, NCCL with a card a rank where the machine has four cards,
   else gloo with the four sharing this card; each rank's dense step and TSDF
   block bit-equal to one process's on the card, the sharded solve and window
-  within their bounds of one card's, the collectives by their formulas;
+  within their bounds of one card's, the collectives by their formulas; on
+  NCCL the solve and window replay a CUDA graph of one LM iteration, and are
+  rerun replayed and eagerly (`disable_graphs()`): bits and calls compared,
+  both times and the solve's t1 / (4 t4) printed;
 - phase 12, the fisheye rig (test_fisheye_e2e.py): two agents with an
   equidistant camera, EuRoC-format sequences written and read back, through
   `AgentFrontend` and `CollaborativePoseGraph`, to that test's bounds, the
@@ -4513,7 +4516,10 @@ def multichip_checks(res: dict, probs: dict, n_ranks: int, dev) -> None:
     (e) the windows to test_parallel.py's bounds against `solve_window_fast`
     (the toy window, of random observations, only finite, as in the JAX dry
     run); (f) no collective in the dense steps and TSDFs, and the solves'
-    and windows' calls and bytes by their formulas."""
+    and windows' calls and bytes by their formulas; (g) on NCCL the solves
+    and windows replayed from one capture a shape, their eager reruns held to
+    (d) and (e) and compared with them (`graphs_against_eager`), and on gloo
+    no graph."""
     from cvids_tpu_torch.server import optimizer as opt
     from cvids_tpu_torch.vio import window_ba as ba
 
@@ -4539,29 +4545,32 @@ def multichip_checks(res: dict, probs: dict, n_ranks: int, dev) -> None:
         want = opt.optimize_pose_graph(nodes, edges, lm_iters=lm_iters, cg_iters=cg_iters)
         _sync(dev)
         one_s = time.perf_counter() - t0
-        got = nodes._replace(t=res[name]["t"].to(dev), yaw=res[name]["yaw"].to(dev))
-        d_yaw = torch.remainder(got.yaw - want.yaw + np.pi, 2 * np.pi) - np.pi
-        err = max(float((got.t - want.t).abs().max()), float(d_yaw.abs().max()))
-        costs = [float(0.5 * torch.sum(opt.edge_residuals(nd, edges) ** 2))
-                 for nd in (nodes, want, got)]
-        print(f"  {name}: max |t|, |yaw| against one card {err:.3g} (tolerance {SOLVE_TOL}); "
-              f"cost {costs[0]:.6g} -> {costs[2]:.6g} sharded, {costs[1]:.6g} on one card "
-              f"(the solve alone {one_s:.3f} s there)")
-        check(err <= SOLVE_TOL, f"{name}: the sharded solve is {err} from one card's")
-        check(costs[2] <= costs[1] + SOLVE_COST_SLACK * costs[0],
-              f"{name}: sharded cost {costs[2]} above one card's {costs[1]}")
+        for run in sharded_runs(res, name):
+            got = nodes._replace(t=run["t"].to(dev), yaw=run["yaw"].to(dev))
+            d_yaw = torch.remainder(got.yaw - want.yaw + np.pi, 2 * np.pi) - np.pi
+            err = max(float((got.t - want.t).abs().max()), float(d_yaw.abs().max()))
+            costs = [float(0.5 * torch.sum(opt.edge_residuals(nd, edges) ** 2))
+                     for nd in (nodes, want, got)]
+            print(f"  {run['as']}: max |t|, |yaw| against one card {err:.3g} (tolerance "
+                  f"{SOLVE_TOL}); cost {costs[0]:.6g} -> {costs[2]:.6g} sharded, "
+                  f"{costs[1]:.6g} on one card (the solve alone {one_s:.3f} s there)")
+            check(err <= SOLVE_TOL, f"{run['as']}: the sharded solve is {err} from one card's")
+            check(costs[2] <= costs[1] + SOLVE_COST_SLACK * costs[0],
+                  f"{run['as']}: sharded cost {costs[2]} above one card's {costs[1]}")
         want_c = solve_collectives(len(nodes.yaw), lm_iters, cg_iters)
         check(phases[name]["collectives"] == [{"op": "all-reduce", **want_c}],
               f"{name}: collectives {phases[name]['collectives']}, expected {want_c}")
+        graphs_against_eager(res, name, ("t", "yaw"))
     for name, iters in (("toy_window", 2), ("window", 8))[:len(prefixes)]:
         state, meas = probs[name]
-        got = res[name]
-        check(np.isfinite(float(got["cost"])) and bool(torch.isfinite(got["p"]).all()),
-              f"{name}: a non-finite result")
+        for run in sharded_runs(res, name):
+            check(np.isfinite(float(run["cost"])) and bool(torch.isfinite(run["p"]).all()),
+                  f"{run['as']}: a non-finite result")
         l_padded = -(-state.lm.shape[0] // n_ranks) * n_ranks
         want_c = window_collectives(state.p.shape[0], l_padded, iters)
         check(phases[name]["collectives"] == [{"op": "all-reduce", **want_c}],
               f"{name}: collectives {phases[name]['collectives']}, expected {want_c}")
+        graphs_against_eager(res, name, ("p", "q", "lm", "cost"))
         if name == "window":
             # K = 21: the references are solve_window_fast's body on the CPU
             # and, on the card, its one window_lm launch
@@ -4570,13 +4579,86 @@ def multichip_checks(res: dict, probs: dict, n_ranks: int, dev) -> None:
                 ref, ref_cost = ba.solve_window_fast(*window_to(state, meas, where), iters=iters)
                 float(ref_cost)
                 one_s = time.perf_counter() - t0
-                p_err = float((got["p"].cpu() - ref.p.cpu()).abs().max())
-                print(f"  window: cost {float(got['cost']):.2f} sharded, {float(ref_cost):.2f} "
-                      f"by solve_window_fast on {torch.device(where)} ({one_s:.3f} s); max |p| "
-                      f"difference {p_err:.3g} (bound 5e-2)")
-                check(float(got["cost"]) < 1.2 * float(ref_cost) + 5.0 and p_err < 5e-2,
-                      f"window: the sharded Schur solve misses test_parallel.py's bounds "
-                      f"against solve_window_fast on {where}")
+                for run in sharded_runs(res, name):
+                    p_err = float((run["p"].cpu() - ref.p.cpu()).abs().max())
+                    print(f"  {run['as']}: cost {float(run['cost']):.2f} sharded, "
+                          f"{float(ref_cost):.2f} by solve_window_fast on {torch.device(where)} "
+                          f"({one_s:.3f} s); max |p| difference {p_err:.3g} (bound 5e-2)")
+                    check(float(run["cost"]) < 1.2 * float(ref_cost) + 5.0 and p_err < 5e-2,
+                          f"{run['as']}: the sharded Schur solve misses test_parallel.py's "
+                          f"bounds against solve_window_fast on {where}")
+    # (g) on NCCL one capture a shape of each sharded program's LM iteration
+    # and lm_iters (iters) replays a graphed run, two graphed runs each; on
+    # gloo no graph
+    lm_iters, w_iters = (2, 12)[:len(prefixes)], (2, 8)[:len(prefixes)]
+    want_g = ({"_lm_step": [len(prefixes), 2 * sum(lm_iters)],
+               "_iteration": [len(prefixes), 2 * sum(w_iters)]}
+              if "eager" in res["toy_graph"] else {})
+    check(all(r["graphs"] == want_g for r in ranks),
+          f"graphs [captures, replays] a rank {[r['graphs'] for r in ranks]}, expected {want_g}")
+
+
+def sharded_runs(res: dict, name: str) -> list[dict]:
+    """The dry run's result of a sharded solve or window `name`, and on NCCL
+    its eager run too, each with "as", the name to print."""
+    runs = [dict(res[name], **{"as": name})]
+    if "eager" in res[name]:
+        runs.append(dict(res[name]["eager"], **{"as": name + " eager"}))
+    return runs
+
+
+def graphs_against_eager(res: dict, name: str, fields: tuple[str, ...]) -> None:
+    """On NCCL, where `dryrun_multichip` ran the sharded program `name`
+    graphed, replayed and eagerly: the replays' bits, the eager run's bits
+    (a difference is printed: NCCL may sum in another order under capture;
+    both runs are held to phase 11's bounds by the caller) and the calls
+    issued, call for call."""
+    got, phases = res[name], res["phases"]
+    if "eager" not in got:
+        return
+    for f in fields:
+        check(torch.equal(got[f], got["replayed"][f]),
+              f"{name}: the second graphed run's {f} differs from the first's")
+    diff = {f: float((got[f].double() - got["eager"][f].double()).abs().max()) for f in fields}
+    same = all(torch.equal(got[f], got["eager"][f]) for f in fields)
+    calls = [phases[n]["calls"] for n in (name, name + "_replayed", name + "_eager")]
+    print(f"  {name}: graphed {'bit-equal to' if same else 'differs from'} the eager run "
+          f"under disable_graphs()" + ("" if same else f", max |difference| {diff}")
+          + f"; {len(calls[0])} calls issued, the same call for call: "
+          f"{calls[0] == calls[1] == calls[2]}")
+    check(calls[0] == calls[1] == calls[2],
+          f"{name}: the graphed runs' calls differ from the eager run's")
+
+
+def scaling_line(res: dict, graph, n_ranks: int, backend: str, dev) -> None:
+    """The production 4-DoF solve on one card against the sharded one:
+    `optimize_pose_graph` eagerly and `optimize_pose_graph_graphed` with its
+    graph captured (the second of two calls), each the mean of 3 after one,
+    then t1 / (W * tW) with the sharded phases' seconds on rank 0: graphed
+    (the "graph" phase, captures included, and "graph_replayed") and eager
+    ("graph_eager"; on gloo the "graph" phase is eager)."""
+    from cvids_tpu_torch.server import optimizer as opt
+
+    nodes, edges = graph
+    one = {}
+    for kind, fn in (("eager", opt.optimize_pose_graph),
+                     ("graphed", opt.optimize_pose_graph_graphed)):
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            fn(nodes, edges, lm_iters=12, cg_iters=60)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        one[kind] = sum(times[1:]) / 3
+    ph = res["phases"]
+    sharded = ({"graphed": ph["graph"]["seconds"], "graphed, replays only":
+                ph["graph_replayed"]["seconds"], "eager": ph["graph_eager"]["seconds"]}
+               if "graph_eager" in ph else {"eager": ph["graph"]["seconds"]})
+    parts = [f"{kind} {t:.4f} s, t1/({n_ranks} t{n_ranks}) "
+             f"{one['graphed' if kind.startswith('graphed') else 'eager'] / (n_ranks * t):.4f}"
+             for kind, t in sharded.items()]
+    print(f"  scaling of the 1024-KF solve ({backend}): one card eager {one['eager']:.4f} s, "
+          f"graphed {one['graphed']:.4f} s; {n_ranks} ranks {'; '.join(parts)}")
 
 
 def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:
@@ -4605,6 +4687,8 @@ def multichip_phase(device, n_ranks=MULTI_RANKS) -> dict:
         print(f"  {name}: {ph['seconds']:.3f} s on rank 0; {calls} collective calls, {nbytes} "
               f"bytes" + (f", {ph['seconds'] / calls * 1e3:.3f} ms a call with the work "
                           f"between" if calls else ""))
+    if "graph" in res:
+        scaling_line(res, probs["graph"], n_ranks, backend, dev)
     print(f"  one all-reduce of the solve's (1024, 4) fp32 buffer alone, {backend}: "
           f"{res['all_reduce_ms']:.4f} ms a call (mean of 50 after 20)")
     print(f"  peak device memory per rank (GiB): "

@@ -274,6 +274,7 @@ def _dryrun_rank(mesh, production: bool) -> dict:
     from .ops import cuda_kernels as ck
     from .parallel import (collective_payloads, shard_posegraph_solve, sharded_dense_fuse,
                            solve_window_schur_sharded, summarize_collectives)
+    from .utils.cuda_graph import disable_graphs
 
     dev = mesh.device
     if dev.type == "cuda":
@@ -290,7 +291,7 @@ def _dryrun_rank(mesh, production: bool) -> dict:
         log = mesh.take_log()
         phases[name] = {"seconds": time.perf_counter() - t0, "label": label,
                         "collectives": collective_payloads(log),
-                        "audit": summarize_collectives(log, label)}
+                        "audit": summarize_collectives(log, label), "calls": log}
         touched.append(out)
         for t in _tensors(out):
             if t.is_floating_point() and not bool(torch.isfinite(t).all()):
@@ -314,19 +315,33 @@ def _dryrun_rank(mesh, production: bool) -> dict:
                         "digests": [tensor_digest(s.filt.mu, s.filt.sigma2, s.filt.a, s.filt.b,
                                                   s.mean_cost, s.count) for s in fused]}
 
+    def graphed_and_eager(name, label, fn, fields):
+        """`fn` as phase `name`; where the mesh captures (NCCL ranks), again
+        as `name`_replayed (its graphs captured) and under
+        `disable_graphs()` as `name`_eager. `fields` picks the result's
+        tensors; the reruns' go under "replayed" and "eager"."""
+        out = fields(run(name, label, fn))
+        if mesh.graphs_allowed():
+            out["replayed"] = fields(run(name + "_replayed", label, fn))
+            with disable_graphs():
+                out["eager"] = fields(run(name + "_eager", label, fn))
+        return out
+
     def graph(name, lm_iters, cg_iters):
         nodes, edges = probs[name]
         solve = shard_posegraph_solve(mesh, lm_iters=lm_iters, cg_iters=cg_iters)
-        out = run(name, f"4-DoF solve {len(nodes.yaw)} KF / {len(edges.i)} edges "
-                        f"({lm_iters} LM x {cg_iters} CG)", lambda: solve(nodes, edges))
-        return {"t": out.t, "yaw": out.yaw}
+        return graphed_and_eager(
+            name, f"4-DoF solve {len(nodes.yaw)} KF / {len(edges.i)} edges "
+                  f"({lm_iters} LM x {cg_iters} CG)", lambda: solve(nodes, edges),
+            lambda nd: {"t": nd.t, "yaw": nd.yaw})
 
     def window(name, iters, audit):
         state, meas = probs[name]
         label = f"window Schur K={state.p.shape[0]} L={state.lm.shape[0]} ({iters} LM)"
-        out, cost = run(name, label, lambda: solve_window_schur_sharded(
-            mesh, state, meas, iters=iters, audit_label=label if audit else None))
-        return {"p": out.p, "q": out.q, "lm": out.lm, "cost": cost}
+        return graphed_and_eager(name, label, lambda: solve_window_schur_sharded(
+            mesh, state, meas, iters=iters,     # the audit line for the first run only
+            audit_label=label if audit and name not in phases else None),
+            lambda r: {"p": r[0].p, "q": r[0].q, "lm": r[0].lm, "cost": r[1]})
 
     def chunks(name):
         d = probs[name]
@@ -363,6 +378,7 @@ def _dryrun_rank(mesh, production: bool) -> dict:
     _sync(dev)
     result["all_reduce_ms"] = (time.perf_counter() - t0) / 50 * 1e3
     mesh.take_log()
+    report["graphs"] = {fn.__name__: [g.captures, g.replays] for fn, g in mesh.graphs.items()}
     report["devices"] = sorted({str(t.device) for t in _tensors(touched)})
     report["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                           if dev.type == "cuda" else None)
@@ -384,14 +400,21 @@ def dryrun_multichip(n_devices: int, backend: str = "nccl", device=None,
     4n chunks x 4^3), then production shapes (the 1024-KF / 6400-edge solve
     of 12 LM x 60 CG, one agent a rank at 480x640x128 in bf16, the window at
     K=21 / L=600 for 8 LM, the TSDF at 2048 x 8^3 with a 640x480 frame).
+    On NCCL the sharded solves and windows replay CUDA graphs of one LM
+    iteration (`Mesh.graphed`); each then runs again (its graphs captured,
+    phase "<name>_replayed") and eagerly under `disable_graphs()` ("<name>_eager"),
+    for the bits and times to compare.
     Prints the JAX function's lines with the port's audit (calls issued),
     and returns rank 0's results: "toy_graph"/"graph" (t, yaw),
-    "toy_window"/"window" (p, q, lm, cost), "phases" (host-clock seconds,
-    collectives and audit line of each phase on rank 0), "all_reduce_ms"
+    "toy_window"/"window" (p, q, lm, cost), on NCCL each with the reruns'
+    under "replayed" and "eager", "phases" (host-clock seconds,
+    collectives, audit line and the calls issued of each phase on rank 0),
+    "all_reduce_ms"
     (one all-reduce of a (1024, 4) fp32 buffer alone, the mean of 50 after
     20, the calls not in any phase's audit) and "ranks" (each rank's
     report: devices of its tensors, peak memory, the dense steps' launches
-    and digests, the TSDF blocks' digests and weights)."""
+    and digests, the TSDF blocks' digests and weights, and "graphs", each
+    captured function's [captures, replays])."""
     from .parallel import launch
 
     res = launch(_dryrun_rank, n_devices, backend, device, production)

@@ -16,12 +16,19 @@ a zero-filled buffer.
   the nodes and gives each rank a contiguous block of the edges; the LM
   loop's segment sums and costs are all-reduced.
 
+On NCCL ranks on the card the sharded solves replay CUDA graphs of one LM
+iteration, collectives included (`Mesh.graphed`): the reference's
+`jax.jit` of the sharded program. Gloo collectives cannot be captured, so
+on gloo, on the CPU, on a one-rank mesh and inside
+`utils.cuda_graph.disable_graphs()` the same iteration runs eagerly.
+
 `launch` starts the ranks: `nccl` with one card a rank, or `gloo` with every
 rank on one device (the CPU, or one card that all ranks share).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import tempfile
@@ -41,20 +48,71 @@ class Mesh:
 
     `all_reduce` sums a tensor in place across the ranks and appends
     (op, payload bytes) to `log`, one entry a call; on a one-rank mesh it is
-    the identity and issues and logs nothing."""
+    the identity and issues and logs nothing. Under a CUDA graph of
+    `graphed`, the log follows the device: a replay appends the calls that
+    the capture made, and the warm-up call appends nothing."""
 
     def __init__(self, rank: int, size: int, device: torch.device,
                  axis: str = "agents", group=None):
         self.rank, self.size, self.device = rank, size, device
         self.axis, self.group = axis, group
         self.log: list[tuple[str, int]] = []
+        self._record: list[tuple[str, int]] | None = None
+        self.graphs: dict = {}
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         if self.size == 1:
             return t
-        self.log.append(("all-reduce", t.numel() * t.element_size()))
+        call = ("all-reduce", t.numel() * t.element_size())
+        (self.log if self._record is None else self._record).append(call)
         dist.all_reduce(t, group=self.group)
         return t
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Within, the calls are appended to the yielded list instead of
+        `log` (a graph's warm-up and capture, `GraphedCall(effects=)`)."""
+        outer, self._record = self._record, []
+        try:
+            yield self._record
+        finally:
+            self._record = outer
+
+    def replay(self, calls: list[tuple[str, int]]) -> None:
+        """Log `calls` as issued: the collectives of one graph replay."""
+        self.log.extend(calls)
+
+    def graphs_allowed(self) -> bool:
+        """Can this mesh's collectives be captured: NCCL ranks on the card,
+        more than one of them."""
+        return (self.size > 1 and self.device.type == "cuda"
+                and dist.get_backend(self.group) == "nccl")
+
+    def graphed(self, fn):
+        """`fn` replayed as a CUDA graph per input signature on this mesh
+        (`utils.cuda_graph.GraphedCall`, one per `fn`, its collectives
+        logged at each replay) where `graphs_allowed()`, else `fn` itself.
+        Every rank must call it with the same signatures in the same order,
+        so that all capture the same collectives. A capture or replay that
+        fails raises."""
+        if not self.graphs_allowed():
+            return fn
+        call = self.graphs.get(fn)
+        if call is None:
+            from ..utils.cuda_graph import GraphedCall
+            call = self.graphs[fn] = GraphedCall(fn, effects=self)
+        return call
+
+    def release_graphs(self) -> None:
+        """Drop every graph of `graphed`. `dist.destroy_process_group` does
+        not return while a graph that holds the group's NCCL collectives
+        exists (NCCL 2.28 on H100s: the ranks never exit), so release them
+        first; `launch` does."""
+        for call in self.graphs.values():
+            call.clear()
+        self.graphs.clear()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def block(self, n: int) -> slice:
         """This rank's contiguous block of an axis of `n`, a multiple of the
@@ -97,9 +155,10 @@ def _free_port() -> int:
 
 def _rank_main(rank, fn, world, backend, devices, port, tmp):
     """A spawned rank: join the group, run `fn(mesh, *args)` with the args
-    saved in `tmp`, and on rank 0 save its result, moved to the host, there.
-    An exception ends the process; `torch.multiprocessing.spawn` raises its
-    traceback in the parent."""
+    saved in `tmp`, and on rank 0 save its result, moved to the host, there;
+    then release the mesh's graphs and leave the group. An exception ends
+    the process; `torch.multiprocessing.spawn` raises its traceback in the
+    parent."""
     dev = torch.device(devices[rank])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -108,9 +167,13 @@ def _rank_main(rank, fn, world, backend, devices, port, tmp):
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     args = torch.load(os.path.join(tmp, "args.pt"), weights_only=False)
-    result = fn(make_mesh(world, device=dev), *args)
-    if rank == 0:
-        torch.save(_to_host(result), os.path.join(tmp, "rank0.pt"))
+    mesh = make_mesh(world, device=dev)
+    try:
+        result = fn(mesh, *args)
+        if rank == 0:
+            torch.save(_to_host(result), os.path.join(tmp, "rank0.pt"))
+    finally:
+        mesh.release_graphs()
     dist.destroy_process_group()
 
 
@@ -183,12 +246,18 @@ def shard_posegraph_solve(mesh: Mesh, lm_iters: int = 10, cg_iters: int = 40):
     locally, and `optimize_pose_graph` all-reduces every segment sum and
     cost through the mesh: 1 + lm_iters * (cg_iters + 2) calls, of which
     lm_iters * cg_iters carry (N, 4) floats, lm_iters (N, 8) and the rest
-    one float."""
+    one float.
+
+    On NCCL ranks on the card the first cost runs eagerly (its all-reduce
+    also sets up the communicator before any capture) and one LM iteration,
+    with its cg_iters + 2 all-reduces, is a CUDA graph (`Mesh.graphed`,
+    keyed by the shapes and `cg_iters`) replayed `lm_iters` times; elsewhere
+    the iterations run eagerly. The same kernels in the same order."""
     def solve(nodes: opt.PoseGraphNodes, edges: opt.PoseGraphEdges) -> opt.PoseGraphNodes:
         mine = mesh.block(edges.i.shape[0])
-        return opt.optimize_pose_graph(nodes, opt.PoseGraphEdges(*(x[mine] for x in edges)),
-                                       lm_iters=lm_iters, cg_iters=cg_iters,
-                                       reduce=mesh.all_reduce)
+        return opt._lm_loop(mesh.graphed(opt._lm_step), nodes,
+                            opt.PoseGraphEdges(*(x[mine] for x in edges)),
+                            lm_iters, cg_iters, reduce=mesh.all_reduce)
     return solve
 
 

@@ -188,10 +188,16 @@ def optimize_pose_graph(nodes: PoseGraphNodes, edges: PoseGraphEdges,
     (N, 4) buffer a CG step (the two segment sums of `_vjp`) and the trial
     cost. None: this process holds every edge.
     """
+    return _lm_loop(_lm_step, nodes, edges, lm_iters, cg_iters, init_lambda, reduce)
+
+
+def _lm_loop(step, nodes, edges, lm_iters, cg_iters, init_lambda=1e-4, reduce=None):
+    """The solve: `_solve_start` eagerly, then `step` (`_lm_step`, or a CUDA
+    graph of it) `lm_iters` times."""
     seg_i, seg_j, lam, cost = _solve_start(nodes, edges, init_lambda, reduce)
     nd = nodes
     for _ in range(lm_iters):
-        nd, lam, cost = _lm_step(nd, lam, cost, edges, seg_i, seg_j, cg_iters, reduce)
+        nd, lam, cost = step(nd, lam, cost, edges, seg_i, seg_j, cg_iters, reduce)
     return nd
 
 
@@ -302,11 +308,7 @@ def optimize_pose_graph_graphed(nodes: PoseGraphNodes, edges: PoseGraphEdges,
     if _GRAPHED is None:
         from ..utils.cuda_graph import GraphedCall
         _GRAPHED = GraphedCall(_lm_step)
-    seg_i, seg_j, lam, cost = _solve_start(nodes, edges, init_lambda)
-    nd = nodes
-    for _ in range(lm_iters):
-        nd, lam, cost = _GRAPHED(nd, lam, cost, edges, seg_i, seg_j, cg_iters)
-    return nd
+    return _lm_loop(_GRAPHED, nodes, edges, lm_iters, cg_iters, init_lambda)
 
 
 def make_sequential_edges(yaw, pr, t, client_id, valid, max_back: int = 6,

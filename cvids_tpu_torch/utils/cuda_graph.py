@@ -38,6 +38,13 @@ eager call, so the same bits.
 - `clear()` drops every graph with its static inputs and bound tensors:
   the caller's form of a recompile, when the state it binds has moved (a
   database's store growing into its next capacity tier).
+- `effects=`: an object that keeps a host-side record of device work, a
+  `parallel.Mesh` and its collective log. The warm-up call and the capture
+  run inside `effects.recording()`, which yields the list its calls record
+  into instead; the warm-up's list is dropped, the capture's is kept with
+  the graph, and every replay hands it to `effects.replay`. So the record
+  follows what the device runs: one capture's worth a replay, nothing for
+  the warm-up.
 
 Calls on CPU tensors run `fn` itself, and so does every call inside
 `disable_graphs()` (the counterpart of `jax.disable_jit()`, for eager
@@ -75,11 +82,16 @@ def graphs_disabled() -> bool:
     return getattr(_tls, "disabled", 0) > 0
 
 
-class _Entry:
-    __slots__ = ("graph", "static", "out", "launches")
+def _on_card(tensors) -> bool:
+    return bool(tensors) and tensors[0].device.type == "cuda"
 
-    def __init__(self, graph, static, out, launches):
+
+class _Entry:
+    __slots__ = ("graph", "static", "out", "launches", "recorded")
+
+    def __init__(self, graph, static, out, launches, recorded):
         self.graph, self.static, self.out, self.launches = graph, static, out, launches
+        self.recorded = recorded
 
 
 class GraphedCall:
@@ -87,9 +99,10 @@ class GraphedCall:
     docstring). `fn` must not read device values back to the host, nor
     copy host data to the device, nor branch on tensor values."""
 
-    def __init__(self, fn, bound: tuple[int, ...] = ()):
+    def __init__(self, fn, bound: tuple[int, ...] = (), effects=None):
         self.fn = fn
         self.bound = frozenset(bound)
+        self.effects = effects
         self.graphs: dict = {}
         self.replays = 0
         self.captures = 0               # over the object's life, `clear()` included
@@ -101,7 +114,7 @@ class GraphedCall:
     def __call__(self, *args):
         leaves, spec = pytree.tree_flatten(args)
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        if not tensors or tensors[0].device.type != "cuda" or graphs_disabled():
+        if not _on_card(tensors) or graphs_disabled():
             return self.fn(*args)
         is_bound = self._bound_mask(args)
         key = (spec, tuple(
@@ -126,6 +139,8 @@ class GraphedCall:
             self._done = torch.cuda.Event()
             self._done.record(stream)
             self.replays += 1
+            if self.effects is not None:
+                self.effects.replay(entry.recorded)
         cuda_kernels.add_launches(entry.launches)
         return out
 
@@ -161,12 +176,13 @@ class GraphedCall:
             pool = self._pools[device] = torch.cuda.graph_pool_handle()
         current = torch.cuda.current_stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):      # one warm-up call, as CUDA graphs ask
+        with self._recording(), torch.cuda.stream(side):   # one warm-up call, as CUDA graphs ask
             self.fn(*pytree.tree_unflatten(warm, spec))
         del warm
         graph = torch.cuda.CUDAGraph()
         args = pytree.tree_unflatten(static, spec)
-        with cuda_kernels.counted_apart() as launched, torch.cuda.stream(side):
+        with (self._recording() as recorded, cuda_kernels.counted_apart() as launched,
+              torch.cuda.stream(side)):
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 out = self.fn(*args)
@@ -176,4 +192,9 @@ class GraphedCall:
                 raise
             graph.capture_end()
         current.wait_stream(side)
-        return _Entry(graph, static, out, {k: v for k, v in launched.items() if v})
+        return _Entry(graph, static, out, {k: v for k, v in launched.items() if v},
+                      recorded)
+
+    def _recording(self):
+        return (self.effects.recording() if self.effects is not None
+                else contextlib.nullcontext())

@@ -4,7 +4,9 @@ image program, preintegration, window solve and marginalization; the dense
 frame, the 4-DoF solve, the pose graph's loop-verification cascade and BoW
 query-and-insert, one capture a capacity tier; a published map's chunk walk
 and mesh batch) against their eager calls, the deployment topology and the
-multi-GPU dry run on two ranks that share the card, on a CUDA card.
+multi-GPU dry run on two ranks that share the card, on a CUDA card; with two
+cards, the sharded solve's and window's graphs on two NCCL ranks against
+their eager runs.
 
     python -m pytest tests/test_torch_cuda.py        # on a machine with a card and nvcc
 
@@ -451,6 +453,29 @@ def test_two_gloo_ranks_on_one_card(dev):
 
     res = dryrun_multichip(2, backend="gloo", device=dev, production=False)
     cs.multichip_checks(res, dryrun_problems(2, dev, production=False), 2, dev)
+
+
+def test_nccl_sharded_graphs_equal_eager(dev):
+    """On two NCCL ranks, a card each, `entry.dryrun_multichip`'s toy
+    phases: the sharded 4-DoF solve and window replay one captured LM
+    iteration (one capture a program, 2 and 2 replays a run), and their
+    results equal their eager runs under `disable_graphs()` bit for bit,
+    the calls issued equal call for call; `chip_smoke.multichip_checks`
+    holds both to phase 11's bounds."""
+    from cvids_tpu_torch.entry import dryrun_multichip, dryrun_problems
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices for two NCCL ranks, has "
+                    f"{torch.cuda.device_count()}")
+    res = dryrun_multichip(2, backend="nccl", production=False)
+    cs.multichip_checks(res, dryrun_problems(2, dev, production=False), 2, dev)
+    for name, fields in (("toy_graph", ("t", "yaw")), ("toy_window", ("p", "q", "lm", "cost"))):
+        for f in fields:
+            for rerun in ("replayed", "eager"):
+                _same(res[name][f], res[name][rerun][f])
+        calls = [res["phases"][name + s]["calls"] for s in ("", "_replayed", "_eager")]
+        assert calls[0] == calls[1] == calls[2] and len(calls[0]) > 0
+    assert all(r["graphs"] == {"_lm_step": [1, 4], "_iteration": [1, 4]} for r in res["ranks"])
 
 
 def _dense_inputs(dev, h=48, w=64, d=32):
