@@ -104,7 +104,16 @@ ran:
 - phase 13, a checkpoint resumed in a fresh process (test_checkpoint_e2e.py):
   the pose graph on the card saved mid-mission, restored in a spawned
   process on the card and in one on the CPU, both ending with the
-  uninterrupted card run's map.
+  uninterrupted card run's map;
+- phase 14, the once-an-agent and offline programs: the pre-init
+  essential pose and the VI bootstrap's two solves on the inputs of agent
+  0's last call of each in phase 8, then `calibrate_chessboards` for the
+  pinhole, equidistant, Mei and Scaramuzza models on test_extras.py's
+  boards rendered at 752x480, to test_extras.py's bounds against the true
+  cameras; each program (those three, the chessboard response, each
+  calibrator's residuals and Jacobian) replayed as a CUDA graph and held
+  to its eager call bit for bit, with its capture seconds, replayed and
+  eager ms and host launch calls.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, one timed call each
@@ -3667,20 +3676,23 @@ def agent_sequences(cfg, n_agents=AGENTS, duration=AGENT_DURATION, n_landmarks=A
                  ba=s.ba_true) for s, im in zip(seqs, images)]
 
 
-def agents_run(device, seqs, cfg):
+def agents_run(device, seqs, cfg, setup=None):
     """Every frame of every agent through its own `AgentFrontend` on
     `device`, agent after agent, as test_full_system.py feeds them (the IMU
     since the previous frame; the first frame the accelerometer of the 0.1 s
     before it). Returns (front-ends, packets per agent, per-frame rows
     (agent, frame, keyframe?, host ms with the device synced), the tracer,
     host syncs per frame over AGENT_SYNC_WINDOW, and agent 0's profiled
-    frames: (device activities, device ms, wall ms) each)."""
+    frames: (device activities, device ms, wall ms) each). `setup`, if
+    given, gets the list of front-ends before the first frame."""
     from cvids_tpu_torch.utils.tracing import Tracer
     from cvids_tpu_torch.vio.frontend import AgentFrontend
 
     dev = torch.device(device)
     tracer = Tracer()
     fes = [AgentFrontend(cfg, cid, device=dev, tracer=tracer) for cid in range(len(seqs))]
+    if setup is not None:
+        setup(fes)
     packets, rows, syncs, profiled = [[] for _ in seqs], [], float("nan"), []
     on_card = dev.type == "cuda"
     for cid, (seq, fe) in enumerate(zip(seqs, fes)):
@@ -3938,7 +3950,9 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
 
     ck.reset_launches()
     t0 = time.perf_counter()
-    fes, packets, rows, tracer, syncs, profiled = agents_run(dev, seqs, cfg)
+    once = {}
+    fes, packets, rows, tracer, syncs, profiled = agents_run(
+        dev, seqs, cfg, setup=lambda f: once.update(record_once_programs(f[0])))
     fe_s = time.perf_counter() - t0
     fe_counts = dict(ck.launches)
     peak_fe = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
@@ -4048,7 +4062,7 @@ def agents_phase(device, n_agents=AGENTS, duration=AGENT_DURATION, camera=None,
     return counts, seqs, {"ate_cm": [a * 100 for a in ates], "rms": med_rms, "mesh_m": dist,
                           "frontend_launches": fe_counts, "frames": len(rows),
                           "tracked_frames": tracked, "solves": solves,
-                          "keyframes": sum(f.kf_count for f in fes)}
+                          "keyframes": sum(f.kf_count for f in fes), "once": once}
 
 
 # ---------------------------------------------------------------------------
@@ -4830,6 +4844,297 @@ def checkpoint_phase(device) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the once-an-agent and offline programs
+# ---------------------------------------------------------------------------
+
+ONCE_RUNS = 20              # timed calls of each program, graphed and eager
+CALIB_W, CALIB_H = 752, 480
+CALIB_BOARD = (5, 6, 0.04)  # test_extras.py's board: rows, cols, square (m)
+# model: (iterations, (fx, fy) indices or None, (cx, cy) indices, focal,
+# projection-agreement bound in px or None): test_extras.py's bounds
+CALIB_CASES = {"pinhole": (40, (0, 1), (2, 3), 300.0, None),
+               "equidistant": (40, (0, 1), (2, 3), 250.0, 4.0),
+               "mei": (50, None, (3, 4), None, 1.5),
+               "scaramuzza": (100, None, (9, 10), None, 4.0)}
+
+
+class CallRecorder:
+    """A `GraphedCall` that keeps a clone of the arguments of every call
+    (phase 8 records agent 0's once-an-agent programs with it for phase
+    14); every other attribute is the wrapped call's."""
+
+    def __init__(self, call):
+        self.call, self.args = call, []
+
+    def __call__(self, *args):
+        from torch.utils import _pytree as pytree
+        self.args.append(pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, args))
+        return self.call(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.call, name)
+
+
+def graphed_against_eager(fn, args, runs: int = ONCE_RUNS) -> dict:
+    """fn(*args) through a fresh `GraphedCall` and under `disable_graphs()`:
+    the capturing call's seconds (with its warm-up call), the ms of a
+    replay and of an eager call (host clock, the device synced after each,
+    median of `runs`), each one's host launch calls in a profiled call, the
+    linear-solver kernels of the profiled eager call, and whether every
+    output leaf is bit-equal."""
+    from torch.utils import _pytree as pytree
+
+    from cvids_tpu_torch.utils.cuda_graph import GraphedCall, disable_graphs
+
+    call = GraphedCall(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed = call(*args)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    with disable_graphs():
+        eager = fn(*args)
+    leaves = list(zip(pytree.tree_leaves(graphed), pytree.tree_leaves(eager)))
+    same = all(_same_bits(a, b) if torch.is_tensor(a) else a == b for a, b in leaves)
+
+    def wall_ms(f):
+        times = []
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times)
+
+    def eager_call():
+        with disable_graphs():
+            fn(*args)
+
+    replay_ms, eager_ms = wall_ms(lambda: call(*args)), wall_ms(eager_call)
+    _, acts, eager_calls = profile_frame(eager_call, host_launches=True)
+    host = {"replayed": profile_frame(lambda: call(*args), host_launches=True)[2],
+            "eager": eager_calls}
+    # which library a linear solve took (cuSOLVER's or MAGMA's kernels, or cuBLAS's)
+    solver = sorted({a[0][:60] for a in acts if any(
+        k in a[0].lower() for k in ("getrf", "getrs", "potrf", "magma", "trsm", "laswp"))})
+    return {"capture_s": capture_s, "replayed_ms": replay_ms, "eager_ms": eager_ms,
+            "host_launch_calls": host, "bits_equal": same, "captures": call.captures,
+            "leaves": len(leaves), "solver_kernels": solver}
+
+
+def record_once_programs(fe) -> dict:
+    """Wraps front-end `fe`'s once-an-agent programs in `CallRecorder`s:
+    the pre-init essential pose and the bootstrap's two solves."""
+    rec = {"essential_pose": CallRecorder(fe._epose), "gyro_bias": CallRecorder(fe._gyro_bias),
+           "alignment": CallRecorder(fe._align)}
+    fe._epose, fe._gyro_bias, fe._align = rec["essential_pose"], rec["gyro_bias"], rec["alignment"]
+    return rec
+
+
+def calib_camera(model: str, dev, w: int = CALIB_W, h: int = CALIB_H):
+    """test_extras.py's true camera of `model` (320x240), with its principal
+    point moved to the centre of a w x h image."""
+    from cvids_tpu_torch.camera import PinholeCamera
+    from cvids_tpu_torch.camera.models import EquidistantCamera, MeiCamera, ScaramuzzaCamera
+
+    dx, dy = (w - 320) / 2.0, (h - 240) / 2.0
+    if model == "pinhole":
+        return PinholeCamera.create(300.0, 300.0, 160.0 + dx, 120.0 + dy,
+                                    (-0.15, 0.05, 0.0, 0.0), w, h, device=dev)
+    if model == "equidistant":
+        return EquidistantCamera.create(250.0, 250.0, 160.0 + dx, 120.0 + dy,
+                                        (-0.03, 0.006, 0.0, 0.0), w, h, device=dev)
+    if model == "mei":
+        return MeiCamera.create(0.9, 420.0, 420.0, 160.0 + dx, 120.0 + dy,
+                                (-0.05, 0.01, 0.0, 0.0), w, h, device=dev)
+    return ScaramuzzaCamera.create(poly=(-215.0, 0.0, 4.0e-4, 0.0, 0.0), c=1.002, d=0.0006,
+                                   e=-0.0011, cx=160.5 + dx, cy=119.0 + dy, width=w, height=h,
+                                   device=dev)
+
+
+def _board_pose(yaw, pitch, tz, tx, ty):
+    cy_, sy = np.cos(yaw), np.sin(yaw)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    r = (np.array([[cy_, -sy, 0], [sy, cy_, 0], [0, 0, 1]])
+         @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])).astype(np.float32)
+    return r, np.array([tx, ty, tz], np.float32)
+
+
+# test_extras.py's views: _board_views' eleven placements (the whole field
+# of view, the close-up, the strong tilts, the four corners) and the four of
+# test_chessboard_detection_and_calibration (the pinhole)
+BOARD_POSES = [(0.1, 0.15, 0.42, -0.12, -0.10), (-0.2, 0.1, 0.5, -0.10, -0.08),
+               (0.15, -0.2, 0.38, -0.05, -0.05), (0.05, 0.05, 0.3, -0.12, -0.10),
+               (0.45, 0.1, 0.42, -0.14, -0.10), (-0.1, 0.45, 0.45, -0.12, -0.12),
+               (-0.4, -0.35, 0.45, -0.10, -0.06), (0.25, 0.0, 0.5, -0.34, -0.27),
+               (0.0, 0.3, 0.5, 0.06, -0.27), (-0.3, 0.0, 0.5, -0.34, 0.03),
+               (0.0, -0.25, 0.5, 0.06, 0.03)]
+PINHOLE_BOARD_POSES = [(0.1, 0.15, 0.5, -0.10, -0.08), (-0.2, 0.1, 0.6, -0.10, -0.08),
+                       (0.15, -0.2, 0.45, -0.10, -0.08), (0.0, 0.3, 0.55, -0.10, -0.08)]
+
+
+def board_views(cam, poses=BOARD_POSES, rows=CALIB_BOARD[0], cols=CALIB_BOARD[1],
+                sq=CALIB_BOARD[2]) -> list[np.ndarray]:
+    """test_extras.py's `_board_views` through the port's `render_chessboard`
+    (that one imports the JAX package; tests/test_torch_once_programs.py
+    holds the two equal), the views rendered in threads."""
+    from cvids_tpu_torch.camera.chessboard import render_chessboard
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda p: render_chessboard(rows, cols, 0, cam, *_board_pose(*p),
+                                                         sq)[0], poses))
+
+
+def projection_agreement(cam_true, cam_est, w, h) -> float:
+    """test_extras.py's `_projection_agreement` on the port's cameras: the
+    95th percentile pixel discrepancy of the two models over in-view rays
+    within 170 px of the image centre."""
+    rng = np.random.default_rng(3)
+    pts = rng.normal(0, 0.45, (512, 3)).astype(np.float32)
+    pts[:, 2] = np.abs(pts[:, 2]) + 0.8
+    dev = cam_true.cx.device
+    uv_t = cam_true.project(torch.as_tensor(pts, device=dev)).cpu().numpy()
+    r_px = np.hypot(uv_t[:, 0] - w / 2, uv_t[:, 1] - h / 2)
+    inview = ((uv_t[:, 0] > 10) & (uv_t[:, 0] < w - 10) & (uv_t[:, 1] > 10) & (uv_t[:, 1] < h - 10)
+              & (r_px < 170.0))
+    uv_e = cam_est.project(torch.as_tensor(pts, device=dev)).cpu().numpy()
+    return float(np.quantile(np.linalg.norm((uv_e - uv_t)[inview], axis=1), 0.95))
+
+
+def estimated_camera(model: str, p: np.ndarray, dev, w: int = CALIB_W, h: int = CALIB_H):
+    """The camera of a calibration's parameters (test_extras.py's)."""
+    from cvids_tpu_torch.camera.models import (EquidistantCamera, MeiCamera, ScaramuzzaCamera,
+                                               fit_forward_poly)
+
+    def arr(v):
+        return torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
+    if model == "equidistant":
+        return EquidistantCamera(*(arr(v) for v in (p[0], p[1], p[2], p[3], p[4:8])), w, h)
+    if model == "mei":
+        return MeiCamera(*(arr(v) for v in (p[0], p[1], p[2], p[3], p[4], p[5:9])), w, h)
+    poly = fit_forward_poly(arr(p[:6]), theta_max=-0.8)
+    return ScaramuzzaCamera(poly, arr(p[:6]), *(arr(p[i]) for i in range(6, 11)), w, h)
+
+
+class _RecordingCall:
+    """Stands in for `GraphedCall` inside `camera.models` during a
+    calibration: each one made is kept, with the arguments of its last
+    call."""
+    made: list = []
+
+    def __init__(self, fn, **kw):
+        from cvids_tpu_torch.utils.cuda_graph import GraphedCall
+        self.inner, self.last = GraphedCall(fn, **kw), None
+        _RecordingCall.made.append(self)
+
+    def __call__(self, *args):
+        self.last = args
+        return self.inner(*args)
+
+
+def calibration_checks(dev) -> dict:
+    """`calibrate_chessboards` on the card for the four models on
+    test_extras.py's rendered views at 752x480, held to test_extras.py's
+    bounds against the truth; the response graph's and each calibrator's
+    two graphs' captures and replays. Returns (a row a model, and the
+    programs graphed against eager: each calibrator's last solve's two on
+    their last call's inputs, the response on the first view)."""
+    from cvids_tpu_torch.camera import chessboard, models
+
+    rows, cols, sq = CALIB_BOARD
+    out, programs = {}, {}
+    for model, (iters, f_idx, c_idx, focal, agree_bound) in CALIB_CASES.items():
+        cam = calib_camera(model, dev)
+        t0 = time.perf_counter()
+        views = board_views(cam, PINHOLE_BOARD_POSES if model == "pinhole" else BOARD_POSES)
+        render_s = time.perf_counter() - t0
+        resp0 = (chessboard._response_program.captures, chessboard._response_program.replays)
+        _RecordingCall.made = []
+        t0 = time.perf_counter()
+        with mock.patch.object(models, "GraphedCall", _RecordingCall):
+            params, poses, rms, used = chessboard.calibrate_chessboards(
+                views, rows, cols, sq, CALIB_W, CALIB_H, iters=iters, model=model, device=dev)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        p, rms = params.cpu().numpy(), float(rms)
+        centre = np.array([float(cam.cx), float(cam.cy)])
+        check(params.device == dev and bool(np.all(used)), f"{model}: views used {used} on "
+                                                           f"{params.device}")
+        check(rms < 1.0, f"{model}: rms {rms} px")
+        check(np.abs(p[list(c_idx)] - centre).max() < 8, f"{model}: centre {p[list(c_idx)]}, "
+                                                          f"true {centre}")
+        if f_idx is not None:
+            check(np.abs(p[list(f_idx)] - focal).max() < 12, f"{model}: focal {p[list(f_idx)]}")
+        agree = None
+        if model == "pinhole":
+            check(abs(p[4] + 0.15) < 0.08, f"pinhole: k1 {p[4]}")
+        else:
+            agree = projection_agreement(cam, estimated_camera(model, p, dev), CALIB_W, CALIB_H)
+            check(agree < agree_bound, f"{model}: projection agreement {agree} px >= "
+                                       f"{agree_bound}")
+        resp = chessboard._response_program
+        # `_calibrate_gn` makes the residuals' call, then the Jacobian's: a pair a solve
+        made = _RecordingCall.made
+        solves = list(zip(made[0::2], made[1::2]))
+        counts = [[(c.inner.captures, c.inner.replays) for c in pair] for pair in solves]
+        check(solves and all(k == 1 and r > 0 for pair in counts for k, r in pair),
+              f"{model}: a calibrator program was not captured once and replayed: {counts}")
+        check(resp.captures - resp0[0] <= 1 and resp.replays - resp0[1] == len(views),
+              f"{model}: the response graph's captures and replays "
+              f"{(resp.captures - resp0[0], resp.replays - resp0[1])} for {len(views)} views")
+        out[model] = {"render_s": render_s, "calibrate_s": calib_s, "rms_px": rms,
+                      "params": [float(x) for x in p], "agreement_px": agree,
+                      "solves (residuals, jacobian) (captures, replays)": counts,
+                      "response (captures, replays)": (resp.captures - resp0[0],
+                                                       resp.replays - resp0[1])}
+        res, jac = solves[-1]
+        programs[f"{model} residuals"] = graphed_against_eager(res.inner.fn, res.last)
+        programs[f"{model} jacobian"] = graphed_against_eager(jac.inner.fn, jac.last)
+        if model == "pinhole":
+            programs["chessboard_response"] = graphed_against_eager(
+                chessboard.chessboard_response, (torch.as_tensor(views[0], device=dev),))
+    return out, programs
+
+
+def once_programs_phase(device, once: dict) -> dict:
+    """Phase 14: the JAX package's last compiled programs as CUDA graphs on
+    the card. The pre-init essential pose and the VI bootstrap's two solves
+    (the gyro bias; the bias correction and the linear alignment) on the
+    inputs of agent 0's last call of each in phase 8 (`once`: phase 8's
+    `CallRecorder`s), whose replays and captures there are printed; then
+    the calibration (`calibration_checks`). Each program through a fresh
+    `GraphedCall` against `disable_graphs()`: bit for bit, with the capture
+    s, replayed and eager ms and host launch calls."""
+    from cvids_tpu_torch.ops import ransac
+    from cvids_tpu_torch.vio import frontend, initializer
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    fns = {"essential_pose": ransac.essential_pose, "gyro_bias": initializer.calibrate_gyro_bias,
+           "alignment": frontend._align_step}
+    rows = {}
+    for name, rec in once.items():
+        check(rec.args and rec.captures >= 1 and rec.replays >= 1,
+              f"phase 8: agent 0's {name} ran {len(rec.args)} times, captured {rec.captures}, "
+              f"replayed {rec.replays}")
+        rows[name] = {"phase8 (calls, captures, replays)": (len(rec.args), rec.captures,
+                                                            rec.replays),
+                      **graphed_against_eager(fns[name], rec.args[-1])}
+    calib, programs = calibration_checks(dev)
+    programs.update(rows)
+    bad = [n for n, r in programs.items() if not r["bits_equal"]]
+    check(not bad, f"phase 14: graph replays not bit-equal to the eager calls: {bad}")
+    rows = {"programs": programs, "calibration": calib}
+    print(f"phase 14 once-an-agent and offline programs ({smi}): " + json.dumps(rows))
+    print(f"phase 14 once-an-agent and offline programs: every program replayed as a CUDA "
+          f"graph, bit-equal to its eager call; calibrators within test_extras.py's bounds; ok "
+          f"in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def _page_state(path: str) -> dict:
     """The state JSON embedded in an exported viewer page."""
     html = open(path).read()
@@ -4975,6 +5280,10 @@ def main() -> int:
     # checkpoint restored in fresh processes on the card and on the CPU
     fish_counts = fisheye_phase(dev)
     checkpoint_phase(dev)
+
+    # phase 14: the pre-init essential pose and the VI bootstrap on phase
+    # 8's inputs, and the calibrators, as CUDA graphs against eager calls
+    once_programs_phase(dev, agent_scores["once"])
 
     # launches: the whole server's run (phase 6), which drives the server's
     # seven (the five dense kernels, hamming_matrix and tsdf_integrate) and

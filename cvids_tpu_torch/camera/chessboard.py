@@ -3,7 +3,8 @@
 
 The roles of camodocal's chessboard detector (`Chessboard.cc`) and of the
 `intrinsic_calib.cc` CLI. `chessboard_response` is tensor code: a ring-based
-corner response over the whole image. Peaks, their ordering into the
+corner response over the whole image, replayed on the card as one CUDA
+graph an image shape. Peaks, their ordering into the
 (rows × cols) grid through a homography from the board's extremal corners,
 Zhang's initialization and the board renderer are host-side numpy, copied
 from the JAX package (detection is calibration time, latency-insensitive).
@@ -17,6 +18,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.image import gaussian_blur
+from ..utils.cuda_graph import GraphedCall
 from .models import calibrate_pinhole
 
 __all__ = ["chessboard_response", "find_chessboard", "calibrate_chessboards",
@@ -55,6 +57,11 @@ def chessboard_response(img: torch.Tensor, sigma: float = 1.0,
     m = radius + 3
     inside = (xx >= m) & (xx < w - m) & (yy >= m) & (yy < h - m)
     return torch.where(inside, resp, torch.zeros_like(resp))
+
+
+# the JAX package's `jax.jit` of the response: on the card one CUDA graph an
+# image shape and dtype, kept for the process as a jit's cache is
+_response_program = GraphedCall(chessboard_response)
 
 
 def _nms_peaks(resp: np.ndarray, num: int, min_dist: int = 8) -> np.ndarray:
@@ -129,7 +136,7 @@ def find_chessboard(img: np.ndarray, rows: int, cols: int,
     the board is not found (the calibration CLI skips such frames). The
     response map is computed on `device` (None: the card)."""
     dev = resolve_device(device)
-    resp = chessboard_response(torch.as_tensor(np.asarray(img), device=dev)).cpu().numpy()
+    resp = _response_program(torch.as_tensor(np.asarray(img), device=dev)).cpu().numpy()
     # take extra peaks to survive spurious responses, then grid-fit
     pts = _nms_peaks(resp, rows * cols + 8, min_dist=min_dist)
     if len(pts) < rows * cols:

@@ -5,11 +5,13 @@ calibration (port of ``cvids_tpu/camera/models.py``).
 The projection models are batched functional ops on tensors; calibration is
 a damped Gauss-Newton on reprojection residuals over the intrinsics and the
 board poses, with the Jacobian from `torch.func.jacfwd`. Calibration is an
-offline tool: it runs where its inputs live and has no CUDA kernel.
+offline tool: it runs where its inputs live and has no CUDA kernel; on the
+card its residuals and Jacobian replay as CUDA graphs.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.cuda_graph import GraphedCall
 from .pinhole import as_scalars, distort, undistort_iterative
 
 __all__ = ["EquidistantCamera", "MeiCamera", "ScaramuzzaCamera",
@@ -207,6 +210,31 @@ class ScaramuzzaCamera(NamedTuple):
         return torch.stack([xc, yc, -z], dim=-1)
 
 
+def _residuals(project_fn, n_params: int, flat: torch.Tensor, obj_pts: torch.Tensor,
+               img_pts: torch.Tensor, valid: torch.Tensor, prior) -> torch.Tensor:
+    """The calibration's residual vector at `flat` = [params, poses (V, 6)]:
+    each view's reprojection errors (zero where not `valid`), then the
+    soft prior's weighted parameter offsets when `prior` = (indices,
+    targets, weights) tensors is not None. Everything it reads is an
+    argument, so one CUDA graph serves every call of a solve."""
+    from ..geometry import quat_to_matrix, so3_exp
+
+    params = flat[:n_params]
+    poses = flat[n_params:].reshape(obj_pts.shape[0], 6)
+
+    def one(pose, op, ip, vd):
+        r = quat_to_matrix(so3_exp(pose[:3]))
+        pc = op @ r.T + pose[3:]
+        res = project_fn(params, pc) - ip
+        return torch.where(vd[..., None], res, torch.zeros_like(res))
+
+    res = torch.func.vmap(one)(poses, obj_pts, img_pts, valid).reshape(-1)
+    if prior is not None:
+        p_idx, p_tgt, p_wgt = prior
+        res = torch.cat([res, (params[p_idx] - p_tgt) * p_wgt])
+    return res
+
+
 def _calibrate_gn(project_fn, n_params: int, obj_pts: torch.Tensor,
                   img_pts: torch.Tensor, valid: torch.Tensor,
                   init_params: torch.Tensor, poses0: torch.Tensor,
@@ -222,44 +250,33 @@ def _calibrate_gn(project_fn, n_params: int, obj_pts: torch.Tensor,
     prior: optional (param_indices, targets, weights) soft prior appended to
     the residual vector — pins gauge-like parameter valleys (e.g. the OCAM
     affine) without meaningfully biasing well-constrained solutions.
-    Returns (params, poses, rms over data residuals only)."""
-    from ..geometry import quat_to_matrix, so3_exp
 
+    The residuals and their `jacfwd` Jacobian are the JAX package's two
+    `jax.jit` programs: on the card each replays as one CUDA graph,
+    captured at its first call; the damping loop, its cost reads and its
+    solve stay eager, as in the reference.
+    Returns (params, poses, rms over data residuals only)."""
     dev = obj_pts.device
     f32 = torch.float32
-    obj_pts, img_pts = obj_pts.to(f32), img_pts.to(f32)
-    v_count = obj_pts.shape[0]
+    data = (obj_pts.to(f32), img_pts.to(f32), valid)
     if prior is not None:
-        p_idx = torch.as_tensor(np.asarray(prior[0]), dtype=torch.int64, device=dev)
-        p_tgt = torch.as_tensor(np.asarray(prior[1]), dtype=f32, device=dev)
-        p_wgt = torch.as_tensor(np.asarray(prior[2]), dtype=f32, device=dev)
-
-    def residuals(flat):
-        params = flat[:n_params]
-        poses = flat[n_params:].reshape(v_count, 6)
-
-        def one(pose, op, ip, vd):
-            r = quat_to_matrix(so3_exp(pose[:3]))
-            pc = op @ r.T + pose[3:]
-            res = project_fn(params, pc) - ip
-            return torch.where(vd[..., None], res, torch.zeros_like(res))
-
-        res = torch.func.vmap(one)(poses, obj_pts, img_pts, valid).reshape(-1)
-        if prior is not None:
-            res = torch.cat([res, (params[p_idx] - p_tgt) * p_wgt])
-        return res
+        data += ((torch.as_tensor(np.asarray(prior[0]), dtype=torch.int64, device=dev),
+                  torch.as_tensor(np.asarray(prior[1]), dtype=f32, device=dev),
+                  torch.as_tensor(np.asarray(prior[2]), dtype=f32, device=dev)),)
+    else:
+        data += (None,)
+    fn = functools.partial(_residuals, project_fn, n_params)
+    residuals, jac = GraphedCall(fn), GraphedCall(torch.func.jacfwd(fn))
 
     n_data = 2 * obj_pts.shape[0] * obj_pts.shape[1]
-    jac = torch.func.jacfwd(residuals)
-
     flat = torch.cat([torch.as_tensor(init_params, dtype=f32, device=dev).reshape(-1),
                       torch.as_tensor(poses0, dtype=f32, device=dev).reshape(-1)])
     eye = torch.eye(flat.shape[0], dtype=f32, device=dev)
     lam = 1e-3
-    cost_prev = float(torch.sum(residuals(flat) ** 2))
+    cost_prev = float(torch.sum(residuals(flat, *data) ** 2))
     for _ in range(iters):
-        r = residuals(flat)
-        j = jac(flat)
+        r = residuals(flat, *data)
+        j = jac(flat, *data)
         h = j.T @ j
         g = j.T @ r
         accepted = False
@@ -268,7 +285,7 @@ def _calibrate_gn(project_fn, n_params: int, obj_pts: torch.Tensor,
             d = 1.0 / torch.sqrt(torch.diag(hd) + 1e-12)
             step = d * torch.linalg.solve(hd * d[:, None] * d[None, :], -g * d)
             cand = flat + step
-            cost_new = float(torch.sum(residuals(cand) ** 2))
+            cost_new = float(torch.sum(residuals(cand, *data) ** 2))
             if math.isfinite(cost_new) and cost_new < cost_prev:
                 flat, cost_prev = cand, cost_new
                 lam = max(lam * 0.3, 1e-8)
@@ -277,10 +294,47 @@ def _calibrate_gn(project_fn, n_params: int, obj_pts: torch.Tensor,
             lam = min(lam * 10.0, 1e8)
         if not accepted:
             break
-    r = residuals(flat)[:n_data]
+    r = residuals(flat, *data)[:n_data]
     n_obs = torch.clamp(torch.sum(valid), min=1)
     rms = torch.sqrt(torch.sum(r ** 2) / n_obs)
-    return flat[:n_params], flat[n_params:].reshape(v_count, 6), rms
+    return flat[:n_params], flat[n_params:].reshape(obj_pts.shape[0], 6), rms
+
+
+def _project_pinhole(params, pc):
+    """[fx, fy, cx, cy, k1, k2, p1, p2]: pinhole + radtan."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    z = torch.clamp(pc[..., 2], min=1e-6)
+    n = pc[..., :2] / z[..., None]
+    nd = n + distort(n, params[4:8])
+    return torch.stack([fx * nd[..., 0] + cx, fy * nd[..., 1] + cy], -1)
+
+
+def _project_equidistant(params, pc):
+    """[fx, fy, cx, cy, k2, k3, k4, k5]: Kannala-Brandt."""
+    return EquidistantCamera(params[0], params[1], params[2], params[3], params[4:8]).project(pc)
+
+
+def _project_mei(params, pc):
+    """[xi, fx, fy, cx, cy, k1, k2, p1, p2]: the unified model."""
+    return MeiCamera(params[0], params[1], params[2], params[3], params[4],
+                     params[5:9]).project(pc)
+
+
+def _project_scaramuzza(params, pc):
+    """[b0..b_{Q-1}, C, D, E, cx, cy]: the inverse polynomial ρ(θ) and the
+    affine [[C, D], [E, 1]] about the center."""
+    nb = params.shape[0] - 5
+    b = params[:nb]
+    c, d, e = params[nb], params[nb + 1], params[nb + 2]
+    cx, cy = params[nb + 3], params[nb + 4]
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    nrm = torch.sqrt(x * x + y * y)
+    theta = torch.atan2(-z, torch.clamp(nrm, min=1e-9))
+    rho = _polyval(b, theta)
+    inv_n = 1.0 / torch.clamp(nrm, min=1e-9)
+    xn = x * inv_n * rho
+    yn = y * inv_n * rho
+    return torch.stack([xn * c + yn * d + cx, xn * e + yn + cy], dim=-1)
 
 
 def calibrate_pinhole(obj_pts: torch.Tensor, img_pts: torch.Tensor,
@@ -290,15 +344,7 @@ def calibrate_pinhole(obj_pts: torch.Tensor, img_pts: torch.Tensor,
 
     init_params (8,) = [fx, fy, cx, cy, k1, k2, p1, p2]. Returns
     (params (8,), poses (V, 6), rms)."""
-
-    def project(params, pc):
-        fx, fy, cx, cy = params[0], params[1], params[2], params[3]
-        z = torch.clamp(pc[..., 2], min=1e-6)
-        n = pc[..., :2] / z[..., None]
-        nd = n + distort(n, params[4:8])
-        return torch.stack([fx * nd[..., 0] + cx, fy * nd[..., 1] + cy], -1)
-
-    return _calibrate_gn(project, 8, obj_pts, img_pts, valid, init_params,
+    return _calibrate_gn(_project_pinhole, 8, obj_pts, img_pts, valid, init_params,
                          poses0, iters)
 
 
@@ -310,13 +356,7 @@ def calibrate_equidistant(obj_pts: torch.Tensor, img_pts: torch.Tensor,
 
     init_params (8,) = [fx, fy, cx, cy, k2, k3, k4, k5]. Returns
     (params (8,), poses (V, 6), rms)."""
-
-    def project(params, pc):
-        cam = EquidistantCamera(params[0], params[1], params[2], params[3],
-                                params[4:8])
-        return cam.project(pc)
-
-    return _calibrate_gn(project, 8, obj_pts, img_pts, valid, init_params,
+    return _calibrate_gn(_project_equidistant, 8, obj_pts, img_pts, valid, init_params,
                          poses0, iters)
 
 
@@ -350,20 +390,6 @@ def calibrate_scaramuzza(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     Σ b_i θ^i), C, D, E, cx, cy]. Returns (params (Q+5,), poses (V, 6),
     rms)."""
     nb = int(init_params.shape[0]) - 5
-
-    def project(params, pc):
-        b = params[:nb]
-        c, d, e = params[nb], params[nb + 1], params[nb + 2]
-        cx, cy = params[nb + 3], params[nb + 4]
-        x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
-        nrm = torch.sqrt(x * x + y * y)
-        theta = torch.atan2(-z, torch.clamp(nrm, min=1e-9))
-        rho = _polyval(b, theta)
-        inv_n = 1.0 / torch.clamp(nrm, min=1e-9)
-        xn = x * inv_n * rho
-        yn = y * inv_n * rho
-        return torch.stack([xn * c + yn * d + cx, xn * e + yn + cy], dim=-1)
-
     # the affine [[C,D],[E,1]] is near-degenerate with the polynomial and
     # the center over bounded board coverage; a weak identity prior pins
     # the valley (real OCAM affines are within ~1e-2 of identity) without
@@ -371,7 +397,7 @@ def calibrate_scaramuzza(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     prior = (np.array([nb, nb + 1, nb + 2]),
              np.array([1.0, 0.0, 0.0], np.float32),
              np.array([1000.0, 1000.0, 1000.0], np.float32))
-    return _calibrate_gn(project, nb + 5, obj_pts, img_pts, valid,
+    return _calibrate_gn(_project_scaramuzza, nb + 5, obj_pts, img_pts, valid,
                          init_params, poses0, iters, prior=prior)
 
 
@@ -383,11 +409,5 @@ def calibrate_mei(obj_pts: torch.Tensor, img_pts: torch.Tensor,
 
     init_params (9,) = [xi, fx, fy, cx, cy, k1, k2, p1, p2]. Returns
     (params (9,), poses (V, 6), rms)."""
-
-    def project(params, pc):
-        cam = MeiCamera(params[0], params[1], params[2], params[3],
-                        params[4], params[5:9])
-        return cam.project(pc)
-
-    return _calibrate_gn(project, 9, obj_pts, img_pts, valid, init_params,
+    return _calibrate_gn(_project_mei, 9, obj_pts, img_pts, valid, init_params,
                          poses0, iters)

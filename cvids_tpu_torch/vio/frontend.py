@@ -32,7 +32,12 @@ inlier mask: `_track_step`), the re-detection (`_redetect_step`, JAX
 `_emit_compute`), the preintegration (`_preintegrate_step`), the window
 solve (one launch of the hand kernel `cuda_kernels.window_lm` inside its
 graph) and the marginalization up to its float64 `eigh`
-(`window_ba.marg_schur_cam`). The camera is a bound argument of the graphs
+(`window_ba.marg_schur_cam`); until the VI bootstrap locks, the pre-init
+`ransac.essential_pose` (its Gumbel noise drawn before the graph) and the
+bootstrap's two solves (`initializer.calibrate_gyro_bias`, then
+`_align_step`: the bias correction and `initializer.linear_alignment`),
+each read back after its replay as the JAX package reads them. The
+camera is a bound argument of the graphs
 that lift, so they are keyed by the camera as well as by shape. Host arrays
 cross to the card through pinned memory without a sync; each graph's result
 comes back in one packed read. With a `Tracer`, the stages are spans:
@@ -132,6 +137,13 @@ def _solve_window_fast(state, meas, iters):
     return ba.solve_window_fast(state, meas, iters=iters)
 
 
+def _align_step(p, q, pre, bg, valid):
+    """The bootstrap's alignment: the preintegrations corrected to the gyro
+    bias `bg`, then `initializer.linear_alignment`."""
+    return vi_init.linear_alignment(p, q, imu_mod.bias_corrected(pre, bg, torch.zeros_like(bg)),
+                                    valid)
+
+
 def _roll(t: torch.Tensor) -> torch.Tensor:
     """Drop the oldest slot, repeat the newest (the window slide)."""
     return torch.cat([t[1:], t[-1:]], dim=0)
@@ -223,6 +235,9 @@ class AgentFrontend:
         self._preint = GraphedCall(_preintegrate_step, bound=(0,))
         self._solve_fast = GraphedCall(_solve_window_fast)
         self._marg = GraphedCall(ba.marg_schur_cam)
+        self._epose = GraphedCall(ransac.essential_pose)
+        self._gyro_bias = GraphedCall(vi_init.calibrate_gyro_bias)
+        self._align = GraphedCall(_align_step)
         self._staged: dict = {}
 
         self._cell = max(8, cfg.min_feature_dist // 2)
@@ -467,8 +482,8 @@ class AgentFrontend:
                 return
         common = self.vis[prev] & self.vis[slot]
         if common.sum() >= 8:
-            res = ransac.essential_pose(self._t(self.obs[prev]), self._t(self.obs[slot]),
-                                        self._t(common, torch.bool), self._gumbel(self.MAX_LM))
+            res = self._epose(self._t(self.obs[prev]), self._t(self.obs[slot]),
+                              self._t(common, torch.bool), self._gumbel(self.MAX_LM))
             if bool(res.ok):
                 r = _np(res.r)                       # R_c1<-c0
                 tdir = _np(res.t)
@@ -758,12 +773,11 @@ class AgentFrontend:
         if valid.sum() < 3:
             return
         valid_t = self._t(valid, torch.bool)
-        bg = vi_init.calibrate_gyro_bias(self.state.q, pre, valid_t)
+        bg = self._gyro_bias(self.state.q, pre, valid_t)
         bg_np = _np(bg)
         if not np.isfinite(bg_np).all() or float(np.linalg.norm(bg_np)) > 0.5:
             return
-        pre_c = imu_mod.bias_corrected(pre, bg, torch.zeros(3, device=self.device))
-        res = vi_init.linear_alignment(self.state.p, self.state.q, pre_c, valid_t)
+        res = self._align(self.state.p, self.state.q, pre, bg, valid_t)
         s = float(res.scale)
         # VINS-Mono's gates: conditioning and the free gravity's magnitude
         # near 9.81; the scale only gets a sanity band (the pre-bootstrap

@@ -9,7 +9,8 @@ velocity, the gravity direction and metric scale. Both are fixed-shape
 masked least squares on the inputs' device; the JAX package's per-interval
 `vmap`s of `dynamic_update_slice` become one batched assembly, and its
 4-step `lax.scan` refinement a loop of 4. The solves use `solve_ex`, which
-reads nothing back to the host.
+reads nothing back to the host, and no constant is copied from the host:
+the front-end replays both functions as CUDA graphs.
 
 Inputs are body-frame window poses (any consistent up-to-scale frame) and
 the stacked `Preintegrated` deltas between consecutive keyframes.
@@ -105,8 +106,8 @@ def linear_alignment(p_vis: torch.Tensor, q_wb: torch.Tensor, pre: Preintegrated
     x = _solve(h, atb)
     g0 = x[3 * k:3 * k + 3]
 
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=dev)
+    axes = torch.eye(3, dtype=f32, device=dev)        # made on the device: no host copy
+    up, ex = axes[2], axes[0]
     eye_y = torch.eye(n - 1, dtype=f32, device=dev)
     g, y = g0, None
     for _ in range(4):
@@ -120,7 +121,7 @@ def linear_alignment(p_vis: torch.Tensor, q_wb: torch.Tensor, pre: Preintegrated
         t = torch.zeros((n, n - 1), dtype=f32, device=dev)
         t[:3 * k, :3 * k] = torch.eye(3 * k, dtype=f32, device=dev)
         t[3 * k:3 * k + 3, 3 * k:3 * k + 2] = bmat
-        t[3 * k + 3, 3 * k + 2] = 1.0
+        t[3 * k + 3:3 * k + 4, 3 * k + 2:3 * k + 3].fill_(1.0)   # a kernel, not a host copy
         c = torch.zeros(n, dtype=f32, device=dev)
         c[3 * k:3 * k + 3] = gravity_mag * ghat
         y = _solve(t.T @ h @ t + 1e-8 * eye_y, t.T @ (atb - ata @ c))

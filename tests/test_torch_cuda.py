@@ -1,6 +1,8 @@
 """The ten CUDA kernels against their PyTorch twins, the front-end's and
 the server's CUDA graphs (the front-end's track step, re-detection, packet
-image program, preintegration, window solve and marginalization; the dense
+image program, preintegration, window solve and marginalization, its
+pre-init essential pose and VI bootstrap; the calibrators' residuals and
+Jacobian and the chessboard response; the dense
 frame, the 4-DoF solve, the pose graph's loop-verification cascade and BoW
 query-and-insert, one capture a capacity tier; a published map's chunk walk
 and mesh batch) against their eager calls, the deployment topology and the
@@ -208,13 +210,10 @@ def test_graphed_marginalization_equals_eager(dev):
     assert len(call.graphs) == 1 and call.replays == 2
 
 
-def test_frontend_graphs_equal_eager(dev):
+def _blob_frontend(dev, setup=None):
     """test_frontend.py's blob world (12 keyframes at 320x240, made by the
-    port alone) through an `AgentFrontend` on the card: every compiled
-    program of the front-end (track step, re-detection, packet image
-    program, preintegration, window solve, marginalization) is captured and
-    replayed, each replay gives its eager call's bits, and no eager call
-    reads a value back (`chip_smoke.graph_checks`)."""
+    port alone) through an `AgentFrontend` on the card (`setup(fe)` first,
+    if given): (the front-end, [(image, imu) a keyframe])."""
     from cvids_tpu_torch.geometry.hostmath import quat_to_matrix_np
     from cvids_tpu_torch.io import render, synthetic
     from cvids_tpu_torch.utils.config import AgentConfig, CameraConfig
@@ -234,6 +233,8 @@ def test_frontend_graphs_equal_eager(dev):
     cfg = AgentConfig(camera=cam, fast_threshold=12.0, min_feature_dist=24,
                       max_solver_iterations=10)
     fe = AgentFrontend(cfg, device=dev)
+    if setup is not None:
+        setup(fe)
     cpu_cam = AgentFrontend(cfg, device="cpu").cam
     g, a, dt, vmask = synthetic.imu_slices(seq)
     r_cb, p_bc = np.asarray(cfg.r_cb, np.float32), np.asarray(cfg.p_bc, np.float32)
@@ -245,8 +246,64 @@ def test_frontend_graphs_equal_eager(dev):
                (g[i - 1][vmask[i - 1]], a[i - 1][vmask[i - 1]], dt[i - 1][vmask[i - 1]]))
         fe.process_keyframe(seq.times_kf[i], img, *imu)
         frames.append((img, imu))
+    return fe, frames
+
+
+def test_frontend_graphs_equal_eager(dev):
+    """test_frontend.py's blob world through an `AgentFrontend` on the
+    card: every compiled program of the front-end (track step, re-detection,
+    packet image program, preintegration, window solve, marginalization) is
+    captured and replayed, each replay gives its eager call's bits, and no
+    eager call reads a value back (`chip_smoke.graph_checks`)."""
+    fe, frames = _blob_frontend(dev)
     assert fe.vi_initialized and fe._prior is not None
     cs.graph_checks(fe, frames[-2][0], frames[-1][0], frames[-1][1])
+
+
+def test_frontend_once_programs_equal_eager(dev):
+    """The same run's once-an-agent programs: the pre-init essential pose
+    and the VI bootstrap's two solves, each captured and replayed in the
+    run, and on the inputs of its last call a fresh graph's replay gives
+    the eager call's bits (`chip_smoke.graphed_against_eager`)."""
+    from cvids_tpu_torch.ops import ransac
+    from cvids_tpu_torch.vio import frontend, initializer
+
+    rec = {}
+    fe, _ = _blob_frontend(dev, setup=lambda f: rec.update(cs.record_once_programs(f)))
+    assert fe.vi_initialized
+    fns = {"essential_pose": ransac.essential_pose, "gyro_bias": initializer.calibrate_gyro_bias,
+           "alignment": frontend._align_step}
+    for name, r in rec.items():
+        assert r.args and r.captures == 1 and r.replays == len(r.args), (name, r.captures)
+        out = cs.graphed_against_eager(fns[name], r.args[-1], runs=2)
+        assert out["bits_equal"] and out["captures"] == 1, (name, out)
+
+
+@pytest.mark.parametrize("model", list(cs.CALIB_CASES))
+def test_calibrator_graphs_equal_eager(model, dev):
+    """`calibrate_chessboards` on the card (test_extras.py's camera and
+    views at 320x240, 3 iterations): each solve's residual and Jacobian
+    programs are captured once and replayed, and on their last call's
+    inputs a fresh graph's replay gives the eager call's bits; so does the
+    chessboard response on a view."""
+    from unittest import mock
+
+    from cvids_tpu_torch.camera import chessboard, models
+
+    cam = cs.calib_camera(model, dev, 320, 240)
+    views = cs.board_views(cam, cs.PINHOLE_BOARD_POSES if model == "pinhole" else cs.BOARD_POSES)
+    cs._RecordingCall.made = []
+    with mock.patch.object(models, "GraphedCall", cs._RecordingCall):
+        chessboard.calibrate_chessboards(views, *cs.CALIB_BOARD, 320, 240, iters=3, model=model,
+                                         device=dev)
+    made = cs._RecordingCall.made
+    assert made and len(made) % 2 == 0
+    for call in made:
+        assert call.inner.captures == 1 and call.inner.replays >= 1
+        assert cs.graphed_against_eager(call.inner.fn, call.last, runs=2)["bits_equal"]
+    out = cs.graphed_against_eager(chessboard.chessboard_response,
+                                   (torch.as_tensor(views[0], device=dev),), runs=2)
+    assert out["bits_equal"]
 
 
 def test_launch_takes_a_device_without_an_index(dev):

@@ -13,10 +13,19 @@ after the same iterations:
 - the port's CPU solve: positions 1e-4 m, landmarks 1e-3 m, cost 1e-4
   relative (the same float32 algorithm with other sums: the prior's Gram
   matrix formed once as jᵀj, duals for `jacfwd`, an adjugate for
-  `inv_ex`, a right-looking Cholesky for LAPACK's; measured ~1e-5 m); the
-  window with an invalid interval 1e-3 m (its second IMU segment hangs on
-  the landmarks alone, a weak direction along which float-level sums
-  move: measured 1.8e-4 m);
+  `inv_ex`, a right-looking Cholesky for LAPACK's; measured ~1e-5 m);
+- the window with two keyframe slots and an interval invalid: the twin
+  and the CPU solve each against the float64 run of the CPU algorithm,
+  positions 5e-4 m, landmarks 1e-3 m, cost 1e-4 relative. Its keyframes
+  after the invalid interval hang on the landmarks alone, and the window
+  has a weak direction, a common scale about the anchor among others,
+  along which float-level sums move the whole window (no single landmark:
+  each of 40 moves 0.5-1.5e-3 m between the two float32 solvers). The
+  CPU solve sums through PyTorch's CPU BLAS and reductions, whose order
+  may follow the machine (the twin states its own): twin against CPU
+  measured 1.8e-4 m on one machine and 1.5e-3 m on another; against float64 the twin is 7.7e-4 m and 2.1e-4 m (lm, p)
+  off and the CPU solve 7.2e-4 m and 2.9e-4 m, a third of it a common
+  scale of 3.6e-5 and -4.5e-5;
 - the JAX package's: test_solvers_match's 1e-3 m, 1e-2 m and 1e-3.
 
 The JAX function runs as test_vio.py runs it (jit on the CPU). On the card
@@ -37,7 +46,7 @@ from cvids_tpu_torch.vio import window_ba as tba
 from test_torch_vio import _problem
 
 PORT = dict(p=1e-4, lm=1e-3, cost=1e-4)
-PORT_WEAK = dict(p=1e-3, lm=1e-3, cost=1e-4)
+PORT_WEAK = dict(p=5e-4, lm=1e-3, cost=1e-4)
 JAX = dict(p=1e-3, lm=1e-2, cost=1e-3)
 
 
@@ -99,8 +108,23 @@ def test_twin_matches_both_solvers(kind):
     got = ck.window_lm_twin(st, m, 8)
     assert torch.isfinite(got[0].p).all() and torch.isfinite(got[1])
     assert got[0].kf_valid is st.kf_valid and got[0].lm_valid is st.lm_valid
-    _close(got, tba.solve_window_fast(st, m, iters=8), PORT_WEAK if kind == "invalid" else PORT)
+    if kind == "invalid":
+        # both float32 solvers to the float64 run of the CPU algorithm
+        want = tba.solve_window_fast(*_float64(st, m), iters=8)
+        _close(got, want, PORT_WEAK)
+        _close(tba.solve_window_fast(st, m, iters=8), want, PORT_WEAK)
+    else:
+        _close(got, tba.solve_window_fast(st, m, iters=8), PORT)
     _close(got, jba.solve_window_fast(sj, mj, iters=8), JAX)
+
+
+def _float64(st, m):
+    """A window and its measurements in float64."""
+    def wide(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+    return (st._replace(**{f: wide(getattr(st, f)) for f in st._fields}),
+            m._replace(**{f: wide(getattr(m, f)) for f in m._fields if f not in ("pre", "prior")},
+                       pre=type(m.pre)(*map(wide, m.pre))))
 
 
 @pytest.mark.parametrize("k", [13, 21])
