@@ -1782,11 +1782,15 @@ class _Chain:
             else:
                 self.step.fuse(meas_t, a_t, b_t, banded)
 
-    def roll(self, ref_t, k_t, bias):
-        dev = ref_t.device
+    def roll(self, ref_t, k, landmarks):
+        """A reference roll as the server makes it (`DenseStep.roll`): the
+        host inputs in one buffer, K⁻¹ of the uploaded K, the identity pose,
+        and `landmarks` (uv, inverse depth, valid on the host) or None."""
+        est = self._est
+        inputs = est.roll_inputs(np.eye(3), np.zeros(3), k, landmarks, ref_t.device)
+        k_inv = torch.linalg.inv(est.unpack_roll_inputs(inputs)[2])
         with self._mode():
-            self.step.propagate_reference(ref_t, torch.eye(3, device=dev),
-                                          torch.zeros(3, device=dev), k_t, sparse_bias=bias)
+            self.step.roll(ref_t, inputs, k_inv)
 
 
 def dense_chain(device, rng_seed, h=H, w=W, d=D, n_frames=N_FRAMES, graphed=True):
@@ -1894,44 +1898,54 @@ def graph_frame_checks(device, n_frames=GRAPH_FRAMES) -> dict:
     """The graphed dense frame against the eager one at 640x480x128, bit
     for bit (the two volumes, the four filter fields, the frame count)
     after each of `n_frames` frames: banded and exact warps, and reference
-    rolls with and without a sparse bias between, so every graph variant
-    runs and the graphs outlive the rolls. Then `frame_times` on the same
-    two chains. Returns the frame figures."""
+    rolls (`DenseStep.roll`, graphed against eager, every buffer they write
+    bit for bit) with and without landmarks between, so every graph
+    variant runs and the graphs outlive the rolls. Then `frame_times` on
+    the same two chains. Returns the frame figures."""
     dev = torch.device(device)
     rng = np.random.default_rng(0)
     estimator = _dense_api()[0]
     cfg = estimator.DenseConfig(dep_sample=1.0 / (BASELINE * FOCAL))
     ref, meas, a_mat, b_vec, k = textured_plane(rng)
     ref_t, meas_t = torch.from_numpy(ref).to(dev), torch.from_numpy(meas).to(dev)
-    a_t, b_t, k_t = (torch.from_numpy(x).to(dev) for x in (a_mat, b_vec, k))
+    a_t, b_t = (torch.from_numpy(x).to(dev) for x in (a_mat, b_vec))
     a_rot = rotation_homography(k, 0.25)
     a_rot_t = torch.from_numpy(a_rot).to(dev)
     gates = (banded_gate(a_mat, H, W), banded_gate(a_rot, H, W))
     uv = np.stack(np.meshgrid(np.arange(20, W - 20, 24), np.arange(20, H - 20, 24)),
                   -1).reshape(-1, 2).astype(np.float32)
-    bias = estimator.splat_sparse(cfg, torch.from_numpy(uv).to(dev),
-                                  torch.full((len(uv),), 1.0 / DEPTH, device=dev),
-                                  torch.ones(len(uv), dtype=torch.bool, device=dev))
+    landmarks = (uv, np.full(len(uv), 1.0 / DEPTH, np.float32), np.ones(len(uv), bool))
     pair = (_Chain(cfg, ref_t, graphed=False), _Chain(cfg, ref_t, graphed=True))
-    rolls = {n_frames // 2: bias, 3 * n_frames // 4: None}
+    rolls = {n_frames // 2: landmarks, 3 * n_frames // 4: None}
     exact = {n_frames // 4, n_frames // 2 + 3, 3 * n_frames // 4 + 2}
     equal = 0
     for i in range(n_frames):
         if i in rolls:
             for ch in pair:
-                ch.roll(ref_t, k_t, rolls[i])
+                ch.roll(ref_t, k, rolls[i])
+            a, b = pair[0].state, pair[1].state
+            check(all(_same_bits(x, y) for x, y in zip(
+                (a.ref_img, a.grad, a.penalty, *a.filt, a.num_frames),
+                (b.ref_img, b.grad, b.penalty, *b.filt, b.num_frames)))
+                and (a.sparse_bias is None) == (b.sparse_bias is None)
+                and (a.sparse_bias is None or _same_bits(a.sparse_bias, b.sparse_bias)),
+                f"graphed reference roll before frame {i} differs from the eager roll")
         a, g = (a_rot_t, gates[1]) if i in exact else (a_t, gates[0])
         for ch in pair:
             ch.fuse(meas_t, a, b_t, g)
         check(_dense_bits_equal(pair[0].state, pair[1].state),
               f"graphed dense frame {i} differs from the eager frame")
         equal += 1
-    graphs = pair[1].step.graphs
+    graphs, roll_graphs = pair[1].step.graphs, pair[1].step.rolls
     check(len(graphs.graphs) == 4, f"{len(graphs.graphs)} dense graphs captured, not 4")
+    check(len(roll_graphs.graphs) == 2 and roll_graphs.replays == 2,
+          f"{len(roll_graphs.graphs)} roll graphs captured, {roll_graphs.replays} replayed, "
+          "not 2 and 2")
     print(f"  graphed dense frames: {equal} of {n_frames} equal to the eager frames bit for "
           f"bit (mean_cost, count, mu, sigma2, a, b, num_frames): gates {gates}, exact-warp "
-          f"frames {sorted(exact)}, reference rolls at {sorted(rolls)} (the first with a sparse "
-          f"bias); {len(graphs.graphs)} graphs captured (warp x bias), {graphs.replays} replays")
+          f"frames {sorted(exact)}, graphed reference rolls at {sorted(rolls)} equal to the eager "
+          f"rolls (the first with landmarks); {len(graphs.graphs)} graphs captured (warp x "
+          f"bias), {graphs.replays} replays")
     return frame_times(dev, pair)
 
 

@@ -13,7 +13,11 @@ The reference compiles the frame into one XLA program per `(cfg,
 banded_warp)`. Its counterpart here is `DenseStep`: one client's state in
 buffers that outlive its references, and the frame over them replayed as
 one CUDA graph per `(cfg, banded_warp, sparse bias or not)`
-(`utils.cuda_graph.GraphedCall`), bit-equal to the eager frame.
+(`utils.cuda_graph.GraphedCall`), bit-equal to the eager frame. A
+reference roll (`DenseStep.roll`: the sparse splat, the filter's forward
+splat, the reference maps and the reset) is one more graph per `(cfg,
+sparse bias or not, landmark tier)` over the same buffers, its host inputs
+one copy (`roll_inputs`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from ..ops import costvolume, cuda_kernels, depth_filter, sgm
 from ..ops.image import bilinear_sample, image_gradients
 
 __all__ = ["DenseConfig", "DenseState", "DenseStep", "init_reference",
-           "fuse_measurement", "finalize", "splat_sparse"]
+           "fuse_measurement", "finalize", "splat_sparse", "landmark_tier",
+           "roll_inputs", "unpack_roll_inputs", "roll_reference"]
 
 
 @dataclass(frozen=True)
@@ -173,16 +178,21 @@ def splat_sparse(cfg: DenseConfig, uv: torch.Tensor, inv_depth: torch.Tensor,
     depth_map = padded[torch.where(hit_b, winner, p)].reshape(h, w)
     hit = hit_b.to(torch.float32).reshape(h, w)
     zero = torch.zeros((), device=dev)
-    # dilate the splat over a (2r+1)² window with inverse-distance weights
-    acc_d = torch.zeros((h, w), device=dev)
-    acc_w = torch.zeros((h, w), device=dev)
+    # dilate the splat over a (2r+1)² window with inverse-distance weights,
+    # tap by tap in the reference's order: `acc_d += roll(d)·roll(hit)·wgt`,
+    # `acc_w += roll(hit)·wgt`. roll(d)·roll(hit) is roll(d·hit) exactly,
+    # and each tap's roll is a window of one circularly padded copy of
+    # (d·hit, hit), so a tap is two launches on a card, not nine
+    both = torch.stack([depth_map * hit, hit])
+    rows = (torch.arange(h + 2 * radius, device=dev) - radius) % h
+    cols = (torch.arange(w + 2 * radius, device=dev) - radius) % w
+    ring = both[:, rows][:, :, cols]
+    acc = torch.zeros((2, h, w), device=dev)
     for dy in range(-radius, radius + 1):
         for dx in range(-radius, radius + 1):
             wgt = 1.0 / (1.0 + np.hypot(dy, dx))
-            shifted_d = torch.roll(depth_map, (dy, dx), (0, 1))
-            shifted_h = torch.roll(hit, (dy, dx), (0, 1))
-            acc_d = acc_d + shifted_d * shifted_h * wgt
-            acc_w = acc_w + shifted_h * wgt
+            acc = acc + ring[:, radius - dy:radius - dy + h, radius - dx:radius - dx + w] * wgt
+    acc_d, acc_w = acc[0], acc[1]
     mean_d = torch.where(acc_w > 0, acc_d / torch.clamp(acc_w, min=1e-9), zero)
     bias = torch.abs(hyp[None, None, :] - mean_d[..., None]) / cfg.dep_sample
     return bias * cfg.sparse_ratio * torch.clamp(acc_w, max=1.0)[..., None]
@@ -274,24 +284,94 @@ def propagate_reference(cfg: DenseConfig, prev: DenseState,
     return st._replace(sparse_bias=bias, filt=filt)
 
 
+_SLOT = 128     # float32 words: a roll input starts where an allocation of its own would
+
+
+def landmark_tier(p: int) -> int:
+    """The rows a roll's `p` landmarks are padded to: a power of two from
+    256, so that a client's rolls meet few shapes."""
+    return max(256, 1 << max(p - 1, 0).bit_length())
+
+
+def roll_inputs(r_no: np.ndarray, t_no: np.ndarray, k_mat: np.ndarray,
+                landmarks: tuple | None, device) -> torch.Tensor:
+    """A roll's host inputs as one float32 buffer on `device`, in one copy
+    that does not wait for the stream on a card (from pinned memory, which
+    PyTorch's host allocator keeps until the copy has run): r_no, t_no and
+    K, each in a slot of its own, then the landmarks (uv (P, 2), inverse
+    depth (P,), valid (P,) as 0 or 1) padded to `landmark_tier(P)` rows,
+    the padded rows invalid. An invalid row goes to `splat_sparse`'s spare
+    slot and never wins a pixel, so the bias is the unpadded landmarks' bit
+    for bit. `unpack_roll_inputs` reads it."""
+    tier = 0 if landmarks is None else landmark_tier(len(landmarks[0]))
+    buf = np.zeros(3 * _SLOT + 4 * tier, np.float32)
+    buf[:9] = np.asarray(r_no, np.float32).reshape(-1)
+    buf[_SLOT:_SLOT + 3] = np.asarray(t_no, np.float32)
+    buf[2 * _SLOT:2 * _SLOT + 9] = np.asarray(k_mat, np.float32).reshape(-1)
+    if landmarks is not None:
+        uv, inv_depth, valid = landmarks
+        lm = buf[3 * _SLOT:].reshape(4, tier)       # uv in the first two rows
+        lm[:2].reshape(-1)[:2 * len(uv)] = np.asarray(uv, np.float32).reshape(-1)
+        lm[2, :len(uv)] = np.asarray(inv_depth, np.float32)
+        lm[3, :len(uv)] = np.asarray(valid, bool)
+    t = torch.from_numpy(buf)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def unpack_roll_inputs(inputs: torch.Tensor) -> tuple:
+    """(r_no (3, 3), t_no (3,), k_mat (3, 3), landmarks): views of a
+    `roll_inputs` buffer, the landmarks (uv, inverse depth, valid) with
+    `valid` as bool, or None."""
+    r_no = inputs[:9].view(3, 3)
+    t_no = inputs[_SLOT:_SLOT + 3]
+    k_mat = inputs[2 * _SLOT:2 * _SLOT + 9].view(3, 3)
+    tier = (inputs.shape[0] - 3 * _SLOT) // 4
+    if not tier:
+        return r_no, t_no, k_mat, None
+    lm = inputs[3 * _SLOT:].view(4, tier)
+    return r_no, t_no, k_mat, (lm[:2].reshape(tier, 2), lm[2], lm[3] > 0.5)
+
+
+def roll_reference(cfg: DenseConfig, state: DenseState, new_ref_img: torch.Tensor,
+                   inputs: torch.Tensor, k_inv: torch.Tensor) -> None:
+    """`propagate_reference(..., out=state)` in place on a `roll_inputs`
+    buffer, with K's inverse given and the sparse bias, if the buffer has
+    landmarks, splatted here into `state.sparse_bias`, which must then be a
+    buffer (the copy casts it to the volume dtype). The same operations in
+    the same order as the splat followed by `propagate_reference`; it reads
+    nothing back and copies nothing from the host, so it can be captured
+    (`DenseStep.roll`)."""
+    r_no, t_no, k_mat, landmarks = unpack_roll_inputs(inputs)
+    bias = None if landmarks is None else splat_sparse(cfg, *landmarks)
+    filt = depth_filter.propagate(state.filt, r_no, t_no, k_mat, k_inv)
+    _reset(state, *_reference_maps(cfg, new_ref_img), bias, filt)
+
+
 class DenseStep:
     """One client's dense state in buffers that outlive its references, and
     the frame over them as a CUDA graph per `(cfg, banded_warp, sparse bias
     or not)`, the reference's jit signature (`cvids_tpu/dense/
     estimator.py:164`).
 
-    `init_reference` and `propagate_reference` write a new reference into
-    the buffers (the first call allocates them), so the graphs stay valid
-    for the client's whole run; `fuse` copies the measurement image,
-    `a_mat` and `b_vec` into the graph's inputs and replays it, and the
-    frame's filter state lands in the bound filter buffers. `graphs` may be
-    shared by several steps (one pool for a server's dense graphs, see
+    `init_reference` and `roll` write a new reference into the buffers
+    (the first call allocates them), so the graphs stay valid for the
+    client's whole run; `fuse` copies the measurement image, `a_mat` and
+    `b_vec` into the graph's inputs and replays it, and the frame's filter
+    state lands in the bound filter buffers. `roll` is `roll_reference`
+    (`propagate_reference` seeded from the current filter) over the
+    buffers, replayed as one more graph per `(cfg, sparse bias or not,
+    landmark tier)`. `graphs` and `rolls` may be
+    shared by several steps (one pool each for a server's dense graphs, see
     `fuse_graphs`). On the CPU, and inside `utils.cuda_graph.
-    disable_graphs()`, `fuse` is the eager frame with the same effect."""
+    disable_graphs()`, `fuse` and `roll` are the eager functions with the
+    same effect."""
 
-    def __init__(self, cfg: DenseConfig, graphs=None):
+    def __init__(self, cfg: DenseConfig, graphs=None, rolls=None):
         self.cfg = cfg
         self.graphs = graphs if graphs is not None else fuse_graphs()
+        self.rolls = rolls if rolls is not None else roll_graphs()
         self.state: DenseState | None = None
         self._bias: torch.Tensor | None = None    # kept while a reference has none
 
@@ -301,10 +381,21 @@ class DenseStep:
             st = st._replace(ref_img=st.ref_img.clone())
         return self._keep(st)
 
-    def propagate_reference(self, new_ref_img, r_no, t_no, k_mat,
-                            sparse_bias: torch.Tensor | None = None) -> DenseState:
-        return self._keep(propagate_reference(self.cfg, self.state, new_ref_img, r_no, t_no,
-                                              k_mat, sparse_bias, out=self._buffers()))
+    def roll(self, new_ref_img: torch.Tensor, inputs: torch.Tensor,
+             k_inv: torch.Tensor) -> DenseState:
+        """The next reference, seeded from the current one's filter
+        (`propagate_reference`), from a `roll_inputs` buffer and K's
+        inverse: `roll_reference` through `rolls`, one graph replay on the
+        card."""
+        cfg = self.cfg
+        out = self._buffers()._replace(sparse_bias=None)
+        if inputs.shape[0] > 3 * _SLOT:     # landmarks: a bias into the kept buffer
+            if self._bias is None:
+                self._bias = torch.empty((cfg.height, cfg.width, cfg.num_depths),
+                                         dtype=cfg.torch_dtype, device=self.state.ref_img.device)
+            out = out._replace(sparse_bias=self._bias)
+        self.rolls(cfg, out, new_ref_img, inputs, k_inv)
+        return self._keep(out)
 
     def fuse(self, meas_img: torch.Tensor, a_mat: torch.Tensor, b_vec: torch.Tensor,
              banded_warp: bool | None = None) -> DenseState:
@@ -337,6 +428,13 @@ def fuse_graphs():
     memory pool (`utils.cuda_graph.GraphedCall`)."""
     from ..utils.cuda_graph import GraphedCall   # utils.config imports this module
     return GraphedCall(_fuse_into, bound=(1,))
+
+
+def roll_graphs():
+    """The graphed roll of `DenseStep.roll` (`roll_reference` with the state
+    bound): one graph per state and signature, in a pool of its own."""
+    from ..utils.cuda_graph import GraphedCall
+    return GraphedCall(roll_reference, bound=(1,))
 
 
 def regularize_depth(state: DenseState, strength: float = 1.0) -> DenseState:

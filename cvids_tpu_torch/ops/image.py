@@ -43,15 +43,26 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) ->
     return _conv1d(out, k, img.ndim - 1)
 
 
+_SOBEL_TAPS: dict = {}
+
+
+def _sobel_taps(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(smoothing, difference) taps on `device`, copied there once per
+    device: their uploads block the host on a card (`tracing.sync`), and a
+    captured reference roll may copy nothing from the host."""
+    taps = _SOBEL_TAPS.get(device)
+    if taps is None:
+        from ..utils import tracing     # not at import: `utils` imports `dense`, which imports this
+        with tracing.sync():
+            taps = _SOBEL_TAPS[device] = (torch.tensor([1.0, 2.0, 1.0], device=device),
+                                          torch.tensor([-1.0, 0.0, 1.0], device=device))
+    return taps
+
+
 def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sobel gx, gy for (..., H, W) float images (standard 3x3, no scaling).
-    The taps' two uploads block the host on a card (`tracing.sync`)."""
-    from ..utils import tracing     # not at import: `utils` imports `dense`, which imports this
+    """Sobel gx, gy for (..., H, W) float images (standard 3x3, no scaling)."""
     img = img.to(torch.float32)
-    with tracing.sync():
-        smooth = torch.tensor([1.0, 2.0, 1.0], device=img.device)
-    with tracing.sync():
-        diff = torch.tensor([-1.0, 0.0, 1.0], device=img.device)
+    smooth, diff = _sobel_taps(img.device)
     gx = _conv1d(_conv1d(img, diff, img.ndim - 1), smooth, img.ndim - 2)
     gy = _conv1d(_conv1d(img, diff, img.ndim - 2), smooth, img.ndim - 1)
     return gx, gy

@@ -18,12 +18,16 @@ gather stay on the card.
 Each client's dense state lives in one `estimator.DenseStep` for the whole
 run: a reference roll writes into its buffers, so the frame's CUDA graphs
 (one per warp and bias variant, picked by the host's banded gate) stay
-valid, and every dense graph of the server shares one memory pool.
+valid, and every dense graph of the server shares one memory pool. A roll
+is one upload of its host inputs and one more graph replay (one per bias
+variant and landmark tier, in a pool of their own), on the image the
+keyframe's frame already uploaded.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
@@ -72,6 +76,7 @@ class _DenseClientState:
     last_meas: object = None
     last_a: object = None
     last_b: object = None
+    k_inv: tuple | None = None      # (K's bytes, K⁻¹ on the device) of the last roll
 
     @property
     def state(self) -> estimator.DenseState:
@@ -97,6 +102,7 @@ class CollaborativeServer:
         self.images: dict[int, np.ndarray] = {}   # store index -> image
         self.dense_state: dict[int, _DenseClientState] = {}
         self._dense_graphs = estimator.fuse_graphs()   # one pool for every client's graphs
+        self._roll_graphs = estimator.roll_graphs()    # and one for their rolls
         self.depth_maps_published = 0
         self.last_depth: dict[int, dict] = {}   # client -> latest depth record
         self.depth_records: list[dict] = []     # all published (capped at 64)
@@ -265,7 +271,7 @@ class CollaborativeServer:
         k = self._k_matrix(pkt)
         if ds is None:
             ds = self.dense_state[cid] = _DenseClientState(
-                estimator.DenseStep(cfg.dense, self._dense_graphs))
+                estimator.DenseStep(cfg.dense, self._dense_graphs, self._roll_graphs))
         if ds.ref_index < 0:
             self._new_reference(ds, pkt, idx)
             return
@@ -292,45 +298,46 @@ class CollaborativeServer:
         if ds.fused >= cfg.min_fused_frames and ds.since_ref >= cfg.ref_advance:
             with self.tracer.span("fuse"):
                 self._finalize_and_integrate(cid, ds, k)
-            self._new_reference(ds, pkt, idx, k=k)
+            with self.tracer.span("roll"):     # old reference to new: the frame's pose
+                self._roll(ds, pkt, k, r_mr, t_mr, meas_t)
+            ds.ref_index, ds.fused, ds.since_ref = idx, 0, 0
+            ds.last_meas = ds.last_a = ds.last_b = None
 
-    def _new_reference(self, ds: _DenseClientState, pkt: KeyframePacket, idx: int,
-                       k: np.ndarray | None = None) -> None:
-        """Start client `ds`'s next reference on keyframe `idx`, in its
-        step's buffers: from scratch, or with `k` (a roll) seeded from the
-        current reference's filter."""
-        cfg = self.cfg.dense
-        img = pkt.image
-        if img.shape != (cfg.height, cfg.width):
-            raise ValueError(
-                f"dense config expects {cfg.height}x{cfg.width} images, "
-                f"got {img.shape} — set PipelineConfig.dense accordingly")
-        cid = int(pkt.client_id)
-        img_t = self._undistort(cid, img)
-        k_ref = self._k_matrix(pkt) if k is None else k
-        sp = self._sparse_from_packet(pkt, k_ref)
+    def _new_reference(self, ds: _DenseClientState, pkt: KeyframePacket, idx: int) -> None:
+        """Start client `ds`'s first reference on keyframe `idx`, in its
+        step's buffers (which this allocates)."""
+        img_t = self._undistort(int(pkt.client_id), pkt.image)
+        sp = self._sparse_from_packet(pkt, self._k_matrix(pkt))
         sp_args = {}
         if sp is not None:
             sp_args = dict(sparse_uv=self._tensor(sp[0]),
                            sparse_inv_depth=self._tensor(sp[1]),
                            sparse_valid=self._tensor(sp[2], torch.bool))
-        if k is not None:
-            # seed the new reference's filter from the previous one
-            # (`PropogateFromPreviousFrame`)
-            r_wc_old, t_wc_old = self._world_cam_pose(ds.ref_index)
-            r_wc_new, t_wc_new = self._world_cam_pose(idx)
-            r_no = r_wc_new.T @ r_wc_old
-            t_no = r_wc_new.T @ (t_wc_old - t_wc_new)
-            bias = (estimator.splat_sparse(cfg, sp_args["sparse_uv"],
-                                           sp_args["sparse_inv_depth"],
-                                           sp_args["sparse_valid"])
-                    if sp is not None else None)
-            ds.step.propagate_reference(img_t, self._tensor(r_no), self._tensor(t_no),
-                                        self._tensor(k), sparse_bias=bias)
-        else:
-            ds.step.init_reference(img_t, **sp_args)
+        ds.step.init_reference(img_t, **sp_args)
         ds.ref_index, ds.fused, ds.since_ref = idx, 0, 0
-        ds.last_meas = ds.last_a = ds.last_b = None
+
+    def _roll(self, ds: _DenseClientState, pkt: KeyframePacket, k: np.ndarray,
+              r_no: np.ndarray, t_no: np.ndarray, img_t: torch.Tensor) -> None:
+        """Roll client `ds`'s reference to the keyframe the frame just fused,
+        whose image it uploaded as `img_t`, seeding the new reference's
+        filter from the current one's through the frame's old-to-new pose
+        (`r_no`, `t_no`; `PropogateFromPreviousFrame`): its host inputs in
+        one upload, K⁻¹ computed once a client, the rest one graph replay
+        on the card (`DenseStep.roll`). A roll that replayed a graph and
+        captured none is recorded as one `roll_graph` too, so an eager roll
+        or a capture reads as a roll that was not replayed."""
+        inputs = estimator.roll_inputs(r_no, t_no, k, self._sparse_from_packet(pkt, k),
+                                       self.device)
+        if ds.k_inv is None or ds.k_inv[0] != k.tobytes():
+            k_t = estimator.unpack_roll_inputs(inputs)[2]
+            with tracing.sync():     # the inverse's error check blocks the host
+                ds.k_inv = (k.tobytes(), torch.linalg.inv(k_t))
+        rolls = ds.step.rolls
+        replays, captures = rolls.replays, rolls.captures
+        t0 = time.perf_counter()
+        ds.step.roll(img_t, inputs, ds.k_inv[1])
+        if rolls.replays > replays and rolls.captures == captures:     # a replay alone
+            self.tracer.add("roll_graph", time.perf_counter() - t0)
 
     def _finalize_and_integrate(self, cid: int, ds: _DenseClientState,
                                 k: np.ndarray):

@@ -29,10 +29,12 @@ __all__ = ["Tracer", "STAGES", "global_tracer", "span", "sync"]
 
 # the names the collaborative server records (`server/pipeline.py`,
 # `server/posegraph.py`, `mapping/tsdf.py`): the stages, ingest's parts, the
-# solver thread's solve and its time on the solver's stream, and the
+# solver thread's solve and its time on the solver's stream, a reference
+# roll and the rolls that replayed a graph captured before, and the
 # blocking transfers, named by the outermost span open around them
 STAGES = ("ingest", "lock_wait", "bow", "loop_verify", "optimize", "optimize_device",
-          "depth", "remap", "fuse", "mesh", "ingest_sync", "optimize_sync", "depth_sync")
+          "depth", "remap", "fuse", "mesh", "roll", "roll_graph", "ingest_sync",
+          "optimize_sync", "depth_sync")
 SAMPLES = 10_000
 
 _local = threading.local()      # `stack`: this thread's open spans, outermost first

@@ -561,18 +561,19 @@ def test_graphed_dense_frames_equal_eager(dev):
     from cvids_tpu_torch.utils.cuda_graph import disable_graphs
 
     cfg, ref, meas, (a, gate), (a_rot, gate_rot), b, k = _dense_inputs(dev)
-    uv = torch.tensor([[10.0, 10.0], [30.0, 20.0], [50.0, 40.0]], device=dev)
-    bias = estimator.splat_sparse(cfg, uv, torch.full((3,), 0.3, device=dev),
-                                  torch.ones(3, dtype=torch.bool, device=dev))
+    landmarks = (np.array([[10.0, 10.0], [30.0, 20.0], [50.0, 40.0]], np.float32),
+                 np.full(3, 0.3, np.float32), np.ones(3, bool))
+    inputs = estimator.roll_inputs(np.eye(3), np.zeros(3), k.cpu().numpy(), landmarks, dev)
+    k_inv = torch.linalg.inv(k)
     eager, graphed = estimator.DenseStep(cfg), estimator.DenseStep(cfg)
     for step in (eager, graphed):
         step.init_reference(ref)
     frames = [(a, gate), (a_rot, gate_rot), "roll", (a, gate), (a_rot, gate_rot), (a, gate)]
     for frame in frames:
         if frame == "roll":
-            for step in (eager, graphed):
-                step.propagate_reference(ref, torch.eye(3, device=dev),
-                                         torch.zeros(3, device=dev), k, sparse_bias=bias)
+            with disable_graphs():
+                eager.roll(ref, inputs, k_inv)
+            graphed.roll(ref, inputs, k_inv)
             continue
         with disable_graphs():
             eager.fuse(meas, frame[0], b, frame[1])
@@ -601,6 +602,72 @@ def test_graphed_dense_frame_counts_its_launches(dev):
     assert ck.launches == {"warp_banded": 3, "plane_sweep": 3, "sgm_scan": 6, "wta": 3,
                            "hamming_matrix": 0, "depth_filter_update": 3, "small_eig": 0,
                            "klt_track": 0, "tsdf_integrate": 0}
+
+
+def _dense_buffers(state):
+    """(name, tensor) of every buffer a dense step writes."""
+    named = [(n, getattr(state, n)) for n in ("ref_img", "grad", "penalty", "mean_cost",
+                                              "count", "num_frames")]
+    named += list(zip(state.filt._fields, state.filt))
+    return named + ([("sparse_bias", state.sparse_bias)] if state.sparse_bias is not None else [])
+
+
+def test_graphed_rolls_equal_eager(dev):
+    """Five reference rolls replayed as CUDA graphs (`DenseStep.roll`, with
+    landmarks at two tiers and with none) equal the same rolls under
+    `disable_graphs()` bit for bit in every buffer they write, and so do the
+    graphed frames fused after them; the buffers never move, and a roll of a
+    signature seen before captures nothing. The splat's ring of shifted
+    windows is the reference's loop of rolls, bit for bit."""
+    from cvids_tpu_torch.dense import estimator
+    from cvids_tpu_torch.utils.cuda_graph import disable_graphs
+    from test_torch_roll import splat_by_rolls
+
+    cfg, ref, meas, (a, gate), _, b, k = _dense_inputs(dev)
+    rng = np.random.default_rng(11)
+    axis = np.array([1.0, 1.0, 0.2]) / np.linalg.norm([1.0, 1.0, 0.2])
+    skew = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    r_no = (np.eye(3) + np.sin(0.04) * skew + (1 - np.cos(0.04)) * skew @ skew).astype(np.float32)
+    t_no = np.array([-0.05, 0.01, 0.03], np.float32)
+    h, w = cfg.height, cfg.width
+    eager, graphed = estimator.DenseStep(cfg), estimator.DenseStep(cfg)
+    for step in (eager, graphed):
+        step.init_reference(ref)
+    addresses = None
+    for i, p in enumerate([100, 300, None, 200, None]):     # tiers 256, 512, none, 256, none
+        with disable_graphs():
+            eager.fuse(meas, a, b, gate)
+        graphed.fuse(meas, a, b, gate)
+        for (name, x), (_, y) in zip(_dense_buffers(eager.state), _dense_buffers(graphed.state)):
+            assert _same_bits(x, y), f"frame before roll {i}: {name}"
+        landmarks = None if p is None else (
+            rng.uniform([-2.0, -2.0], [w + 2.0, h + 2.0], (p, 2)).astype(np.float32),
+            rng.uniform(0.2, 1.5, p).astype(np.float32), rng.random(p) < 0.9)
+        if landmarks is not None:
+            lm = [torch.from_numpy(x).to(dev) for x in landmarks]
+            assert _same_bits(estimator.splat_sparse(cfg, *lm), splat_by_rolls(cfg, *lm))
+        inputs = estimator.roll_inputs(r_no, t_no, k.cpu().numpy(), landmarks, dev)
+        k_inv = torch.linalg.inv(k)
+        captures = graphed.rolls.captures
+        new_ref = (meas, ref)[i % 2]
+        with disable_graphs():
+            eager.roll(new_ref, inputs, k_inv)
+        graphed.roll(new_ref, inputs, k_inv)
+        named = _dense_buffers(graphed.state)
+        assert [n for n, _ in named] == [n for n, _ in _dense_buffers(eager.state)]
+        for (name, x), (_, y) in zip(_dense_buffers(eager.state), named):
+            assert _same_bits(x, y), f"roll {i}: {name}"
+        assert graphed.rolls.captures == captures + (i < 3), f"roll {i}"
+        ptrs = {n: x.data_ptr() for n, x in named}
+        assert addresses is None or all(addresses.get(n, v) == v for n, v in ptrs.items())
+        addresses = {**(addresses or {}), **ptrs}
+    with disable_graphs():
+        eager.fuse(meas, a, b, gate)
+    graphed.fuse(meas, a, b, gate)
+    for (name, x), (_, y) in zip(_dense_buffers(eager.state), _dense_buffers(graphed.state)):
+        assert _same_bits(x, y), f"last frame: {name}"
+    assert graphed.rolls.replays == 5 and len(graphed.rolls.graphs) == 3
+    assert eager.rolls.replays == 0 and eager.rolls.captures == 0
 
 
 def _solve_problem(dev, n, seed):

@@ -99,17 +99,17 @@ def _agrees_with_jax(out: te.DenseState, js) -> None:
 
 
 def test_dense_step_buffers_over_three_references(rng):
-    """One client's buffers reused over `init`, `propagate` with a sparse
-    bias and `propagate` without one give, frame for frame, the states of
-    fresh allocations, and each frame is the JAX package's
-    `fuse_measurement` of the same state."""
+    """One client's buffers reused over `init`, a `roll` with landmarks
+    and a `roll` without give, frame for frame, the states of fresh
+    allocations (`propagate_reference` of the landmarks' splat), and each
+    frame is the JAX package's `fuse_measurement` of the same state."""
     cfg, jc = te.DenseConfig(**_cfg_kw()), je.DenseConfig(**_cfg_kw())
     refs, k = _scene(rng)
     gy, gx = np.mgrid[3:H - 3:6, 3:W - 3:6]
-    uv = _t(np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32))
-    bias = te.splat_sparse(cfg, uv, torch.full((len(uv),), 0.5),
-                           torch.ones(len(uv), dtype=torch.bool))
-    r_no, t_no = torch.eye(3), torch.tensor([-0.1, 0.0, 0.0])
+    uv = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    landmarks = (uv, np.full(len(uv), 0.5, np.float32), np.ones(len(uv), bool))
+    bias = te.splat_sparse(cfg, *(torch.from_numpy(x) for x in landmarks))
+    r_no, t_no = np.eye(3, dtype=np.float32), np.array([-0.1, 0.0, 0.0], np.float32)
 
     step = te.DenseStep(cfg)
     buffers = None
@@ -119,10 +119,10 @@ def test_dense_step_buffers_over_three_references(rng):
             st = step.init_reference(_t(ref))
             fresh = te.init_reference(cfg, _t(ref))
         else:
-            b = bias if r == 1 else None
-            st = step.propagate_reference(_t(ref), r_no, t_no, _t(k), sparse_bias=b)
-            fresh = te.propagate_reference(cfg, fresh, _t(ref), r_no, t_no, _t(k),
-                                           sparse_bias=b)
+            inputs = te.roll_inputs(r_no, t_no, k, landmarks if r == 1 else None, "cpu")
+            st = step.roll(_t(ref), inputs, torch.linalg.inv(_t(k)))
+            fresh = te.propagate_reference(cfg, fresh, _t(ref), _t(r_no), _t(t_no), _t(k),
+                                           sparse_bias=bias if r == 1 else None)
         assert (st.sparse_bias is None) == (r != 1)
         ptrs = [x.data_ptr() for x in (st.mean_cost, st.count, *st.filt, st.num_frames)]
         assert buffers is None or ptrs == buffers       # the same buffers throughout

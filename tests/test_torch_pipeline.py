@@ -157,9 +157,10 @@ def test_pipeline_matches_jax(both_servers, tmp_path):
     verts, t, _ = read_ply(str(tmp_path / "port.ply"))
     assert t == nt and (np.abs(verts[:, 2]) < 0.1).sum() > 50   # the floor
     # the JAX package's spans, and besides them only the pose graph's parts
-    # of ingest and the blocking transfers, each a name of `STAGES`
+    # of ingest, a reference roll and its replay, and the blocking
+    # transfers, each a name of `STAGES`
     added = {"lock_wait", "bow", "loop_verify", "ingest_sync", "depth_sync", "optimize_sync",
-             "optimize_device"}
+             "optimize_device", "roll", "roll_graph"}
     port, ref = set(st.tracer.totals), set(sj.tracer.totals)
     assert ref >= {"ingest", "depth", "fuse", "mesh"}
     assert ref <= port <= set(tracing.STAGES) and port - ref <= added

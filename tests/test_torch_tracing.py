@@ -220,16 +220,27 @@ def test_profiler_export_holds_ingest_ranges(stream, tmp_path):
 
 def test_a_new_reference_enters_sync_at_each_blocking_call():
     """`tracing.sync()` around a new reference's blocking calls on the
-    card: the Sobel taps' two uploads, and a propagated reference's K⁻¹."""
+    card: the Sobel taps' one upload a device (none once cached), and a
+    propagated reference's K⁻¹; none in a roll given its uploaded inputs
+    and K⁻¹."""
     from cvids_tpu_torch.dense import estimator
+    from cvids_tpu_torch.ops import image
     tr = Tracer()
     cfg = estimator.DenseConfig(height=16, width=24, num_depths=8)
     step = estimator.DenseStep(cfg)
     img = torch.rand((16, 24), generator=torch.Generator().manual_seed(0))
     k = torch.tensor([[20.0, 0.0, 12.0], [0.0, 20.0, 8.0], [0.0, 0.0, 1.0]])
+    image._SOBEL_TAPS.pop(img.device, None)
     with tr.span("depth"):
         step.init_reference(img)
-    assert tr.counts["depth_sync"] == 2
+    assert tr.counts["depth_sync"] == 1
     with tr.span("depth"):
-        step.propagate_reference(img, torch.eye(3), torch.zeros(3), k)
-    assert tr.counts["depth_sync"] == 5 and tr.counts["depth"] == 2
+        step.init_reference(img)
+    assert tr.counts["depth_sync"] == 1
+    with tr.span("depth"):
+        estimator.propagate_reference(cfg, step.state, img, torch.eye(3), torch.zeros(3), k)
+    assert tr.counts["depth_sync"] == 2
+    inputs = estimator.roll_inputs(np.eye(3), np.zeros(3), k.numpy(), None, img.device)
+    with tr.span("depth"):
+        step.roll(img, inputs, torch.linalg.inv(k))
+    assert tr.counts["depth_sync"] == 2 and tr.counts["depth"] == 4
